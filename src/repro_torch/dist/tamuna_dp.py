@@ -1,0 +1,227 @@
+"""TAMUNA-DP on one GPU (``repro.dist.tamuna_dp``): config, state, the
+local step, the comm step and the round length.
+
+A round gathers the cohort, runs L local steps ``x <- x - gamma (g - h)``
+on the cohort's rows, then one compressed comm step: the owner-masked UpCom
+with the exact ``1/s`` rebuild, the control-variate update on owned
+coordinates and the DownCom to the ``down`` rows.
+
+Randomness is injected: the comm step takes the round's ``cohort``, the
+template permutation ``perm`` and the DownCom rows ``down`` as arguments
+(the reference draws them from threefry keys); ``dist/rounds.py`` draws
+them from a ``torch.Generator``.  The geometric round length is the
+reference's numpy draw and ports bitwise.
+
+Only ``uplink="masked_psum"`` with ``local_opt="sgd"`` is ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core import masks, theory
+from repro_torch.dist import comm_ws, model_api
+from repro_torch.kernels.local_step import fused_local_step
+from repro_torch.models.transformer import ModelConfig
+
+__all__ = [
+    "DistTamunaConfig",
+    "DistTamunaState",
+    "init_state",
+    "member_mask",
+    "gather_cohort",
+    "scatter_cohort",
+    "make_local_step",
+    "make_comm_step",
+    "sample_round_length",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class DistTamunaConfig:
+    gamma: float  # local stepsize
+    c: int  # cohort size (2 <= c <= n)
+    s: int  # sparsity index (2 <= s <= c); s == c disables compression
+    p: float  # inverse expected local steps per round
+    eta: Optional[float] = None  # control stepsize; None -> Remark 2 default
+    uplink: str = "masked_psum"
+    local_opt: str = "sgd"
+
+    def __post_init__(self):
+        if not (2 <= self.s <= self.c):
+            raise ValueError(f"need 2 <= s <= c, got s={self.s} c={self.c}")
+        if self.uplink != "masked_psum":
+            raise ValueError(f"uplink {self.uplink!r} is not ported; only "
+                             "'masked_psum' is")
+        if self.local_opt != "sgd":
+            raise ValueError(f"local_opt {self.local_opt!r} is not ported; "
+                             "only 'sgd' is")
+
+    def eta_(self, n: int) -> float:
+        """Control-variate stepsize: Remark 2's ``p * chi_max(n, s)`` over
+        the population ``n``."""
+        if self.eta is not None:
+            return self.eta
+        return theory.recommended_eta(self.p, max(n, 2), self.s)
+
+
+@dataclasses.dataclass
+class DistTamunaState:
+    """Client-stacked state; the workspaces are updated in place."""
+
+    x: torch.Tensor  # (n, d_total) f32: row i is client i's parameters
+    h: torch.Tensor  # (n, d_total) f32 control variates; sum_i h_i == 0
+    spec: comm_ws.WorkspaceSpec  # leaf layout of a row
+    round: int = 0
+    up_floats: float = 0.0  # cumulative uplink floats per client
+    down_floats: float = 0.0
+    up_bytes: float = 0.0  # cumulative uplink wire bytes per client (f32)
+    down_bytes: float = 0.0
+
+
+def init_state(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int, *,
+               seed: int = 0, device="cuda") -> DistTamunaState:
+    """Every client starts from the same random model (drawn from a
+    ``torch.Generator`` seeded with ``seed``); h starts at zero."""
+    if tcfg.c > n:
+        raise ValueError(f"cohort c={tcfg.c} exceeds population n={n}")
+    params = model_api.init(cfg, seed=seed, device=device)
+    spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
+    dev = params["embed"].device
+    x = torch.empty(n, spec.d_total, dtype=torch.float32, device=dev)
+    comm_ws.pack(params, spec, x[0])
+    del params
+    x[1:] = x[0]
+    h = torch.zeros_like(x)
+    return DistTamunaState(x=x, h=h, spec=spec)
+
+
+def member_mask(cohort: Sequence[int], n: int) -> torch.Tensor:
+    """``(n,)`` bool membership of a cohort (on the CPU)."""
+    mask = torch.zeros(n, dtype=torch.bool)
+    mask[torch.as_tensor(cohort, dtype=torch.long)] = True
+    return mask
+
+
+class Cohort(NamedTuple):
+    """The cohort's rows of the state as views: ``x[a]``/``h[a]`` alias row
+    ``rows[a]`` of the workspaces."""
+
+    rows: List[int]
+    x: List[torch.Tensor]
+    h: List[torch.Tensor]
+
+
+def gather_cohort(state: DistTamunaState,
+                  cohort: Sequence[int]) -> Cohort:
+    """The cohort's rows for local training.  The reference gathers them
+    into a compact copy; here they are views of the workspace rows, so the
+    local steps update the state in place and no copy is made."""
+    rows = [int(i) for i in cohort]
+    return Cohort(rows, [state.x[i] for i in rows],
+                  [state.h[i] for i in rows])
+
+
+def scatter_cohort(state: DistTamunaState,
+                   compact: Cohort) -> DistTamunaState:
+    """The inverse of ``gather_cohort``: the rows were views, so they are
+    already in place; raises if they are not views of this state."""
+    for i, xr, hr in zip(compact.rows, compact.x, compact.h):
+        if (xr.data_ptr() != state.x[i].data_ptr()
+                or hr.data_ptr() != state.h[i].data_ptr()):
+            raise ValueError(f"cohort row {i} is not a view of the state")
+    return state
+
+
+def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
+                    ) -> Callable[..., Dict[str, torch.Tensor]]:
+    """Build ``fn(compact, *, tokens, labels) -> {"loss": mean loss}``.
+
+    ``tokens``/``labels`` are ``(c, b, T)``, row ``a`` the batch of cohort
+    member ``a``.  Each member's loss and gradient are taken on views of its
+    workspace row, then ``fused_local_step`` writes ``x - gamma (g - h)``
+    into the row leaf by leaf.  Members are independent, so one at a time
+    is the reference's vmap over them, with one member's gradients alive
+    at once."""
+    gamma = tcfg.gamma
+    spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
+
+    def fn(compact: Cohort, *, tokens: torch.Tensor,
+           labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        losses = []
+        for a, (xr, hr) in enumerate(zip(compact.x, compact.h)):
+            xs = comm_ws.leaf_views(xr, spec)
+            hs = comm_ws.leaf_views(hr, spec)
+            params = {k: v.detach().requires_grad_(True)
+                      for k, v in xs.items()}
+            loss, _ = model_api.loss(params, cfg, tokens=tokens[a],
+                                     labels=labels[a])
+            grads = torch.autograd.grad(loss, list(params.values()))
+            for (name, xv), g in zip(xs.items(), grads):
+                fused_local_step(xv, g.contiguous(), hs[name], gamma, out=xv)
+            losses.append(loss.detach())
+        return {"loss": torch.stack(losses).mean()}
+
+    return fn
+
+
+def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
+                   device="cuda"):
+    """Build ``fn(state, cohort, perm, down=None) -> state``: UpCom +
+    control-variate update + DownCom of one round, in place.
+
+    ``cohort`` is the round's ``c`` clients, ``perm`` a permutation of the
+    ``c`` template columns (cohort member ``a`` uploads column
+    ``perm[a]``), ``down`` the ``(n,)`` bool DownCom rows (the next
+    round's cohort; ``None`` broadcasts to every row).  The band table and
+    the float accounting are built once here."""
+    c, s = tcfg.c, tcfg.s
+    if c > n:
+        raise ValueError(f"cohort c={c} exceeds population n={n}")
+    scale = tcfg.eta_(n) / tcfg.gamma
+    spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
+    tall = [nm for nm, D in zip(spec.names, spec.dims) if D * s < c]
+    if tall:
+        raise NotImplementedError(
+            f"leaves {tall} are tall-and-thin (D s < c); their dense "
+            "fallback is not ported")
+    band = comm_ws.cyclic_band(spec.dims, c, s, resolve_device(device))
+    up_total = float(sum(masks.column_nnz(D, c, s) for D in spec.dims))
+    down_total = float(spec.d_total)
+
+    def fn(state: DistTamunaState, cohort: Sequence[int],
+           perm: Sequence[int],
+           down: Optional[torch.Tensor] = None) -> DistTamunaState:
+        cohort = np.asarray(cohort, dtype=np.int64)
+        perm = np.asarray(perm, dtype=np.int64)
+        if cohort.shape != (c,) or sorted(perm.tolist()) != list(range(c)):
+            raise ValueError(f"need a cohort of {c} clients and a "
+                             f"permutation of range({c})")
+        # the client's template column: perm[cohort slot], -1 when idle
+        slot = np.full(n, -1, dtype=np.int32)
+        slot[cohort] = perm
+        dev = state.x.device
+        slot_t = torch.from_numpy(slot).to(dev)
+        down_t = (None if down is None
+                  else torch.as_tensor(down).to(torch.int32).to(dev))
+        comm_ws.cyclic_comm(state.x, state.h, slot_t, band, c, s, scale,
+                            down=down_t)
+        state.round += 1
+        state.up_floats += up_total
+        state.down_floats += down_total
+        state.up_bytes += 4.0 * up_total  # f32 wire
+        state.down_bytes += 4.0 * down_total
+        return state
+
+    return fn
+
+
+def sample_round_length(rng: np.random.Generator, p: float,
+                        max_L: int = 100_000) -> int:
+    """Host-side ``L ~ Geometric(p)`` draw, capped at ``max_L``."""
+    return int(min(rng.geometric(p), max_L))

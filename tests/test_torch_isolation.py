@@ -1,0 +1,83 @@
+"""The port stands alone: no jax and no ``repro`` at run time, the GPU by
+default with no quiet fallback to the CPU, and a CLI that trains on the
+CPU when asked."""
+
+import math
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(REPO, "src")
+
+
+def _run(args, timeout=300):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    return subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, timeout=timeout, env=env, cwd=REPO)
+
+
+def test_importing_every_module_pulls_in_neither_jax_nor_repro():
+    code = """
+import importlib, pkgutil, runpy, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+runpy.run_path("chip_smoke.py", run_name="not_main")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+    proc = _run(["-c", code])
+    assert proc.returncode == 0, proc.stderr
+    count, bad = proc.stdout.split(" ", 1)
+    assert int(count) >= 16
+    assert bad.strip() == "[]", bad
+
+
+def _default_device_calls():
+    from repro_torch._device import resolve_device
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import model_api, tamuna_dp
+    from repro_torch.launch import train
+
+    cfg = gemma2_2b.REDUCED
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=0.05, c=3, s=2, p=0.5)
+    return {
+        "resolve_device": lambda: resolve_device(),
+        "model_api.init": lambda: model_api.init(cfg),
+        "init_state": lambda: tamuna_dp.init_state(cfg, tcfg, 4),
+        "make_comm_step": lambda: tamuna_dp.make_comm_step(cfg, tcfg, 4),
+        "pipeline": lambda: SyntheticTokenPipeline(
+            DataConfig(n_clients=4), cfg),
+        "train.main": lambda: train.main(["--reduced", "--rounds", "1"]),
+    }
+
+
+@pytest.mark.parametrize("entry", ["resolve_device", "model_api.init",
+                                   "init_state", "make_comm_step",
+                                   "pipeline", "train.main"])
+def test_default_device_raises_without_cuda(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _default_device_calls()[entry]()
+
+
+def test_train_cli_runs_on_cpu_when_asked():
+    proc = _run(["-m", "repro_torch.launch.train", "--arch", "gemma2-2b",
+                 "--reduced", "--rounds", "2", "--device", "cpu"])
+    assert proc.returncode == 0, proc.stderr
+    m = re.search(r"on cpu in [0-9.]+s; final loss (\S+)$",
+                  proc.stdout.strip())
+    assert m, proc.stdout
+    assert math.isfinite(float(m.group(1))), proc.stdout
