@@ -8,8 +8,8 @@ each round (``comm_ws.pack``/``unpack``, two copies of the state), the port
 keeps the state in it: a leaf is a view into a row, the local step updates
 a client's row in place and the comm step updates both workspaces in
 place.  The numbers are those of the reference's kernel path
-(``comm_ws._pallas_comm`` with ``survivor=False``, no wire, no robust
-combine); only the copies are gone.
+(``comm_ws._pallas_comm`` without the wire: the mean, survivor and robust
+rebuilds); only the copies are gone.
 
 The cyclic band ``(-s k_leaf) mod c`` restarts at every leaf, so the leaf
 order and the stacked ``(n_layers, ...)`` block leaves decide which client
@@ -100,12 +100,41 @@ def cyclic_band(dims: Sequence[int], c: int, s: int,
 
 def cyclic_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
                 band: torch.Tensor, c: int, s: int, scale: float,
-                down: Optional[torch.Tensor] = None) -> torch.Tensor:
+                down: Optional[torch.Tensor] = None,
+                arrived: Optional[torch.Tensor] = None,
+                correct: bool = True,
+                robust: Optional[Tuple[str, int]] = None) -> torch.Tensor:
     """UpCom + control-variate update + DownCom of the cyclic template, in
     place on the workspaces; returns the rebuilt server model ``x_bar``.
 
     ``slot`` ``(n,)`` int32 is each client's template column (-1 when idle),
-    ``down`` ``(n,)`` int32 the DownCom rows (``None``: every row)."""
-    x_bar = uplink.masked_sum(xw, slot, band, c, s)
-    uplink.h_update(xw, hw, x_bar, slot, band, c, s, scale, down=down)
+    ``down`` ``(n,)`` int32 the DownCom rows (``None``: every row).
+
+    ``arrived`` ``(n,)`` bool (the fault-tolerant round) demotes the rows
+    that did not arrive to ``slot = -1``; with ``correct`` the rebuild is
+    the survivor mean ``num / max(cnt, 1)`` over the arrived owners, and
+    coordinates no arrived row owns keep h and x untouched.  ``robust``
+    (``robust.normalize_robust``'s spec) replaces the mean by a trimmed
+    mean or median; it is gated the same way on survivor rounds.  The
+    reference's kernel path, ``comm_ws._pallas_comm`` without the wire."""
+    survivor = arrived is not None and correct
+    if arrived is not None:
+        slot = torch.where(arrived.to(slot.device), slot, -1).to(torch.int32)
+    covered = None
+    if robust is not None:
+        x_bar, cnt = uplink.robust_sum(xw, slot, band, c, s, kind=robust[0],
+                                       k=robust[1])
+        if survivor:
+            covered = cnt > 0
+        del cnt
+    elif survivor:
+        # comm_ws._survivor_bar, in place on the sum
+        x_bar, cnt = uplink.masked_sum(xw, slot, band, c, s, counts=True)
+        covered = cnt > 0
+        x_bar.div_(cnt.clamp_(min=1.0))
+        del cnt
+    else:
+        x_bar = uplink.masked_sum(xw, slot, band, c, s)
+    uplink.h_update(xw, hw, x_bar, slot, band, c, s, scale, down=down,
+                    covered=covered)
     return x_bar

@@ -9,23 +9,26 @@ coordinates and the DownCom to the ``down`` rows.
 Randomness is injected: the comm step takes the round's ``cohort``, the
 template permutation ``perm`` and the DownCom rows ``down`` as arguments
 (the reference draws them from threefry keys); ``dist/rounds.py`` draws
-them from a ``torch.Generator``.  The geometric round length is the
+the permutation from a ``torch.Generator`` and the cohorts from a numpy
+stream or a ``CohortPlan``.  The geometric round length is the
 reference's numpy draw and ports bitwise.
 
-Only ``uplink="masked_psum"`` with ``local_opt="sgd"`` is ported.
+Only ``uplink="masked_psum"`` with ``local_opt="sgd"`` is ported, with the
+mean, trimmed-mean and median combiners (``robust_agg``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import masks, theory
-from repro_torch.dist import comm_ws, model_api
+from repro_torch.dist import comm_ws, model_api, robust
 from repro_torch.kernels.local_step import fused_local_step
 from repro_torch.models.transformer import ModelConfig
 
@@ -51,6 +54,10 @@ class DistTamunaConfig:
     eta: Optional[float] = None  # control stepsize; None -> Remark 2 default
     uplink: str = "masked_psum"
     local_opt: str = "sgd"
+    robust_agg: str = "mean"  # per-coordinate combiner: "mean" |
+    #   "trimmed" (trim_k per side) | "median"; "mean" (and trimmed at
+    #   k=0) is the mean path, bitwise
+    trim_k: int = 0  # values trimmed per side under robust_agg="trimmed"
 
     def __post_init__(self):
         if not (2 <= self.s <= self.c):
@@ -61,6 +68,13 @@ class DistTamunaConfig:
         if self.local_opt != "sgd":
             raise ValueError(f"local_opt {self.local_opt!r} is not ported; "
                              "only 'sgd' is")
+        # validates robust_agg/trim_k against s (raises on bad specs)
+        robust.normalize_robust(self.robust_agg, self.trim_k, self.s)
+
+    def robust_(self) -> Optional[Tuple[str, int]]:
+        """The normalized robust-combiner spec the comm step takes:
+        ``None`` (the mean path) or ``("trimmed", k)``/``("median", 0)``."""
+        return robust.normalize_robust(self.robust_agg, self.trim_k, self.s)
 
     def eta_(self, n: int) -> float:
         """Control-variate stepsize: Remark 2's ``p * chi_max(n, s)`` over
@@ -172,14 +186,18 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
 
 def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
                    device="cuda"):
-    """Build ``fn(state, cohort, perm, down=None) -> state``: UpCom +
-    control-variate update + DownCom of one round, in place.
+    """Build ``fn(state, cohort, perm, down=None, arrived=None,
+    correct=True) -> state``: UpCom + control-variate update + DownCom of
+    one round, in place.
 
     ``cohort`` is the round's ``c`` clients, ``perm`` a permutation of the
     ``c`` template columns (cohort member ``a`` uploads column
     ``perm[a]``), ``down`` the ``(n,)`` bool DownCom rows (the next
-    round's cohort; ``None`` broadcasts to every row).  The band table and
-    the float accounting are built once here."""
+    round's cohort; ``None`` broadcasts to every row).  ``arrived``
+    (``(n,)`` bool) and ``correct`` are the fault-tolerant round's inputs
+    (``comm_ws.cyclic_comm``); the uplink counters then count only the
+    arrived members.  The band table and the float accounting are built
+    once here."""
     c, s = tcfg.c, tcfg.s
     if c > n:
         raise ValueError(f"cohort c={c} exceeds population n={n}")
@@ -191,12 +209,14 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
             f"leaves {tall} are tall-and-thin (D s < c); their dense "
             "fallback is not ported")
     band = comm_ws.cyclic_band(spec.dims, c, s, resolve_device(device))
+    rspec = tcfg.robust_()
     up_total = float(sum(masks.column_nnz(D, c, s) for D in spec.dims))
     down_total = float(spec.d_total)
 
     def fn(state: DistTamunaState, cohort: Sequence[int],
-           perm: Sequence[int],
-           down: Optional[torch.Tensor] = None) -> DistTamunaState:
+           perm: Sequence[int], down: Optional[torch.Tensor] = None,
+           arrived: Optional[np.ndarray] = None,
+           correct: bool = True) -> DistTamunaState:
         cohort = np.asarray(cohort, dtype=np.int64)
         perm = np.asarray(perm, dtype=np.int64)
         if cohort.shape != (c,) or sorted(perm.tolist()) != list(range(c)):
@@ -209,12 +229,20 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
         slot_t = torch.from_numpy(slot).to(dev)
         down_t = (None if down is None
                   else torch.as_tensor(down).to(torch.int32).to(dev))
+        arr_t, up = None, up_total
+        if arrived is not None:
+            arrived = np.asarray(arrived, bool)
+            arr_t = torch.from_numpy(arrived).to(dev)
+            # only the arrived members' uplinks used the wire: the
+            # template spreads the uplink evenly over the c members
+            up = up_total * float(arrived[cohort].sum()) / c
         comm_ws.cyclic_comm(state.x, state.h, slot_t, band, c, s, scale,
-                            down=down_t)
+                            down=down_t, arrived=arr_t, correct=correct,
+                            robust=rspec)
         state.round += 1
-        state.up_floats += up_total
+        state.up_floats += up
         state.down_floats += down_total
-        state.up_bytes += 4.0 * up_total  # f32 wire
+        state.up_bytes += 4.0 * up  # f32 wire
         state.down_bytes += 4.0 * down_total
         return state
 

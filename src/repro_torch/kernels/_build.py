@@ -34,7 +34,8 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("masked_sum", "h_update", "fused_local_step")
+KERNELS = ("masked_sum", "masked_sum_counts", "robust_sum", "h_update",
+           "h_update_covered", "fused_local_step")
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -93,11 +94,18 @@ def load() -> ctypes.CDLL:
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
         ctypes.c_float
     lib.tamuna_masked_sum.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
+    lib.tamuna_masked_sum_counts.argtypes = [p, p, p, p, p, i64, i64, i32,
+                                             i32, p]
+    lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i32, i32,
+                                      i32, i32, p]
     lib.tamuna_h_update.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32,
                                     f32, p]
+    lib.tamuna_h_update_covered.argtypes = [p, p, p, p, p, p, p, i64, i64,
+                                            i32, i32, f32, p]
     lib.tamuna_local_step.argtypes = [p, p, p, p, i64, f32, p]
-    for fn in (lib.tamuna_masked_sum, lib.tamuna_h_update,
-               lib.tamuna_local_step):
+    for fn in (lib.tamuna_masked_sum, lib.tamuna_masked_sum_counts,
+               lib.tamuna_robust_sum, lib.tamuna_h_update,
+               lib.tamuna_h_update_covered, lib.tamuna_local_step):
         fn.restype = ctypes.c_int
     return lib
 

@@ -1,18 +1,28 @@
-"""The comm step's two kernels over the ``(n, d)`` f32 client workspace.
+"""The comm step's kernels over the ``(n, d)`` f32 client workspace.
 
 ``masked_sum`` replaces the Pallas ``repro.kernels.uplink.masked_sum``
 (``_masked_sum_kernel``, uplink.py:55): the owner-masked client-axis sum
 with the exact ``1/s`` rebuild.  It must read the owned entries of x (s of
 them per coordinate), the band and write x_bar: 4 B x (s + 2) per
-coordinate on one H100 at 3.35 TB/s.
+coordinate on one H100 at 3.35 TB/s.  With ``counts=True`` it replaces
+``_masked_sum_counts_kernel`` (uplink.py:65), the survivor UpCom: the raw
+owner sum and the owner count, 4 B per owned entry + 12 B per coordinate.
+
+``robust_sum`` replaces ``repro.kernels.uplink.robust_sum``
+(``_robust_sum_kernel``, uplink.py:106): the per-coordinate trimmed mean or
+median of the owned values.  It moves the bytes of the counts kernel; its
+order statistics stay in registers.
 
 ``h_update`` replaces ``repro.kernels.uplink.h_update`` (``_h_update_kernel``,
 uplink.py:153): ``h += scale (x_bar - x)`` on owned coordinates and the
 DownCom ``x = x_bar`` on the ``down`` rows, in place.  It must read x and h
 and write h on owned entries, read x_bar and the band, and write the
-``down`` rows of x: 4 B x (3 s + 2 + n_down) per coordinate.
+``down`` rows of x: 4 B x (3 s + 2 + n_down) per coordinate.  With
+``covered`` it replaces ``_h_update_covered_kernel`` (uplink.py:167): both
+updates gated by a ``(d,)`` bool, 1 B per coordinate more, and nothing
+touched where the gate is off.
 
-Both evaluate ownership in the kernel from the per-coordinate ``band``
+All evaluate ownership in the kernel from the per-coordinate ``band``
 table and the per-client ``slot`` vector (``compress.owned_from_band``);
 no ``(n, d)`` mask exists.  A CPU tensor runs the plain version in
 ``ref.py``; a CUDA tensor launches the kernel or raises.
@@ -20,18 +30,20 @@ no ``(n, d)`` mask exists.  A CPU tensor runs the plain version in
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
+ROBUST_MAX_S = 16  # the robust kernel is instantiated for s <= 16
+
 
 def _check(x: torch.Tensor, m: int, s: int, **others: torch.Tensor) -> None:
-    """Checks shared by both wrappers: ``1 <= s <= m``; ``h`` is ``(n, d)``
-    f32, ``x_bar`` ``(d,)`` f32, ``band`` ``(d,)`` int32, ``slot`` and
-    ``down`` ``(n,)`` int32, all contiguous and on the workspace's
-    device."""
+    """Checks shared by the wrappers: ``1 <= s <= m``; ``h`` is ``(n, d)``
+    f32, ``x_bar`` ``(d,)`` f32, ``band`` ``(d,)`` int32, ``covered``
+    ``(d,)`` bool, ``slot`` and ``down`` ``(n,)`` int32, all contiguous and
+    on the workspace's device."""
     if not 1 <= s <= m:
         raise ValueError(f"need 1 <= s <= m, got s={s} m={m}")
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
@@ -42,7 +54,7 @@ def _check(x: torch.Tensor, m: int, s: int, **others: torch.Tensor) -> None:
     n, d = x.shape
     want = {"h": ((n, d), torch.float32), "x_bar": ((d,), torch.float32),
             "band": ((d,), torch.int32), "slot": ((n,), torch.int32),
-            "down": ((n,), torch.int32)}
+            "down": ((n,), torch.int32), "covered": ((d,), torch.bool)}
     for name, t in others.items():
         shape, dtype = want[name]
         if (tuple(t.shape) != shape or t.dtype != dtype
@@ -53,41 +65,91 @@ def _check(x: torch.Tensor, m: int, s: int, **others: torch.Tensor) -> None:
 
 
 def masked_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
-               m: int, s: int) -> torch.Tensor:
+               m: int, s: int, counts: bool = False):
     """``x_bar[k] = sum_{i owns k} x[i, k] / s`` over the ``(n, d)`` f32
     workspace; ``slot`` ``(n,)`` int32 (outside ``[0, m)`` owns nothing),
-    ``band`` ``(d,)`` int32."""
+    ``band`` ``(d,)`` int32.  ``counts=True`` returns ``(num, cnt)``
+    instead: the undivided owner sum and the f32 owner count, from which
+    the survivor path rebuilds ``num / max(cnt, 1)``."""
     _check(x, m, s, slot=slot, band=band)
     if x.device.type == "cpu":
+        if counts:
+            return ref.masked_sum_counts(x, slot, band, m, s)
         return ref.masked_sum(x, slot, band, m, s)
     n, d = x.shape
     out = torch.empty(d, dtype=torch.float32, device=x.device)
-    rc = _build.load().tamuna_masked_sum(
+    lib = _build.load()
+    if counts:
+        cnt = torch.empty(d, dtype=torch.float32, device=x.device)
+        rc = lib.tamuna_masked_sum_counts(
+            x.data_ptr(), slot.data_ptr(), band.data_ptr(), out.data_ptr(),
+            cnt.data_ptr(), n, d, m, s, _build.stream_of(x))
+        _build.check_launch("masked_sum_counts", rc)
+        return out, cnt
+    rc = lib.tamuna_masked_sum(
         x.data_ptr(), slot.data_ptr(), band.data_ptr(), out.data_ptr(),
         n, d, m, s, _build.stream_of(x))
     _build.check_launch("masked_sum", rc)
     return out
 
 
+def robust_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
+               m: int, s: int, *, kind: str,
+               k: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-coordinate trimmed mean (``kind="trimmed"``, ``k`` values off
+    each side, ``0 <= 2k < s``) or median (``kind="median"``) of the owned
+    values; returns ``(x_bar, cnt)``: the combined value (0 where no row
+    owns the coordinate; not to be divided) and the f32 owner count."""
+    if kind not in ("trimmed", "median"):
+        raise ValueError(f"robust_sum kind {kind!r}")
+    if kind == "trimmed" and not 0 <= 2 * int(k) < s:
+        raise ValueError(f"robust_sum needs 0 <= 2k < s (k={k}, s={s})")
+    _check(x, m, s, slot=slot, band=band)
+    if x.device.type == "cpu":
+        return ref.robust_sum(x, slot, band, m, s, kind, int(k))
+    if s > ROBUST_MAX_S:
+        raise ValueError(f"the robust_sum kernel takes s <= {ROBUST_MAX_S}, "
+                         f"got s={s}")
+    n, d = x.shape
+    bar = torch.empty(d, dtype=torch.float32, device=x.device)
+    cnt = torch.empty(d, dtype=torch.float32, device=x.device)
+    rc = _build.load().tamuna_robust_sum(
+        x.data_ptr(), slot.data_ptr(), band.data_ptr(), bar.data_ptr(),
+        cnt.data_ptr(), n, d, m, s, int(k), int(kind == "median"),
+        _build.stream_of(x))
+    _build.check_launch("robust_sum", rc)
+    return bar, cnt
+
+
 def h_update(x: torch.Tensor, h: torch.Tensor, x_bar: torch.Tensor,
              slot: torch.Tensor, band: torch.Tensor, m: int, s: int,
-             scale: float, down: Optional[torch.Tensor] = None) -> None:
+             scale: float, down: Optional[torch.Tensor] = None,
+             covered: Optional[torch.Tensor] = None) -> None:
     """In place: ``h += scale (x_bar - x)`` on owned coordinates and the
     DownCom ``x = x_bar`` on the ``down`` rows (``(n,)`` int32 0/1; every
     row when ``None``).  Rows outside ``down`` keep their ``x`` bit-exactly
-    and unowned coordinates keep their ``h`` bit-exactly."""
+    and unowned coordinates keep their ``h`` bit-exactly.  ``covered``
+    (``(d,)`` bool, the survivor path) gates both per coordinate:
+    uncovered coordinates keep h and x bit-exactly."""
     _check(x, m, s, h=h, x_bar=x_bar, slot=slot, band=band,
-           **({} if down is None else {"down": down}))
+           **({} if down is None else {"down": down}),
+           **({} if covered is None else {"covered": covered}))
     if x.device.type == "cpu":
-        ref.h_update(x, h, x_bar, slot, band, m, s, scale, down)
+        ref.h_update(x, h, x_bar, slot, band, m, s, scale, down, covered)
         return
     n, d = x.shape
     if n > 65535:
         raise ValueError(f"h_update takes at most 65535 client rows, got {n}")
     if down is None:
         down = torch.ones(n, dtype=torch.int32, device=x.device)
-    rc = _build.load().tamuna_h_update(
-        x.data_ptr(), h.data_ptr(), x_bar.data_ptr(), slot.data_ptr(),
-        down.data_ptr(), band.data_ptr(), n, d, m, s, float(scale),
-        _build.stream_of(x))
-    _build.check_launch("h_update", rc)
+    lib = _build.load()
+    args = (x.data_ptr(), h.data_ptr(), x_bar.data_ptr(), slot.data_ptr(),
+            down.data_ptr(), band.data_ptr())
+    tail = (n, d, m, s, float(scale), _build.stream_of(x))
+    if covered is None:
+        _build.check_launch("h_update", lib.tamuna_h_update(*args, *tail))
+    else:
+        # a bool tensor is stored one byte per element, 0 or 1: the
+        # kernel's uint8 gate
+        _build.check_launch("h_update_covered", lib.tamuna_h_update_covered(
+            *args, covered.data_ptr(), *tail))

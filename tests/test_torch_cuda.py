@@ -3,8 +3,9 @@ small ragged width with an idle row of NaN.  These tests need an NVIDIA GPU
 with nvcc (``-m cuda``) and skip elsewhere; ``chip_smoke.py`` repeats the
 comparison at the main path's full shapes.
 
-All three kernels repeat their plain version's arithmetic operation for
-operation with no FMA contraction, so they agree bitwise.
+Every kernel repeats its plain version's arithmetic operation for
+operation with no FMA contraction, so they agree bitwise (NaN where the
+plain version has NaN).
 """
 
 import numpy as np
@@ -77,6 +78,59 @@ def test_local_step_kernel_matches_plain(dev, shape):
     assert torch.equal(x, want)
 
 
+def _same(a, b):
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))
+
+
+def test_masked_sum_counts_kernel_matches_plain(dev):
+    x, _, band, slot = _inputs(dev)
+    before = _build.launch_counts["masked_sum_counts"]
+    num, cnt = uplink.masked_sum(x, slot, band, M, S, counts=True)
+    assert _build.launch_counts["masked_sum_counts"] == before + 1
+    num_p, cnt_p = ref.masked_sum_counts(x, slot, band, M, S)
+    torch.cuda.synchronize()
+    assert torch.equal(num, num_p) and torch.equal(cnt, cnt_p)
+
+
+@pytest.mark.parametrize("kind,k,s", [("trimmed", 1, 3), ("median", 0, 3),
+                                      ("trimmed", 1, 4), ("median", 0, 4)])
+def test_robust_sum_kernel_matches_plain(dev, kind, k, s):
+    x, _, band, slot = _inputs(dev, 2)
+    x[0, ::7] = x[2, ::7]  # ties
+    x[0, ::101] = float("inf")
+    x[3, 50::101] = float("-inf")
+    x[4, 9::57] = float("nan")  # an owned NaN
+    before = _build.launch_counts["robust_sum"]
+    bar, cnt = uplink.robust_sum(x, slot, band, M, s, kind=kind, k=k)
+    assert _build.launch_counts["robust_sum"] == before + 1
+    bar_p, cnt_p = ref.robust_sum(x, slot, band, M, s, kind, k)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, cnt_p)
+    assert _same(bar, bar_p)
+
+
+@pytest.mark.parametrize("down", [None, [1, 0, 1, 0, 1]])
+def test_h_update_covered_kernel_matches_plain(dev, down):
+    x, h, band, _ = _inputs(dev, 3)
+    slot = torch.tensor([1, -1, -1, -1, -1], dtype=torch.int32, device=dev)
+    x_bar, cnt = uplink.masked_sum(x, slot, band, M, S, counts=True)
+    covered = cnt > 0
+    assert not bool(covered.all())
+    down_t = None if down is None else torch.tensor(
+        down, dtype=torch.int32, device=dev)
+    xk, hk = x.clone(), h.clone()
+    before = _build.launch_counts["h_update_covered"]
+    uplink.h_update(xk, hk, x_bar, slot, band, M, S, 0.37, down=down_t,
+                    covered=covered)
+    assert _build.launch_counts["h_update_covered"] == before + 1
+    ref.h_update(x, h, x_bar, slot, band, M, S, 0.37, down=down_t,
+                 covered=covered)
+    torch.cuda.synchronize()
+    assert torch.equal(hk, h)
+    assert _same(xk, x)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x, _, band, slot = _inputs(dev)
     with pytest.raises(ValueError):
@@ -85,3 +139,5 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         uplink.masked_sum(x, slot.cpu(), band, M, S)
     with pytest.raises(ValueError):
         fused_local_step(x.t(), x.t(), x.t(), 0.1)
+    with pytest.raises(ValueError):
+        uplink.robust_sum(x, slot, band, 32, 17, kind="median")
