@@ -19,12 +19,19 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    (trimmed k=1 and median at s=3) and the covered ``h_update`` on an
    ``(n=5, d)`` workspace with a dropped row of NaN, owned +inf/-inf
    entries and tied values, the covered update with 3 of 4 members
-   dropped so a quarter of the coordinates is uncovered;
+   dropped so a quarter of the coordinates is uncovered; the wire's
+   kernels: ``masked_sum_dequant`` on ``(4, d)`` int8 codes and its
+   counts form on ``(5, d)`` with a dropped row of NaN scales and
+   NaN-poisoned chunks in an owned row, ``masked_sum`` (both forms) over
+   f16 and bf16 lanes, and the quantizer ``wire_quantize`` in int8, int4
+   and DownCom modes on rows with +inf, -inf, NaN and an all-zero chunk;
 4. runs one round of the reduced gemma2-2b config on the card and on the
    CPU with the same injected schedule and batches, and compares them:
-   the fault-free round, and a round with a dropped member and the
-   trimmed mean;
-5. drives three paths of ``repro_torch.dist.rounds.run_rounds``, each for
+   the fault-free round, a round with a dropped member and the trimmed
+   mean, and an int8 ``wire_down`` round with a dropped member and the
+   trimmed mean whose comm step runs on both devices from the same
+   trained state and must agree bitwise;
+5. drives five paths of ``repro_torch.dist.rounds.run_rounds``, each for
    3 rounds of 2-layer full-width gemma2-2b (seq 128, 2 sequences per
    client, max_L 4) with the launch counts set to 0 just before and read
    just after:
@@ -35,12 +42,19 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    ``[robust]`` the robust round, n=5, c=4, s=3, 20% drops, one
                 sign-flipping Byzantine client, quorum, trimmed mean k=1
                 behind the adaptive payload guard;
+   ``[wire]``   the quantized wire, n=4, c=3, s=2, ``auto`` (the norm
+                leaves as f16 lanes, the rest int8 codes) with the DownCom
+                quantized too; prints the per-client wire bytes;
+   ``[wire_faults]`` the survivor round on the int8 wire, n=5, c=4, s=3,
+                a ``CohortPlan``, 25% uplink drops, quorum;
    each must have finite losses and launch every kernel of its path; the
-   fault-free and survivor paths must keep sum_i h_i = 0.
+   fault-free and survivor paths on the f32 wire must keep sum_i h_i = 0
+   (printed, not checked, on the others: a robust combine breaks it by
+   design, a quantized numerator by its rounding).
 
-Any failure raises and exits non-zero.  The last two lines of standard
-output are the kernels' JSON record and the device JSON record; the card's
-name and power limit come on the line before them.
+Any failure raises and exits non-zero.  The last three lines of standard
+output are the kernels' JSON record, the card's name and power limit, and
+the device JSON record.
 
 It exits non-zero without a result when no CUDA device is present, and
 when it stands in a directory without the rest of the repository.
@@ -121,6 +135,17 @@ def max_abs_err(a, b, chunk: int = 1 << 26) -> float:
         d = (x - y).abs().masked_fill(same, 0.0)
         err = max(err, float(d.nan_to_num(nan=math.inf).max()))
     return err
+
+
+def up_bytes(spec, c: int, s: int, policy: str) -> float:
+    """Per-client UpCom wire bytes of one round (``make_comm_step``'s
+    accounting) without building a comm step."""
+    from repro_torch.core import masks
+    from repro_torch.dist import wire
+
+    return sum(wire.leaf_up_bytes(masks.column_nnz(D, c, s), D, 1,
+                                  wire.resolve_kind(D, policy))
+               for D in spec.dims)
 
 
 def check_uplink_kernels(spec, tcfg, dev):
@@ -324,6 +349,229 @@ def check_fault_kernels(spec, dev):
     return recs
 
 
+def check_wire_kernels(spec, dev):
+    """The wire's kernels against their plain versions on full-width
+    workspaces: ``masked_sum_dequant`` (both forms), ``masked_sum`` over
+    f16 and bf16 lanes (both forms) and ``wire_quantize`` (int8, int4 and
+    the DownCom); returns their records."""
+    from repro_torch.dist import comm_ws, wire
+    from repro_torch.kernels import ref, uplink, wire_pack
+
+    d = spec.d_total
+    g = torch.Generator(device=dev).manual_seed(4)
+    leaves = [(i, o, D) for i, (o, D) in enumerate(zip(spec.offsets,
+                                                       spec.dims))]
+    lo = torch.tensor([0] + [o + D for _, o, D in leaves],
+                      dtype=torch.int64, device=dev)
+    nc = sum(wire.n_chunks(D) for D in spec.dims)
+    recs = []
+
+    # -- masked_sum_dequant, (4, d), the [wire] path's shape --------------
+    band = comm_ws.cyclic_band(spec.dims, C, S, dev)
+    slot = torch.tensor([1, -1, 0, 2], dtype=torch.int32, device=dev)
+    codes = torch.randint(-127, 128, (N, d), generator=g, device=dev,
+                          dtype=torch.int8)
+    scales = torch.rand(N, nc, generator=g, device=dev).mul_(0.01)
+    scales[1] = float("nan")  # the idle row's chunks never leak
+    owned = owned_entries(slot, band, C, S)
+    bar = uplink.masked_sum_dequant(codes, scales, lo, slot, band, C, S)
+    bar_p = ref.masked_sum_dequant(codes, scales, lo, slot, band, C, S)
+    torch.cuda.synchronize()
+    err = max_abs_err(bar, bar_p)
+    if not bool(bar.isfinite().all()) or err != 0.0:
+        raise AssertionError(f"masked_sum_dequant: max abs err {err}")
+    del bar, bar_p
+    recs.append({
+        "name": "masked_sum_dequant", "shape": [N, d], "max_abs_err": err,
+        "tolerance": 0.0,
+        "ms": cuda_ms(lambda: uplink.masked_sum_dequant(
+            codes, scales, lo, slot, band, C, S), 5),
+        "plain_ms": cuda_ms(lambda: ref.masked_sum_dequant(
+            codes, scales, lo, slot, band, C, S), 2),
+        # owned codes (1 B) read, the owning rows' scales, band read,
+        # x_bar written, the leaf tables and slot read
+        "bound_ms": bound_ms(owned + 4 * (3 * nc + 2 * d + 2 * len(leaves)
+                                          + N)),
+    })
+    del codes, scales, band
+
+    # -- masked_sum_dequant(counts=True), (5, d), the [wire_faults] shape --
+    band = comm_ws.cyclic_band(spec.dims, CF, SF, dev)
+    slot = torch.tensor([1, -1, 0, 3, -1], dtype=torch.int32, device=dev)
+    codes = torch.randint(-127, 128, (NF, d), generator=g, device=dev,
+                          dtype=torch.int8)
+    scales = torch.rand(NF, nc, generator=g, device=dev).mul_(0.01)
+    scales[1] = float("nan")  # the dropped row
+    scales[0, ::1000] = float("nan")  # poisoned chunks of an owned row
+    owned = owned_entries(slot, band, CF, SF)
+    num, cnt = uplink.masked_sum_dequant(codes, scales, lo, slot, band, CF,
+                                         SF, counts=True)
+    num_p, cnt_p = ref.masked_sum_dequant(codes, scales, lo, slot, band,
+                                          CF, SF, counts=True)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(num, num_p), max_abs_err(cnt, cnt_p))
+    n_nan = int(num.isnan().sum())
+    print(f"[check] masked_sum_dequant_counts: {n_nan} NaN outputs from "
+          f"{int(scales[0].isnan().sum())} poisoned chunks of row 0")
+    if err != 0.0 or n_nan == 0:
+        raise AssertionError(f"masked_sum_dequant_counts: max abs err {err},"
+                             f" {n_nan} NaN")
+    del num, cnt, num_p, cnt_p
+    recs.append({
+        "name": "masked_sum_dequant_counts", "shape": [NF, d],
+        "max_abs_err": err, "tolerance": 0.0,
+        "ms": cuda_ms(lambda: uplink.masked_sum_dequant(
+            codes, scales, lo, slot, band, CF, SF, counts=True), 5),
+        "plain_ms": cuda_ms(lambda: ref.masked_sum_dequant(
+            codes, scales, lo, slot, band, CF, SF, counts=True), 2),
+        # owned codes read, 3 owning rows' scales, band read, num and cnt
+        # written, the leaf tables and slot read
+        "bound_ms": bound_ms(owned + 4 * (3 * nc + 3 * d + 2 * len(leaves)
+                                          + NF)),
+    })
+    del codes, scales
+
+    # -- masked_sum over f16 and bf16 lanes, (4, d) -------------------------
+    band = comm_ws.cyclic_band(spec.dims, C, S, dev)
+    slot = torch.tensor([1, -1, 0, 2], dtype=torch.int32, device=dev)
+    owned = owned_entries(slot, band, C, S)
+    for lane, tag in ((torch.float16, "f16"), (torch.bfloat16, "bf16")):
+        x = torch.randn(N, d, generator=g, device=dev).to(lane)
+        x[1] = float("nan")
+        errs = []
+        for counts in (False, True):
+            got = uplink.masked_sum(x, slot, band, C, S, counts=counts)
+            want = (ref.masked_sum_counts(x, slot, band, C, S) if counts
+                    else ref.masked_sum(x, slot, band, C, S))
+            torch.cuda.synchronize()
+            got = got if counts else (got,)
+            want = want if counts else (want,)
+            errs += [max_abs_err(a, b) for a, b in zip(got, want)]
+            del got, want
+        err = max(errs)
+        if err != 0.0:
+            raise AssertionError(f"masked_sum {tag} lanes: max abs err {err}")
+        recs.append({
+            "name": f"masked_sum_{tag}", "shape": [N, d],
+            "max_abs_err": err, "tolerance": 0.0,
+            "ms": cuda_ms(lambda: uplink.masked_sum(x, slot, band, C, S), 5),
+            "plain_ms": cuda_ms(lambda: ref.masked_sum(x, slot, band, C, S),
+                                2),
+            "counts_ms": cuda_ms(lambda: uplink.masked_sum(
+                x, slot, band, C, S, counts=True), 5),
+            # owned lanes (2 B) read, band read, x_bar written, slot read
+            "bound_ms": bound_ms(2 * owned + 4 * (2 * d + N)),
+        })
+        del x
+    del band
+
+    # -- wire_quantize: int8, int4 (UpCom) and the DownCom -----------------
+    x = torch.randn(N, d, generator=g, device=dev)
+    x[0, ::1000] = float("inf")
+    x[2, 500::1000] = float("-inf")
+    x[3, 7::999_983] = float("nan")
+    x[1, 256:512] = 0.0  # an all-zero chunk of the first leaf
+    q = {}
+    for kind in ("int8", "int4"):
+        codes, scales = wire_pack.pack_int(x, leaves, kind, 0x5EED)
+        codes_p, scales_p = ref.wire_pack(x, leaves, kind, 0x5EED)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(codes, codes_p),
+                  max_abs_err(scales, scales_p))
+        n_bad = int(scales.isnan().sum())
+        if err != 0.0 or n_bad == 0:
+            raise AssertionError(f"wire_quantize {kind}: max abs err {err}, "
+                                 f"{n_bad} poisoned chunks")
+        del codes, scales, codes_p, scales_p
+        q[kind] = (err, cuda_ms(lambda: wire_pack.pack_int(
+            x, leaves, kind, 0x5EED), 5), cuda_ms(lambda: ref.wire_pack(
+                x, leaves, kind, 0x5EED), 2), n_bad)
+    row = x[0].clone()
+    row[3::1000] = float("nan")
+    row[512:768] = 0.0  # an all-zero chunk
+    got, want = row.clone(), row.clone()
+    wire_pack.quantize_down(got, leaves, "int8", 0x5EED)
+    ref.wire_down(want, leaves, "int8", 0x5EED)
+    torch.cuda.synchronize()
+    err_down = max_abs_err(got, want)
+    if err_down != 0.0 or not bool(torch.equal(got.isinf(), row.isinf())):
+        raise AssertionError(f"wire_quantize DownCom: max abs err "
+                             f"{err_down}")
+    down_ms = cuda_ms(lambda: wire_pack.quantize_down(
+        got, leaves, "int8", 0x5EED), 5)
+    down_plain_ms = cuda_ms(lambda: ref.wire_down(
+        want, leaves, "int8", 0x5EED), 2)
+    del got, want, row, x
+    print(f"[check] wire_quantize: {q['int8'][3]} (int8) and {q['int4'][3]} "
+          f"(int4) NaN-poisoned chunk scales of {N * nc}")
+    recs.append({
+        "name": "wire_quantize", "shape": [N, d],
+        "max_abs_err": max(q["int8"][0], q["int4"][0], err_down),
+        "tolerance": 0.0,
+        # the [wire] paths' UpCom form, int8; int4 and the DownCom ride
+        # along
+        "ms": q["int8"][1], "plain_ms": q["int8"][2],
+        "int4_ms": q["int4"][1], "int4_plain_ms": q["int4"][2],
+        "down_ms": down_ms, "down_plain_ms": down_plain_ms,
+        # x read, the codes and the scales written, the leaf tables read
+        "bound_ms": bound_ms(5 * N * d + 4 * N * nc + 40 * len(leaves)),
+    })
+    return recs
+
+
+def check_reduced_wire_round(dev):
+    """One reduced-config round on the int8 wire with the DownCom
+    quantized, a dropped member and the trimmed mean: the local steps on
+    the card against the CPU (1e-5), then the comm step on both devices
+    from the CPU's trained state, which must agree bitwise (a last-bit
+    difference in a trained coordinate may move its stochastic rounding
+    by a level, so the two steps are held apart)."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.dist import comm_ws, model_api, tamuna_dp
+
+    cfg = gemma2_2b.REDUCED
+    n, cohort, perm = NF, [0, 1, 3, 4], [3, 0, 2, 1]
+    tcfg = tamuna_dp.DistTamunaConfig(
+        gamma=GAMMA, c=CF, s=SF, p=P, wire_precision="int8", wire_down=True,
+        robust_agg="trimmed", trim_k=1)
+    rng = np.random.default_rng(6)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, CF, 2, 97)))
+    d_total = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
+    noise = torch.from_numpy(
+        0.01 * rng.normal(size=(n - 1, d_total)).astype(np.float32))
+    trained = {}
+    for device in ("cpu", dev):
+        state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device="cpu")
+        state.x[1:] += noise
+        state.x, state.h = state.x.to(device), state.h.to(device)
+        local = tamuna_dp.make_local_step(cfg, tcfg)
+        compact = tamuna_dp.gather_cohort(state, cohort)
+        for t in range(toks.shape[0]):
+            tk = toks[t].to(device)
+            local(compact, tokens=tk[..., :-1], labels=tk[..., 1:])
+        trained[str(device)] = state
+    x_cpu = trained["cpu"].x.clone()
+    err_local = max_abs_err(x_cpu, trained[str(dev)].x.cpu())
+    out = {}
+    for device in ("cpu", dev):
+        state = trained[str(device)]
+        state.x = x_cpu.clone().to(device)  # the step works in place
+        comm = tamuna_dp.make_comm_step(cfg, tcfg, n, device=device)
+        state = comm(state, cohort, perm, [True, True, True, False, True],
+                     arrived=np.array([True, False, False, True, True]),
+                     wire_seed=0xC0FFEE)
+        out[str(device)] = (state.x.cpu(), state.h.cpu())
+    (xc, hc), (xg, hg) = out["cpu"], out[str(dev)]
+    err_comm = max(max_abs_err(xc, xg), max_abs_err(hc, hg))
+    print(f"[reduced] one int8 wire_down round of {cfg.name} (n={n} c={CF} "
+          f"s={SF} trimmed k=1, member 1 dropped): local steps card vs CPU "
+          f"max abs err {err_local:.3e} (tolerance 1e-5), comm step from the "
+          f"same trained state {err_comm} (tolerance 0)")
+    if not err_local <= 1e-5 or err_comm != 0.0:
+        raise AssertionError(f"reduced wire round: local {err_local}, comm "
+                             f"{err_comm}")
+
+
 def check_reduced_round(dev, n, c, s, cohort, perm, down, arrived=None,
                         **robust):
     """One reduced-config round on the card against the same round on the
@@ -378,14 +626,15 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, **kw):
     """Drive ``run_rounds`` for 3 rounds of ``cfg`` at ``n`` clients with
     the launch counts set to 0 just before and read just after; check
     finite losses, a launch of every kernel in ``need`` and, if asked,
-    sum_i h_i = 0.  Returns the launch counts."""
+    sum_i h_i = 0 (printed in any case).  Returns the launch counts."""
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import comm_ws, model_api, rounds, tamuna_dp
     from repro_torch.kernels import _build
 
     d = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
     desc = [f"n={n} c={tcfg.c} s={tcfg.s} robust_agg={tcfg.robust_agg} "
-            f"trim_k={tcfg.trim_k}"]
+            f"trim_k={tcfg.trim_k} wire_precision={tcfg.wire_precision} "
+            f"wire_down={tcfg.wire_down}"]
     if "faults" in kw:
         fp = kw["faults"]
         desc.append(f"{fp.model} byzantine clients "
@@ -414,8 +663,9 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, **kw):
         extra = " ".join(f"{k} {row[k]:.6g}" for k in fault_keys if k in row)
         print(f"[{tag}] round {row['round']}: L={row['L']} loss "
               f"{row['loss']:.6f} wall {row['seconds']:.3f} s up_floats "
-              f"{row['up_floats']:.0f} down_floats {row['down_floats']:.0f}"
-              + (f" {extra}" if extra else ""))
+              f"{row['up_floats']:.0f} down_floats {row['down_floats']:.0f} "
+              f"up_bytes {row['up_bytes']:.0f} down_bytes "
+              f"{row['down_bytes']:.0f}" + (f" {extra}" if extra else ""))
     print(f"[{tag}] launches {launches}")
     print(f"[{tag}] max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
     if not all(math.isfinite(r["loss"]) for r in rows):
@@ -423,9 +673,10 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, **kw):
     if not all(launches[k] > 0 for k in need):
         raise AssertionError(f"[{tag}] a kernel of {need} was not "
                              f"launched: {launches}")
+    ratio = h_sum_ratio(state.h, d)
+    print(f"[{tag}] |sum_i h_i| / max|h| = {ratio:.3e}"
+          + (" (limit 1e-4)" if check_h_sum else " (not gated)"))
     if check_h_sum:
-        ratio = h_sum_ratio(state.h, d)
-        print(f"[{tag}] |sum_i h_i| / max|h| = {ratio:.3e} (limit 1e-4)")
         if not ratio <= 1e-4:
             raise AssertionError(f"[{tag}] sum_i h_i = 0 violated: ratio "
                                  f"{ratio}")
@@ -442,7 +693,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, os.path.join(here, "src"))
     from repro_torch.configs import gemma2_2b
-    from repro_torch.dist import cohort, comm_ws, faults, model_api, tamuna_dp
+    from repro_torch.dist import (cohort, comm_ws, faults, model_api,
+                                  tamuna_dp, wire)
     from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -475,6 +727,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     recs += check_fault_kernels(spec, dev)
     torch.cuda.empty_cache()
+    recs += check_wire_kernels(spec, dev)
+    torch.cuda.empty_cache()
     for rec in recs:
         print(f"[check] {rec['name']} {rec['shape']}: max abs err "
               f"{rec['max_abs_err']} (tolerance {rec['tolerance']}), "
@@ -487,6 +741,7 @@ def main() -> int:
                         [True, True, True, False, True],
                         arrived=[True, False, False, True, True],
                         robust_agg="trimmed", trim_k=1)
+    check_reduced_wire_round(dev)
     torch.cuda.empty_cache()
 
     # ---- the paths: 3 rounds of full-width 2-layer gemma2-2b each --------
@@ -514,6 +769,33 @@ def main() -> int:
         faults=faults.FaultPlan(seed=0, n=NF, p_drop=0.2,
                                 adversary="sign_flip", f_byz=0.2),
         policy="quorum")
+    tcfg_w = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P,
+                                        wire_precision="auto",
+                                        wire_down=True)
+    kinds = [wire.resolve_kind(D, "auto") for D in spec.dims]
+    print(f"[wire] auto wire kinds: {kinds.count('f16')} f16 leaves "
+          f"({sum(D for D, k in zip(spec.dims, kinds) if k == 'f16')} "
+          f"coordinates), {kinds.count('int8')} int8 leaves; per-client "
+          f"UpCom bytes per round: f32 {up_bytes(spec, C, S, 'f32'):.0f}, "
+          f"auto {up_bytes(spec, C, S, 'auto'):.0f}, int8 "
+          f"{up_bytes(spec, C, S, 'int8'):.0f} (int8 over f32: "
+          f"{up_bytes(spec, C, S, 'f32') / up_bytes(spec, C, S, 'int8'):.4f}"
+          f"x)")
+    by_path["wire"] = run_path(
+        "wire", cfg, tcfg_w, N, dev,
+        need=("masked_sum_dequant", "masked_sum_f16", "wire_quantize",
+              "h_update", "fused_local_step"),
+        check_h_sum=False)
+    tcfg_wf = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=CF, s=SF, p=P,
+                                         wire_precision="int8")
+    by_path["wire_faults"] = run_path(
+        "wire_faults", cfg, tcfg_wf, NF, dev,
+        need=("masked_sum_dequant_counts", "wire_quantize",
+              "h_update_covered", "fused_local_step"),
+        check_h_sum=False,
+        plan=cohort.CohortPlan(0, NF, CF),
+        faults=faults.FaultPlan(seed=0, n=NF, p_drop=0.25),
+        policy="quorum")
 
     src = "src/repro_torch/kernels/csrc/tamuna_kernels.cu"
     # each kernel's body in the reference and the path whose launches the
@@ -525,6 +807,14 @@ def main() -> int:
         "h_update": ("src/repro/kernels/uplink.py:153", "train"),
         "h_update_covered": ("src/repro/kernels/uplink.py:167", "faults"),
         "fused_local_step": ("src/repro/kernels/local_step.py:26", "train"),
+        "masked_sum_dequant": ("src/repro/kernels/uplink.py:80", "wire"),
+        "masked_sum_dequant_counts": ("src/repro/kernels/uplink.py:94",
+                                      "wire_faults"),
+        "masked_sum_f16": ("src/repro/kernels/uplink.py:55", "wire"),
+        # no path sends bf16 lanes (--wire-precision bf16 does)
+        "masked_sum_bf16": ("src/repro/kernels/uplink.py:55", None),
+        "wire_quantize": ("src/repro/dist/wire.py:245 quantize_to_int, "
+                          "src/repro/dist/wire.py:221 quantize", "wire"),
     }
     kernels = []
     for rec in recs:
@@ -532,7 +822,8 @@ def main() -> int:
         kernels.append({
             "name": rec["name"], "route": "cuda", "source": src,
             "replaces": body,
-            "launches": by_path[path_name][rec["name"]],
+            "launches": (0 if path_name is None
+                         else by_path[path_name][rec["name"]]),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": "bytes", "library_ms": None,
@@ -540,7 +831,9 @@ def main() -> int:
             "path": path_name,
             "launches_by_path": {p: by_path[p][rec["name"]]
                                  for p in by_path},
-            **{k: rec[k] for k in ("median_ms", "median_plain_ms")
+            **{k: rec[k] for k in ("median_ms", "median_plain_ms",
+                                   "counts_ms", "int4_ms", "int4_plain_ms",
+                                   "down_ms", "down_plain_ms")
                if k in rec},
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")

@@ -10,7 +10,9 @@ clients); run L local steps on the cohort's rows, then the comm step.
 Cohorts come from a ``cohort.CohortPlan`` when one is given, else from a
 port-owned numpy stream that is a pure function of ``(seed, g, attempt)``
 (``uniform_cohort``): the fault resolver memoizes and re-resolves rounds,
-so a cohort must not depend on the order of queries.
+so a cohort must not depend on the order of queries.  On the quantized
+wire the round's uint32 wire seed comes from another such stream
+(``wire_seed``); the f32 wire draws nothing from it.
 
 With a ``faults.FaultPlan`` the round is the fault-tolerant one (DESIGN.md
 §12 and §15 of the reference): the host resolves each round's survivors
@@ -36,6 +38,7 @@ from repro_torch.data.pipeline import SyntheticTokenPipeline
 from repro_torch.dist import faults as faults_mod
 from repro_torch.dist import robust as robust_mod
 from repro_torch.dist import tamuna_dp
+from repro_torch.dist import wire as wire_mod
 from repro_torch.models.transformer import ModelConfig
 
 ROUND_POLICIES = ("wait_all", "quorum", "deadline")
@@ -51,6 +54,14 @@ def uniform_cohort(seed: int, n: int, c: int, rnd: int,
         np.random.SeedSequence([int(seed), _TAG_COHORT, int(rnd),
                                 int(attempt)]))
     return np.sort(rng.permutation(n)[:c]).astype(np.int32)
+
+
+def wire_seed(seed: int, rnd: int, attempt: int = 0) -> int:
+    """The uint32 wire seed of round ``rnd``: a pure function of ``(seed,
+    rnd, attempt)`` on a stream tagged ``wire.WIRE_FOLD``."""
+    ss = np.random.SeedSequence([int(seed), wire_mod.WIRE_FOLD, int(rnd),
+                                 int(attempt)])
+    return int(ss.generate_state(1, np.uint32)[0])
 
 
 def _make_fault_resolver(faults, *, n: int, policy: str, q, max_retries: int,
@@ -154,8 +165,9 @@ def run_rounds(
 
     ``rng`` draws the round lengths, ``generator`` (a CPU
     ``torch.Generator``) the permutations and, through its seed, the
-    uniform cohorts; ``plan`` (a ``cohort.CohortPlan``) replaces the
-    uniform cohorts; ``pipe`` draws the batches.  Returns the state and
+    uniform cohorts and the wire seeds; ``plan`` (a
+    ``cohort.CohortPlan``) replaces the uniform cohorts; ``pipe`` draws
+    the batches.  Returns the state and
     one metrics row per round; a row's ``seconds`` is the round's wall
     time up to a device synchronisation.
 
@@ -222,6 +234,7 @@ def run_rounds(
     local = tamuna_dp.make_local_step(cfg, tcfg)
     comm = tamuna_dp.make_comm_step(cfg, tcfg, n, device=dev)
     seed = generator.initial_seed()
+    on_wire = wire_mod.is_wire(tcfg.wire_precision)
 
     def host_cohort(g: int, attempt: int = 0) -> np.ndarray:
         if plan is not None:
@@ -257,14 +270,16 @@ def run_rounds(
             batch = pipe.sample_batch(cohort)
             loss_sum = loss_sum + local(compact, **batch)["loss"]
         state = tamuna_dp.scatter_cohort(state, compact)
+        wseed = (wire_seed(seed, g, res["retries"] if faulted else 0)
+                 if on_wire else None)
         if faulted:
             arr, bad = _faulty_uplink(
                 state.x, res, byz, faults.model, guard=bool(guard),
                 guard_mode=guard_mode, guard_max_abs=guard_max_abs)
             state = comm(state, cohort, perm, nxt, arrived=arr,
-                         correct=policy != "wait_all")
+                         correct=policy != "wait_all", wire_seed=wseed)
         else:
-            state = comm(state, cohort, perm, nxt)
+            state = comm(state, cohort, perm, nxt, wire_seed=wseed)
         loss = float(loss_sum) / L  # waits for the device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)

@@ -7,14 +7,16 @@ with the exact ``1/s`` rebuild, the control-variate update on owned
 coordinates and the DownCom to the ``down`` rows.
 
 Randomness is injected: the comm step takes the round's ``cohort``, the
-template permutation ``perm`` and the DownCom rows ``down`` as arguments
-(the reference draws them from threefry keys); ``dist/rounds.py`` draws
-the permutation from a ``torch.Generator`` and the cohorts from a numpy
-stream or a ``CohortPlan``.  The geometric round length is the
-reference's numpy draw and ports bitwise.
+template permutation ``perm``, the DownCom rows ``down`` and the wire seed
+as arguments (the reference draws them from threefry keys);
+``dist/rounds.py`` draws the permutation from a ``torch.Generator``, the
+cohorts from a numpy stream or a ``CohortPlan`` and the wire seed from a
+numpy stream.  The geometric round length is the reference's numpy draw
+and ports bitwise.
 
 Only ``uplink="masked_psum"`` with ``local_opt="sgd"`` is ported, with the
-mean, trimmed-mean and median combiners (``robust_agg``).
+mean, trimmed-mean and median combiners (``robust_agg``) and the quantized
+wire (``wire_precision``, ``wire_down``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.core import masks, theory
-from repro_torch.dist import comm_ws, model_api, robust
+from repro_torch.dist import comm_ws, model_api, robust, wire
 from repro_torch.kernels.local_step import fused_local_step
 from repro_torch.models.transformer import ModelConfig
 
@@ -58,10 +60,22 @@ class DistTamunaConfig:
     #   "trimmed" (trim_k per side) | "median"; "mean" (and trimmed at
     #   k=0) is the mean path, bitwise
     trim_k: int = 0  # values trimmed per side under robust_agg="trimmed"
+    wire_precision: str = "f32"  # UpCom payload width: "auto" | "f32" |
+    #   "bf16" | "f16" | "int8" | "int4"; "f32" is the unquantized path,
+    #   bitwise; "auto" resolves per leaf size
+    wire_down: bool = False  # also quantize the DownCom broadcast
 
     def __post_init__(self):
         if not (2 <= self.s <= self.c):
             raise ValueError(f"need 2 <= s <= c, got s={self.s} c={self.c}")
+        if self.wire_precision not in wire.WIRE_POLICIES:
+            raise ValueError(
+                f"unknown wire_precision {self.wire_precision!r}; want one "
+                f"of {wire.WIRE_POLICIES}")
+        if self.wire_down and not wire.is_wire(self.wire_precision):
+            raise ValueError(
+                "wire_down quantizes the DownCom broadcast; it needs a "
+                f"non-f32 wire_precision, got {self.wire_precision!r}")
         if self.uplink != "masked_psum":
             raise ValueError(f"uplink {self.uplink!r} is not ported; only "
                              "'masked_psum' is")
@@ -94,7 +108,7 @@ class DistTamunaState:
     round: int = 0
     up_floats: float = 0.0  # cumulative uplink floats per client
     down_floats: float = 0.0
-    up_bytes: float = 0.0  # cumulative uplink wire bytes per client (f32)
+    up_bytes: float = 0.0  # cumulative uplink wire bytes per client
     down_bytes: float = 0.0
 
 
@@ -187,8 +201,8 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
 def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
                    device="cuda"):
     """Build ``fn(state, cohort, perm, down=None, arrived=None,
-    correct=True) -> state``: UpCom + control-variate update + DownCom of
-    one round, in place.
+    correct=True, wire_seed=None) -> state``: UpCom + control-variate
+    update + DownCom of one round, in place.
 
     ``cohort`` is the round's ``c`` clients, ``perm`` a permutation of the
     ``c`` template columns (cohort member ``a`` uploads column
@@ -196,8 +210,10 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
     round's cohort; ``None`` broadcasts to every row).  ``arrived``
     (``(n,)`` bool) and ``correct`` are the fault-tolerant round's inputs
     (``comm_ws.cyclic_comm``); the uplink counters then count only the
-    arrived members.  The band table and the float accounting are built
-    once here."""
+    arrived members.  ``wire_seed`` is the round's uint32 quantization
+    seed (0 when ``None``; unused on the f32 wire).  The band table, the
+    wire's kind groups and the float and byte accounting are built once
+    here; ``fn.wire_kinds`` holds each leaf's wire kind."""
     c, s = tcfg.c, tcfg.s
     if c > n:
         raise ValueError(f"cohort c={c} exceeds population n={n}")
@@ -210,13 +226,24 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
             "fallback is not ported")
     band = comm_ws.cyclic_band(spec.dims, c, s, resolve_device(device))
     rspec = tcfg.robust_()
-    up_total = float(sum(masks.column_nnz(D, c, s) for D in spec.dims))
+    plan = comm_ws.wire_plan(spec.dims, tcfg.wire_precision, c, s, band)
+    kinds = tuple(wire.resolve_kind(D, tcfg.wire_precision)
+                  for D in spec.dims)
+    nnzs = [masks.column_nnz(D, c, s) for D in spec.dims]
+    up_total = float(sum(nnzs))
     down_total = float(spec.d_total)
+    # per client: leaf_up_bytes at c=1 is one client's codes and (int
+    # kinds) its own chunk scales; the f32 wire is floats * 4 exactly
+    up_bytes_total = float(sum(wire.leaf_up_bytes(nnz, D, 1, k)
+                               for nnz, D, k in zip(nnzs, spec.dims, kinds)))
+    down_bytes_total = float(sum(
+        wire.leaf_down_bytes(D, k if tcfg.wire_down else "f32")
+        for D, k in zip(spec.dims, kinds)))
 
     def fn(state: DistTamunaState, cohort: Sequence[int],
            perm: Sequence[int], down: Optional[torch.Tensor] = None,
-           arrived: Optional[np.ndarray] = None,
-           correct: bool = True) -> DistTamunaState:
+           arrived: Optional[np.ndarray] = None, correct: bool = True,
+           wire_seed: Optional[int] = None) -> DistTamunaState:
         cohort = np.asarray(cohort, dtype=np.int64)
         perm = np.asarray(perm, dtype=np.int64)
         if cohort.shape != (c,) or sorted(perm.tolist()) != list(range(c)):
@@ -229,23 +256,28 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
         slot_t = torch.from_numpy(slot).to(dev)
         down_t = (None if down is None
                   else torch.as_tensor(down).to(torch.int32).to(dev))
-        arr_t, up = None, up_total
+        arr_t, up, upb = None, up_total, up_bytes_total
         if arrived is not None:
             arrived = np.asarray(arrived, bool)
             arr_t = torch.from_numpy(arrived).to(dev)
             # only the arrived members' uplinks used the wire: the
-            # template spreads the uplink evenly over the c members
-            up = up_total * float(arrived[cohort].sum()) / c
+            # template spreads the uplink evenly over the c members, and
+            # a dropped client ships neither codes nor scales
+            k = float(arrived[cohort].sum())
+            up, upb = up_total * k / c, up_bytes_total * k / c
         comm_ws.cyclic_comm(state.x, state.h, slot_t, band, c, s, scale,
                             down=down_t, arrived=arr_t, correct=correct,
-                            robust=rspec)
+                            robust=rspec, wire=plan,
+                            wire_seed=0 if wire_seed is None else wire_seed,
+                            wire_down=tcfg.wire_down)
         state.round += 1
         state.up_floats += up
         state.down_floats += down_total
-        state.up_bytes += 4.0 * up  # f32 wire
-        state.down_bytes += 4.0 * down_total
+        state.up_bytes += upb
+        state.down_bytes += down_bytes_total
         return state
 
+    fn.wire_kinds = kinds
     return fn
 
 

@@ -34,8 +34,12 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNELS = ("masked_sum", "masked_sum_counts", "robust_sum", "h_update",
-           "h_update_covered", "fused_local_step")
+# one count per kernel instantiation: the UpComs per lane type
+KERNELS = ("masked_sum", "masked_sum_f16", "masked_sum_bf16",
+           "masked_sum_counts", "masked_sum_counts_f16",
+           "masked_sum_counts_bf16", "masked_sum_dequant",
+           "masked_sum_dequant_counts", "robust_sum", "h_update",
+           "h_update_covered", "fused_local_step", "wire_quantize")
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -93,9 +97,14 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
         ctypes.c_float
-    lib.tamuna_masked_sum.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
-    lib.tamuna_masked_sum_counts.argtypes = [p, p, p, p, p, i64, i64, i32,
-                                             i32, p]
+    lib.tamuna_masked_sum.argtypes = [p, i32, p, p, p, i64, i64, i32, i32,
+                                      p]
+    lib.tamuna_masked_sum_counts.argtypes = [p, i32, p, p, p, p, i64, i64,
+                                             i32, i32, p]
+    lib.tamuna_masked_sum_dequant.argtypes = [p, p, i64, p, p, i32, p, p, p,
+                                              p, i64, i64, i32, i32, i32, p]
+    lib.tamuna_wire_quantize.argtypes = [p, i64, i64, p, p, i32, i64, f32, p,
+                                         i64, p, i64, p, i32, p]
     lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i32, i32,
                                       i32, i32, p]
     lib.tamuna_h_update.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32,
@@ -104,6 +113,7 @@ def load() -> ctypes.CDLL:
                                             i32, i32, f32, p]
     lib.tamuna_local_step.argtypes = [p, p, p, p, i64, f32, p]
     for fn in (lib.tamuna_masked_sum, lib.tamuna_masked_sum_counts,
+               lib.tamuna_masked_sum_dequant, lib.tamuna_wire_quantize,
                lib.tamuna_robust_sum, lib.tamuna_h_update,
                lib.tamuna_h_update_covered, lib.tamuna_local_step):
         fn.restype = ctypes.c_int

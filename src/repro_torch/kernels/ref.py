@@ -7,26 +7,48 @@ Each repeats its kernel's arithmetic operation for operation (the client
 rows are summed in row order, the products are not contracted into FMAs),
 so a kernel and its plain version agree bitwise on the same inputs.
 
+A division by a constant divides by a tensor on the operand's device
+(``_div``): PyTorch's CUDA division by a Python number multiplies by its
+reciprocal, one rounding away from the kernels' (and the CPU's) IEEE
+division.
+
 Ownership selects and never multiplies: idle and dropped rows may hold
 anything, NaN included, and never reach an output.
 
 The versions that make ``(n, d)``-shaped temporaries (ownership masks,
-order-statistic buffers, the h update) work in column chunks of ``CHUNK``
-coordinates, so they run at full width beside a full-size state.
+order-statistic buffers, the h update, the wire) work in column chunks of
+``CHUNK`` coordinates, so they run at full width beside a full-size state.
+
+The UpComs take f32, bf16 or f16 lanes (cast to f32 exactly, then summed
+in f32) or int8 wire codes with their per-chunk scales
+(``masked_sum_dequant``).  The wire quantizer's plain versions are
+``wire_pack`` (the UpCom codes and scales, ``wire.leaf_scales`` then
+``wire.quantize_to_int``) and ``wire_down`` (the DownCom, ``wire.quantize``
+on one row with row id ``wire.DOWN_ROW``); a kind group's leaves are given
+as ``(leaf index, workspace offset, size)`` triples.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.compress import owned_from_band
+from repro_torch.dist import wire
+from repro_torch.kernels.compress import (chunk_cols, owned_from_band,
+                                          wire_dequant)
 
-CHUNK = 1 << 24  # columns per chunk of the chunked plain versions
+# columns per chunk of the chunked plain versions; a multiple of the wire's
+# 256-coordinate scale chunk, so a column chunk holds whole scale chunks
+CHUNK = 1 << 24
 
 
-def _chunks(d: int) -> Iterator[slice]:
+def _div(a: torch.Tensor, b: float) -> torch.Tensor:
+    """``a / b`` rounded once, on the CPU and on the card alike."""
+    return a / torch.full((), float(b), dtype=a.dtype, device=a.device)
+
+
+def column_chunks(d: int) -> Iterator[slice]:
     for a in range(0, d, CHUNK):
         yield slice(a, min(a + CHUNK, d))
 
@@ -38,8 +60,8 @@ def masked_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
     acc = torch.zeros(x.shape[1], dtype=torch.float32, device=x.device)
     for i in range(x.shape[0]):
         owned = owned_from_band(slot[i], band, m, s)
-        acc = acc + torch.where(owned, x[i], 0.0)
-    return acc / s
+        acc = acc + torch.where(owned, x[i].to(torch.float32), 0.0)
+    return _div(acc, s)
 
 
 def masked_sum_counts(x: torch.Tensor, slot: torch.Tensor,
@@ -50,15 +72,43 @@ def masked_sum_counts(x: torch.Tensor, slot: torch.Tensor,
     d = x.shape[1]
     num = torch.empty(d, dtype=torch.float32, device=x.device)
     cnt = torch.empty(d, dtype=torch.float32, device=x.device)
-    for cols in _chunks(d):
+    for cols in column_chunks(d):
         acc = torch.zeros_like(num[cols])
         c = torch.zeros_like(cnt[cols])
         for i in range(x.shape[0]):
             owned = owned_from_band(slot[i], band[cols], m, s)
-            acc = acc + torch.where(owned, x[i, cols], 0.0)
+            acc = acc + torch.where(owned, x[i, cols].to(torch.float32),
+                                    0.0)
             c = c + owned.to(torch.float32)
         num[cols], cnt[cols] = acc, c
     return num, cnt
+
+
+def masked_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
+                       leaf_lo: torch.Tensor, slot: torch.Tensor,
+                       band: torch.Tensor, m: int, s: int,
+                       counts: bool = False):
+    """``masked_sum`` (``counts=True``: ``masked_sum_counts``) over int
+    wire lanes: each owned code is dequantized against its row's chunk
+    scale (``wire_dequant`` at ``chunk_cols(leaf_lo)``) and summed in f32
+    in row order.  A row that does not own a coordinate adds 0, whatever
+    its scale."""
+    n, d = codes.shape
+    num = torch.empty(d, dtype=torch.float32, device=codes.device)
+    cnt = torch.empty(d, dtype=torch.float32, device=codes.device)
+    for cols in column_chunks(d):
+        v = wire_dequant(codes[:, cols], scales,
+                         chunk_cols(leaf_lo, cols.start, cols.stop))
+        acc = torch.zeros_like(num[cols])
+        c = torch.zeros_like(cnt[cols])
+        for i in range(n):
+            owned = owned_from_band(slot[i], band[cols], m, s)
+            acc = acc + torch.where(owned, v[i], 0.0)
+            c = c + owned.to(torch.float32)
+        num[cols], cnt[cols] = acc, c
+    if counts:
+        return num, cnt
+    return _div(num, s)
 
 
 def _order_stats(x: torch.Tensor, owned: torch.Tensor, s: int
@@ -95,7 +145,7 @@ def robust_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
     d = x.shape[1]
     bar = torch.empty(d, dtype=torch.float32, device=x.device)
     cnt_out = torch.empty(d, dtype=torch.float32, device=x.device)
-    for cols in _chunks(d):
+    for cols in column_chunks(d):
         xc = x[:, cols]
         owned = owned_from_band(slot[:, None], band[None, cols], m, s)
         cnt = owned.sum(dim=0, dtype=torch.int32)
@@ -133,7 +183,7 @@ def h_update(x: torch.Tensor, h: torch.Tensor, x_bar: torch.Tensor,
     coordinate: uncovered coordinates keep h and x untouched."""
     n, d = x.shape
     rows = range(n) if down is None else down.nonzero()[:, 0].tolist()
-    for cols in _chunks(d):
+    for cols in column_chunks(d):
         gate = None if covered is None else covered[cols]
         for i in range(n):
             owned = owned_from_band(slot[i], band[cols], m, s)
@@ -152,3 +202,51 @@ def fused_local_step(x: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                      gamma: float) -> torch.Tensor:
     """The TAMUNA local step ``x - gamma * (g - h)`` in f32."""
     return x - gamma * (g - h)
+
+
+def wire_pack(x: torch.Tensor, leaves: Sequence[Tuple[int, int, int]],
+              kind: str, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The int wire payload of a kind group: ``(codes (n, d_g) int8,
+    scales (n, nc_g) f32)`` of the leaves ``(leaf index, offset, size)`` of
+    the ``(n, d_total)`` f32 workspace ``x``, concatenated in the given
+    order.  Leaf ``li`` draws with ``wire.fold_seed(seed, li)``, row ``i``
+    with row id ``i``, coordinate ``k`` of the leaf with id ``k``; the
+    result is ``wire.leaf_scales`` then ``wire.quantize_to_int``."""
+    n = x.shape[0]
+    d_g = sum(D for _, _, D in leaves)
+    nc_g = sum(wire.n_chunks(D) for _, _, D in leaves)
+    codes = torch.empty(n, d_g, dtype=torch.int8, device=x.device)
+    scales = torch.empty(n, nc_g, dtype=torch.float32, device=x.device)
+    rows = torch.arange(n, dtype=torch.int64, device=x.device)[:, None]
+    g0 = c0 = 0
+    for li, o, D in leaves:
+        sl = wire.fold_seed(seed, li)
+        for cols in column_chunks(D):
+            xc = x[:, o + cols.start:o + cols.stop]
+            kk = torch.arange(cols.start, cols.stop, dtype=torch.int64,
+                              device=x.device)
+            sc = wire.leaf_scales(xc, kind)
+            q, sc = wire.quantize_to_int(xc, kind, sl, rows, kk, sc,
+                                         (kk - cols.start) // wire.CHUNK)
+            codes[:, g0 + cols.start:g0 + cols.stop] = q
+            a = c0 + cols.start // wire.CHUNK
+            scales[:, a:a + sc.shape[1]] = sc
+        g0 += D
+        c0 += wire.n_chunks(D)
+    return codes, scales
+
+
+def wire_down(x_bar: torch.Tensor, leaves: Sequence[Tuple[int, int, int]],
+              kind: str, seed: int) -> None:
+    """The DownCom quantizer, in place on the ``(d_total,)`` f32 ``x_bar``:
+    each leaf ``(leaf index, offset, size)`` becomes ``wire.quantize`` of
+    it as one row with row id ``wire.DOWN_ROW`` (nonfinite values pass
+    through, scales are not poisoned)."""
+    for li, o, D in leaves:
+        sl = wire.fold_seed(seed, li)
+        for cols in column_chunks(D):
+            seg = x_bar[o + cols.start:o + cols.stop]
+            kk = torch.arange(cols.start, cols.stop, dtype=torch.int64,
+                              device=x_bar.device)
+            seg.copy_(wire.quantize(seg[None], kind, sl, wire.DOWN_ROW,
+                                    kk)[0])

@@ -7,6 +7,15 @@ them per coordinate), the band and write x_bar: 4 B x (s + 2) per
 coordinate on one H100 at 3.35 TB/s.  With ``counts=True`` it replaces
 ``_masked_sum_counts_kernel`` (uplink.py:65), the survivor UpCom: the raw
 owner sum and the owner count, 4 B per owned entry + 12 B per coordinate.
+Both also take the bf16 and f16 lanes of the narrow float wire (2 B per
+owned entry), converted to f32 exactly and summed in f32.
+
+``masked_sum_dequant`` replaces ``repro.kernels.uplink.masked_sum_dequant``
+(``_masked_sum_dequant_kernel``, uplink.py:80, and with ``counts=True``
+``_masked_sum_dequant_counts_kernel``, uplink.py:94): the same UpComs over
+the int wire, int8 codes times their row's per-chunk f32 scale.  It reads
+1 B per owned code, the band and writes the outputs: (s + 8) B per
+coordinate, (s + 12) B with the counts.
 
 ``robust_sum`` replaces ``repro.kernels.uplink.robust_sum``
 (``_robust_sum_kernel``, uplink.py:106): the per-coordinate trimmed mean or
@@ -34,21 +43,28 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, compress, ref
 
 ROBUST_MAX_S = 16  # the robust kernel is instantiated for s <= 16
+# lane types of the mean UpComs and the kernels' lane codes
+LANES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+_LANE_NAME = {torch.float32: "", torch.float16: "_f16",
+              torch.bfloat16: "_bf16"}
 
 
-def _check(x: torch.Tensor, m: int, s: int, **others: torch.Tensor) -> None:
-    """Checks shared by the wrappers: ``1 <= s <= m``; ``h`` is ``(n, d)``
-    f32, ``x_bar`` ``(d,)`` f32, ``band`` ``(d,)`` int32, ``covered``
-    ``(d,)`` bool, ``slot`` and ``down`` ``(n,)`` int32, all contiguous and
-    on the workspace's device."""
+def _check(x: torch.Tensor, m: int, s: int,
+           lanes: Tuple[torch.dtype, ...] = (torch.float32,),
+           **others: torch.Tensor) -> None:
+    """Checks shared by the wrappers: ``1 <= s <= m``; the workspace ``x``
+    is ``(n, d)`` of a type in ``lanes``; ``h`` is ``(n, d)`` f32,
+    ``x_bar`` ``(d,)`` f32, ``band`` ``(d,)`` int32, ``covered`` ``(d,)``
+    bool, ``slot`` and ``down`` ``(n,)`` int32, all contiguous and on the
+    workspace's device."""
     if not 1 <= s <= m:
         raise ValueError(f"need 1 <= s <= m, got s={s} m={m}")
-    if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
-        raise ValueError(f"workspace must be a contiguous (n, d) f32 tensor, "
-                         f"got {tuple(x.shape)} {x.dtype}")
+    if x.dim() != 2 or x.dtype not in lanes or not x.is_contiguous():
+        raise ValueError(f"workspace must be a contiguous (n, d) tensor of "
+                         f"{lanes}, got {tuple(x.shape)} {x.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     n, d = x.shape
@@ -66,12 +82,13 @@ def _check(x: torch.Tensor, m: int, s: int, **others: torch.Tensor) -> None:
 
 def masked_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
                m: int, s: int, counts: bool = False):
-    """``x_bar[k] = sum_{i owns k} x[i, k] / s`` over the ``(n, d)`` f32
-    workspace; ``slot`` ``(n,)`` int32 (outside ``[0, m)`` owns nothing),
-    ``band`` ``(d,)`` int32.  ``counts=True`` returns ``(num, cnt)``
-    instead: the undivided owner sum and the f32 owner count, from which
-    the survivor path rebuilds ``num / max(cnt, 1)``."""
-    _check(x, m, s, slot=slot, band=band)
+    """``x_bar[k] = sum_{i owns k} x[i, k] / s`` over the ``(n, d)``
+    workspace of f32, f16 or bf16 lanes (summed in f32); ``slot`` ``(n,)``
+    int32 (outside ``[0, m)`` owns nothing), ``band`` ``(d,)`` int32.
+    ``counts=True`` returns ``(num, cnt)`` instead: the undivided owner sum
+    and the f32 owner count, from which the survivor path rebuilds
+    ``num / max(cnt, 1)``."""
+    _check(x, m, s, lanes=tuple(LANES), slot=slot, band=band)
     if x.device.type == "cpu":
         if counts:
             return ref.masked_sum_counts(x, slot, band, m, s)
@@ -79,18 +96,63 @@ def masked_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
     n, d = x.shape
     out = torch.empty(d, dtype=torch.float32, device=x.device)
     lib = _build.load()
+    lane = LANES[x.dtype]
+    name = ("masked_sum_counts" if counts else "masked_sum") + \
+        _LANE_NAME[x.dtype]
     if counts:
         cnt = torch.empty(d, dtype=torch.float32, device=x.device)
         rc = lib.tamuna_masked_sum_counts(
-            x.data_ptr(), slot.data_ptr(), band.data_ptr(), out.data_ptr(),
-            cnt.data_ptr(), n, d, m, s, _build.stream_of(x))
-        _build.check_launch("masked_sum_counts", rc)
+            x.data_ptr(), lane, slot.data_ptr(), band.data_ptr(),
+            out.data_ptr(), cnt.data_ptr(), n, d, m, s, _build.stream_of(x))
+        _build.check_launch(name, rc)
         return out, cnt
     rc = lib.tamuna_masked_sum(
-        x.data_ptr(), slot.data_ptr(), band.data_ptr(), out.data_ptr(),
+        x.data_ptr(), lane, slot.data_ptr(), band.data_ptr(), out.data_ptr(),
         n, d, m, s, _build.stream_of(x))
-    _build.check_launch("masked_sum", rc)
+    _build.check_launch(name, rc)
     return out
+
+
+def masked_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
+                       leaf_lo: torch.Tensor, slot: torch.Tensor,
+                       band: torch.Tensor, m: int, s: int,
+                       counts: bool = False):
+    """``masked_sum`` over int wire lanes: ``codes`` ``(n, d)`` int8 (int4
+    codes fit), ``scales`` ``(n, nchunk)`` f32 per-chunk scales, and
+    ``leaf_lo`` ``(L + 1,)`` int64, the kind group's leaf starts in its
+    ``d`` columns (the last entry ``d``), from which each column's scale
+    column follows (``compress.chunk_cols``).  Each owned code times its
+    scale is summed in f32; ``counts=True`` returns ``(num, cnt)`` as
+    ``masked_sum`` does."""
+    _check(codes, m, s, lanes=(torch.int8,), slot=slot, band=band)
+    n, d = codes.shape
+    coff = compress.chunk_offsets(leaf_lo.tolist())
+    nc = coff[-1]
+    if (scales.shape != (n, nc) or scales.dtype != torch.float32
+            or not scales.is_contiguous() or scales.device != codes.device
+            or leaf_lo.dtype != torch.int64 or leaf_lo.dim() != 1
+            or leaf_lo.device != codes.device or int(leaf_lo[0]) != 0
+            or int(leaf_lo[-1]) != d):
+        raise ValueError(
+            f"want scales ({n}, {nc}) f32 and leaf_lo int64 from 0 to {d} "
+            f"on {codes.device}, got scales {tuple(scales.shape)} "
+            f"{scales.dtype}, leaf_lo {leaf_lo.tolist()}")
+    if codes.device.type == "cpu":
+        return ref.masked_sum_dequant(codes, scales, leaf_lo, slot, band,
+                                      m, s, counts=counts)
+    coff = torch.tensor(coff, dtype=torch.int64, device=codes.device)
+    out = torch.empty(d, dtype=torch.float32, device=codes.device)
+    cnt = (torch.empty(d, dtype=torch.float32, device=codes.device)
+           if counts else None)
+    rc = _build.load().tamuna_masked_sum_dequant(
+        codes.data_ptr(), scales.data_ptr(), nc, leaf_lo.data_ptr(),
+        coff.data_ptr(), leaf_lo.numel() - 1, slot.data_ptr(),
+        band.data_ptr(), out.data_ptr(),
+        None if cnt is None else cnt.data_ptr(), n, d, m, s, int(counts),
+        _build.stream_of(codes))
+    _build.check_launch(
+        "masked_sum_dequant_counts" if counts else "masked_sum_dequant", rc)
+    return (out, cnt) if counts else out
 
 
 def robust_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,

@@ -7,6 +7,9 @@ asked for).  ``--robust-agg``/``--trim-k`` pick the combiner;
 ``--adversary``/``--f-byz`` make a seeded Byzantine fraction of the clients
 send garbage every round, which the adaptive payload guard and the robust
 combiner face (the fault-tolerant round of ``dist/rounds.py``).
+``--wire-precision`` narrows the UpCom payload (DESIGN.md §13: f16/bf16
+casts, int8/int4 stochastic codes, ``auto`` per leaf size) and
+``--wire-down`` quantizes the DownCom broadcast too.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -14,6 +17,8 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --sparsity 3 --robust-agg trimmed --trim-k 1 --adversary sign_flip \\
       --f-byz 0.25 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
+      --wire-precision int8 --wire-down --device cpu
 """
 
 from __future__ import annotations
@@ -61,10 +66,22 @@ def main(argv=None) -> int:
                     help="Byzantine client fraction for --adversary")
     ap.add_argument("--reputation", action="store_true",
                     help="EWMA anomaly reputation (not ported yet)")
+    # literal list (= wire.WIRE_POLICIES)
+    ap.add_argument("--wire-precision", default="f32",
+                    choices=["auto", "f32", "bf16", "f16", "int8", "int4"],
+                    help="UpCom payload width: f32 is the unquantized "
+                         "wire, auto resolves per leaf size (small leaves "
+                         "f16, large 8-bit stochastic)")
+    ap.add_argument("--wire-down", action="store_true",
+                    help="also quantize the DownCom broadcast (needs a "
+                         "non-f32 --wire-precision)")
     args = ap.parse_args(argv)
     adversarial = args.adversary != "none" and args.f_byz > 0.0
     if args.reputation:
         ap.error("--reputation is not ported yet")
+    if args.wire_down and args.wire_precision == "f32":
+        ap.error("--wire-down quantizes the DownCom broadcast; it needs a "
+                 "non-f32 --wire-precision")
 
     import numpy as np
     import torch
@@ -85,6 +102,7 @@ def main(argv=None) -> int:
     tcfg = tamuna_dp.DistTamunaConfig(
         gamma=args.gamma, c=c, s=min(args.sparsity, c), p=args.p,
         uplink=args.uplink, robust_agg=args.robust_agg, trim_k=args.trim_k,
+        wire_precision=args.wire_precision, wire_down=args.wire_down,
     )
     state = tamuna_dp.init_state(cfg, tcfg, n, seed=args.seed,
                                  device=device)

@@ -5,7 +5,10 @@ comparison at the main path's full shapes.
 
 Every kernel repeats its plain version's arithmetic operation for
 operation with no FMA contraction, so they agree bitwise (NaN where the
-plain version has NaN).
+plain version has NaN).  The wire's kernels are held the same way: the
+dequantizing UpComs with NaN scales in idle and owned rows, the f16/bf16
+lanes, the quantizer in its int8, int4 and DownCom forms, and a wire comm
+step on the card against the same step on the CPU.
 """
 
 import numpy as np
@@ -141,3 +144,120 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         fused_local_step(x.t(), x.t(), x.t(), 0.1)
     with pytest.raises(ValueError):
         uplink.robust_sum(x, slot, band, 32, 17, kind="median")
+
+
+def _lo(dims, dev):
+    return torch.tensor(np.concatenate([[0], np.cumsum(dims)]),
+                        dtype=torch.int64, device=dev)
+
+
+@pytest.mark.parametrize("counts", [False, True])
+def test_masked_sum_dequant_kernel_matches_plain(dev, counts):
+    _, _, band, slot = _inputs(dev, 4)
+    dims = (4097, 30, D - 4127)
+    rng = np.random.default_rng(4)
+    codes = torch.from_numpy(rng.integers(-127, 128, size=(N, D)).astype(
+        np.int8)).to(dev)
+    nc = sum(-(-d // 256) for d in dims)
+    scales = torch.from_numpy(rng.random(size=(N, nc)).astype(
+        np.float32)).to(dev)
+    scales[1] = float("nan")  # the idle row: must not leak
+    scales[0, 3] = float("nan")  # a poisoned chunk of an owned row
+    lo = _lo(dims, dev)
+    name = "masked_sum_dequant_counts" if counts else "masked_sum_dequant"
+    before = _build.launch_counts[name]
+    got = uplink.masked_sum_dequant(codes, scales, lo, slot, band, M, S,
+                                    counts=counts)
+    assert _build.launch_counts[name] == before + 1
+    want = ref.masked_sum_dequant(codes, scales, lo, slot, band, M, S,
+                                  counts=counts)
+    torch.cuda.synchronize()
+    if not counts:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert _same(g, w)
+    assert 0 < int(got[0].isnan().sum()) < 256
+
+
+@pytest.mark.parametrize("lane", [torch.float16, torch.bfloat16])
+@pytest.mark.parametrize("counts", [False, True])
+def test_narrow_lane_masked_sum_kernel_matches_plain(dev, lane, counts):
+    x, _, band, slot = _inputs(dev, 5)
+    xl = x.to(lane)
+    suffix = "_f16" if lane == torch.float16 else "_bf16"
+    name = ("masked_sum_counts" if counts else "masked_sum") + suffix
+    before = _build.launch_counts[name]
+    got = uplink.masked_sum(xl, slot, band, M, S, counts=counts)
+    assert _build.launch_counts[name] == before + 1
+    want = (ref.masked_sum_counts(xl, slot, band, M, S) if counts
+            else ref.masked_sum(xl, slot, band, M, S))
+    torch.cuda.synchronize()
+    if not counts:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_wire_quantize_kernel_matches_plain(dev, kind):
+    from repro_torch.kernels import wire_pack
+
+    rng = np.random.default_rng(6)
+    dims = (300, 13, 1030, 512)
+    offs = np.concatenate([[0], np.cumsum(dims)]).tolist()
+    x = torch.from_numpy((rng.normal(size=(N, offs[-1]))
+                          * 3).astype(np.float32)).to(dev)
+    x[1] = float("nan")  # an idle row is quantized too
+    x[0, 5] = float("inf")
+    x[2, 1300] = float("-inf")
+    x[3, 313:569] = 0.0  # an all-zero chunk
+    x[0, 400:] = -0.0
+    leaves = [(0, offs[0], 300), (2, offs[2], 1030), (3, offs[3], 512)]
+    before = _build.launch_counts["wire_quantize"]
+    codes, scales = wire_pack.pack_int(x, leaves, kind, 0xDEADBEEF)
+    assert _build.launch_counts["wire_quantize"] == before + 1
+    codes_p, scales_p = ref.wire_pack(x, leaves, kind, 0xDEADBEEF)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, codes_p)
+    assert _same(scales, scales_p)
+    assert torch.equal(scales.view(torch.int32), scales_p.view(torch.int32))
+    row = x[2].clone()
+    row[7] = float("nan")
+    got, want = row.clone(), row.clone()
+    wire_pack.quantize_down(got, leaves, kind, 12345)
+    assert _build.launch_counts["wire_quantize"] == before + 2
+    ref.wire_down(want, leaves, kind, 12345)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("policy,wire_down,survivor", [
+    ("auto", True, False), ("int8", False, True), ("bf16", True, True)])
+def test_wire_comm_step_card_matches_cpu_bitwise(dev, policy, wire_down,
+                                                 survivor):
+    from repro_torch.dist import comm_ws
+
+    rng = np.random.default_rng(7)
+    dims = (300, 70001, 50, 3)
+    n, c, s = 5, 4, 3
+    x = rng.normal(size=(n, sum(dims))).astype(np.float32)
+    h = 0.01 * rng.normal(size=(n, sum(dims))).astype(np.float32)
+    x[4] = np.nan  # idle
+    slot = np.array([1, 0, 3, 2, -1], np.int32)
+    down = np.array([1, 1, 0, 1, 1], np.int32)
+    arrived = np.array([True, True, False, True, True]) if survivor else None
+    out = {}
+    for d in ("cpu", dev):
+        band = comm_ws.cyclic_band(dims, c, s, d)
+        plan = comm_ws.wire_plan(dims, policy, c, s, band)
+        # copies: the comm step works in place
+        xw, hw = torch.tensor(x, device=d), torch.tensor(h, device=d)
+        comm_ws.cyclic_comm(
+            xw, hw, torch.from_numpy(slot).to(d), band, c, s, 0.37,
+            down=torch.from_numpy(down).to(d),
+            arrived=None if arrived is None else torch.from_numpy(
+                arrived).to(d),
+            wire=plan, wire_seed=77, wire_down=wire_down)
+        out[str(d)] = (xw.cpu(), hw.cpu())
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert _same(a, b)

@@ -34,12 +34,13 @@ runpy.run_path("chip_smoke.py", run_name="not_main")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
+assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack"} <= set(names)
 print(len(names), bad)
 """
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 16
+    assert int(count) >= 32
     assert bad.strip() == "[]", bad
 
 
