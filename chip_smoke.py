@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, train.
+"""Smoke run of the PyTorch/CUDA port on one GPU: build, check, train,
+and run the paper's convex TAMUNA.
 
 Run from the root of the repository on a machine with an NVIDIA H100:
 
@@ -25,6 +26,11 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    NaN-poisoned chunks in an owned row, ``masked_sum`` (both forms) over
    f16 and bf16 lanes, and the quantizer ``wire_quantize`` in int8, int4
    and DownCom modes on rows with +inf, -inf, NaN and an all-zero chunk;
+   the convex core's ``compress`` in f64 at the convex paths' shapes
+   ``(100, 20958)`` and ``(1000, 20958)`` with their round-0 permutations,
+   in f32 on the ``(4, d)`` workspace (slot ``[1, -1, 0, 2]``, c=3, s=2,
+   an idle row of NaN), and in its 1-D form at ``(20958,)`` f64 and
+   ``(d,)`` f32, each bitwise;
 4. runs one round of the reduced gemma2-2b config on the card and on the
    CPU with the same injected schedule and batches, and compares them:
    the fault-free round, a round with a dropped member and the trimmed
@@ -50,7 +56,22 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    each must have finite losses and launch every kernel of its path; the
    fault-free and survivor paths on the f32 wire must keep sum_i h_i = 0
    (printed, not checked, on the others: a robust combine breaks it by
-   design, a quantized numerator by its rounding).
+   design, a quantized numerator by its rounding);
+6. builds the paper's Fig. 3 problem at paper scale
+   (``benchmarks/paper_fig3.py --paper-scale``: real-sim-like l2-logistic
+   regression, n=1000 clients, d=20958, 4 samples each, kappa=1e4, seed
+   0) in float64 on the card, prints its set-up time (data, L, Newton),
+   holds the first 5 rounds of ``repro_torch.core.tamuna.run`` on the
+   card against the CPU (1e-10 relative, x_bar and h), and drives two
+   paths of ``run`` with the tuned config (s=2, p=0.2236), launch counts
+   set to 0 just before and read just after:
+   ``[convex]``      the 10% cohort, c=100, 8000 rounds (Fig. 3's count);
+   ``[convex_full]`` full participation, c=1000, 1500 rounds;
+   each prints its records (suboptimality, Lyapunov function), the round
+   time, peak memory, the launches and Theorem 1's tau beside the
+   measured Lyapunov rate, and must keep sum_i h_i = 0 (1e-10 of
+   max|h|), end with a finite suboptimality below its start and launch
+   ``compress_f64`` exactly twice per round and nothing else.
 
 Any failure raises and exits non-zero.  The last three lines of standard
 output are the kernels' JSON record, the card's name and power limit, and
@@ -80,6 +101,10 @@ HBM_BYTES_PER_S = 3.35e12
 N, C, S = 4, 3, 2  # clients, cohort, sparsity of the fault-free path
 NF, CF, SF = 5, 4, 3  # the same for the survivor and robust paths
 GAMMA, P = 0.05, 0.34
+# the convex paths: paper Fig. 3 at paper scale (benchmarks/paper_fig3.py
+# --paper-scale), real-sim-like logistic regression, and their rounds
+CONVEX = dict(n=1000, d=20958, samples_per_client=4, kappa=1e4, seed=0)
+CONVEX_ROUNDS = {"convex": 8000, "convex_full": 1500}
 
 
 def smi() -> str:
@@ -459,6 +484,8 @@ def check_wire_kernels(spec, dev):
                                 2),
             "counts_ms": cuda_ms(lambda: uplink.masked_sum(
                 x, slot, band, C, S, counts=True), 5),
+            "counts_plain_ms": cuda_ms(lambda: ref.masked_sum_counts(
+                x, slot, band, C, S), 2),
             # owned lanes (2 B) read, band read, x_bar written, slot read
             "bound_ms": bound_ms(2 * owned + 4 * (2 * d + N)),
         })
@@ -610,7 +637,177 @@ def check_reduced_round(dev, n, c, s, cohort, perm, down, arrived=None,
           f"{tcfg.robust_agg}, arrived {arrived}) on the card vs the CPU: "
           f"max abs err {err:.3e} (tolerance 1e-5)")
     if not err <= 1e-5:
-        raise AssertionError(f"reduced round: card vs CPU err {err}")
+        spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
+        where = []
+        for tag, a, b in (("x", xc, xg), ("h", hc, hg)):
+            row, k = divmod(int((a - b).abs().argmax()), d_total)
+            leaf = max(i for i, o in enumerate(spec.offsets) if o <= k)
+            where.append(f"{tag}[{row}] {spec.names[leaf]}"
+                         f"[{k - spec.offsets[leaf]}]: CPU "
+                         f"{float(a[row, k])!r}, card {float(b[row, k])!r}")
+        raise AssertionError(f"reduced round: card vs CPU err {err}; "
+                             + "; ".join(where))
+
+
+def compress_owned(slot, d: int, c: int, s: int) -> int:
+    """How many (row, coordinate) pairs the slots own under the cyclic
+    template: the x entries ``compress`` must read."""
+    r = np.arange(c)
+    per_r = d // c + (r < d % c)  # coordinates k with k mod c = r
+    band = (-(s * r)) % c
+    return int(sum(per_r[(sl + band) % c < s].sum()
+                   for sl in np.asarray(slot).tolist() if 0 <= sl < c))
+
+
+def check_compress(x, slot, c: int, s: int, reps: int,
+                   plain_reps: int) -> dict:
+    """``compress`` against its plain version on ``x`` (bitwise), both
+    timed; returns the measurements."""
+    from repro_torch.kernels import compress, ref
+
+    got = compress.compress(x, slot, c, s)
+    want = ref.compress(x, slot, c, s)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    del got, want
+    n = 1 if x.dim() == 1 else x.shape[0]
+    name = (f"compress{'_1d' if x.dim() == 1 else ''}_"
+            f"{'f64' if x.dtype == torch.float64 else 'f32'}")
+    if err != 0.0:
+        raise AssertionError(f"{name} {list(x.shape)}: max abs err {err}, "
+                             "want 0")
+    owned = compress_owned(slot.cpu(), x.shape[-1], c, s)
+    return {
+        "name": name, "shape": list(x.shape), "max_abs_err": err,
+        "tolerance": 0.0,
+        "ms": cuda_ms(lambda: compress.compress(x, slot, c, s), reps),
+        "plain_ms": cuda_ms(lambda: ref.compress(x, slot, c, s),
+                            plain_reps),
+        # owned x entries read, every output written, slot read
+        "bound_ms": bound_ms(x.element_size() * (owned + x.numel())
+                             + 4 * n),
+    }
+
+
+def check_compress_kernels(d_total, dev):
+    """``compress`` in both ranks and types against its plain version: f64
+    at the convex paths' shapes and round-0 permutations, f32 on the comm
+    workspace of the LM paths (slot ``[1, -1, 0, 2]``, c=3, s=2, an idle
+    row of NaN) and its one-row form; returns one record per
+    instantiation."""
+    from repro_torch.core import masks, theory
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    d = CONVEX["d"]
+    recs = {}
+    for c, reps in ((100, 200), (1000, 100)):
+        s = theory.recommended_s(c, d, 0.0)
+        perm = torch.from_numpy(masks.sample_permutation(0, 0, c)).to(
+            device=dev, dtype=torch.int32)
+        x = torch.randn(c, d, generator=g, device=dev, dtype=torch.float64)
+        rec = check_compress(x, perm, c, s, reps, 20)
+        if c == 100:
+            recs["compress_f64"] = rec
+            x1 = x[0].contiguous()
+            recs["compress_1d_f64"] = check_compress(x1, perm[:1], c, s, 200,
+                                                     20)
+        else:  # the [convex_full] shape rides along
+            recs["compress_f64"].update(
+                {f"full_{k}": rec[k] for k in ("shape", "max_abs_err", "ms",
+                                               "plain_ms", "bound_ms")})
+        del x
+    x = torch.randn(N, d_total, generator=g, device=dev)
+    x[1] = float("nan")  # the idle row never reaches the output
+    slot = torch.tensor([1, -1, 0, 2], dtype=torch.int32, device=dev)
+    recs["compress_f32"] = check_compress(x, slot, C, S, 5, 2)
+    x1 = x[0]
+    recs["compress_1d_f32"] = check_compress(x1, slot[:1], C, S, 10, 2)
+    del x, x1
+    torch.cuda.empty_cache()
+    return [recs[k] for k in ("compress_f64", "compress_f32",
+                              "compress_1d_f64", "compress_1d_f32")]
+
+
+def check_convex_card_vs_cpu(prob, cfg, rounds: int = 5) -> None:
+    """Gate (a): the first rounds of ``tamuna.run`` on the card against the
+    same rounds, same schedule, on the CPU (plain versions): x_bar and h
+    within 1e-10 relative."""
+    from repro_torch.core import tamuna
+
+    card = tamuna.run(prob, cfg, rounds, record_every=rounds)["state"]
+    cpu = tamuna.run(prob.to("cpu"), cfg, rounds,
+                     record_every=rounds)["state"]
+    errs = [float((a.cpu() - b).abs().max() / b.abs().max())
+            for a, b in ((card.x_bar, cpu.x_bar), (card.h, cpu.h))]
+    print(f"[convex] first {rounds} rounds ({card.total_local_steps} local "
+          f"steps) on the card vs the CPU: relative max err x_bar "
+          f"{errs[0]:.3e}, h {errs[1]:.3e} (tolerance 1e-10)")
+    if not (max(errs) <= 1e-10
+            and card.total_local_steps == cpu.total_local_steps):
+        raise AssertionError(f"[convex] card vs CPU: {errs}")
+
+
+def run_convex_path(tag, prob, c: int, rounds: int) -> dict:
+    """Drive ``tamuna.run`` for ``rounds`` rounds of the paper-scale
+    problem at cohort ``c`` with the launch counts set to 0 just before and
+    read just after; gates (b) sum_i h_i = 0 to 1e-10 of max|h|, (c) a
+    finite suboptimality that ends below where it started and (d) two
+    ``compress_f64`` launches per round.  Returns the launch counts."""
+    from repro_torch.core import tamuna, theory
+    from repro_torch.kernels import _build
+
+    cfg = tamuna.TamunaConfig.tuned(prob, c=c)
+    print(f"[{tag}] n={prob.n} d={prob.d} c={c} s={cfg.s} p={cfg.p:.6f} "
+          f"(1/p = {1 / cfg.p:.3f} local steps per round) gamma="
+          f"{cfg.gamma:.6e} eta={cfg.eta:.6f}, {rounds} rounds, float64")
+    start = float(prob.suboptimality(torch.zeros_like(prob.x_star)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    tr = tamuna.run(prob, cfg, rounds, seed=0,
+                    record_every=max(1, rounds // 8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    state = tr["state"]
+    for i, r in enumerate(tr["rounds"]):
+        print(f"[{tag}] round {r}: local steps {tr['local_steps'][i]} "
+              f"suboptimality {tr['suboptimality'][i]:.6e} lyapunov "
+              f"{tr['lyapunov'][i]:.6e} at {tr['seconds'][i]:.3f} s")
+    steps = state.total_local_steps
+    print(f"[{tag}] {rounds} rounds, {steps} local steps in {wall:.3f} s: "
+          f"{wall / rounds * 1e3:.4f} ms per round, "
+          f"{wall / steps * 1e3:.4f} ms per local step (record points "
+          f"included); up_floats {state.up_floats:.0f} down_floats "
+          f"{state.down_floats:.0f} per client")
+    print(f"[{tag}] launches {({k: v for k, v in launches.items() if v})}")
+    print(f"[{tag}] max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB)")
+    chi = cfg.eta / cfg.p
+    tau = theory.theorem1_rate(cfg.gamma, prob.mu, prob.L, cfg.p, chi,
+                               prob.n, cfg.s)
+    ly, st = tr["lyapunov"], tr["local_steps"]
+    rate = (ly[-1] / ly[0]) ** (1.0 / (st[-1] - st[0]))
+    print(f"[{tag}] Theorem 1 tau = {tau:.10f} per local step; measured "
+          f"Lyapunov rate {rate:.10f} per local step over steps "
+          f"{st[0]}..{st[-1]}")
+    ratio = h_sum_ratio(state.h, prob.d)
+    print(f"[{tag}] |sum_i h_i| / max|h| = {ratio:.3e} (limit 1e-10); "
+          f"suboptimality {start:.6e} at x0 = 0 -> "
+          f"{tr['suboptimality'][-1]:.6e}")
+    if not ratio <= 1e-10:
+        raise AssertionError(f"[{tag}] sum_i h_i = 0 violated: {ratio}")
+    sub = tr["suboptimality"]
+    if not (np.isfinite(sub).all() and sub[-1] < start and sub[-1] < sub[0]):
+        raise AssertionError(f"[{tag}] suboptimality did not fall: {sub}")
+    others = {k: v for k, v in launches.items() if k != "compress_f64" and v}
+    if launches["compress_f64"] != 2 * rounds or others:
+        raise AssertionError(f"[{tag}] want 2 compress_f64 launches per "
+                             f"round and nothing else: {launches}")
+    del tr, state
+    torch.cuda.empty_cache()
+    return launches
 
 
 def h_sum_ratio(h, d: int) -> float:
@@ -729,6 +926,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     recs += check_wire_kernels(spec, dev)
     torch.cuda.empty_cache()
+    recs += check_compress_kernels(spec.d_total, dev)
     for rec in recs:
         print(f"[check] {rec['name']} {rec['shape']}: max abs err "
               f"{rec['max_abs_err']} (tolerance {rec['tolerance']}), "
@@ -797,6 +995,30 @@ def main() -> int:
         faults=faults.FaultPlan(seed=0, n=NF, p_drop=0.25),
         policy="quorum")
 
+    # ---- the convex core at paper scale: Fig. 3's problem, c=100, 1000 --
+    from repro_torch.core import problems, tamuna
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob = problems.make_logreg_problem(**CONVEX, name="realsim-like",
+                                        device=dev)
+    setup = prob.meta["setup_s"]
+    print(f"[convex] problem {prob.name} {CONVEX}: set-up "
+          f"{time.perf_counter() - t0:.3f} s (data {setup['data']:.3f} s, "
+          f"L {setup['L']:.3f} s, Newton {setup['newton']:.3f} s in "
+          f"{prob.meta['newton_iters']} steps); mu {prob.mu:.10e} L "
+          f"{prob.L:.10e} f* {prob.f_star:.15e} |grad f(x*)| "
+          f"{float(prob.grad(prob.x_star).norm()):.3e}; shared by both "
+          f"convex paths")
+    check_convex_card_vs_cpu(prob, tamuna.TamunaConfig.tuned(prob, c=100))
+    torch.cuda.empty_cache()
+    by_path["convex"] = run_convex_path("convex", prob, 100,
+                                        CONVEX_ROUNDS["convex"])
+    by_path["convex_full"] = run_convex_path("convex_full", prob, 1000,
+                                             CONVEX_ROUNDS["convex_full"])
+    del prob
+    torch.cuda.empty_cache()
+
     src = "src/repro_torch/kernels/csrc/tamuna_kernels.cu"
     # each kernel's body in the reference and the path whose launches the
     # record reports
@@ -815,6 +1037,11 @@ def main() -> int:
         "masked_sum_bf16": ("src/repro/kernels/uplink.py:55", None),
         "wire_quantize": ("src/repro/dist/wire.py:245 quantize_to_int, "
                           "src/repro/dist/wire.py:221 quantize", "wire"),
+        "compress_f64": ("src/repro/kernels/compress.py:71", "convex"),
+        # no path of either package compresses f32 or one vector
+        "compress_f32": ("src/repro/kernels/compress.py:71", None),
+        "compress_1d_f64": ("src/repro/kernels/compress.py:63", None),
+        "compress_1d_f32": ("src/repro/kernels/compress.py:63", None),
     }
     kernels = []
     for rec in recs:
@@ -831,10 +1058,9 @@ def main() -> int:
             "path": path_name,
             "launches_by_path": {p: by_path[p][rec["name"]]
                                  for p in by_path},
-            **{k: rec[k] for k in ("median_ms", "median_plain_ms",
-                                   "counts_ms", "int4_ms", "int4_plain_ms",
-                                   "down_ms", "down_plain_ms")
-               if k in rec},
+            **{k: v for k, v in rec.items() if k not in (
+                "name", "shape", "max_abs_err", "tolerance", "ms",
+                "plain_ms", "bound_ms")},
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -5,18 +5,23 @@ The reference names its leaves ``checkpoint._flatten_with_names`` style
 directory as ``arrays.npz`` (``leaf_<i>`` in leaf order, bf16 stored as its
 raw uint16 bits) plus ``meta.json`` (``names``, ``dtypes``, ``shapes``).
 Both are read here with numpy and json alone.
+
+The convex core's problems and states come across as numpy arrays too:
+``convex_problem_from_numpy`` (the data, ``mu``, ``L``, ``x*``, ``f*``) and
+``tamuna_state_from_numpy`` (``x_bar``, ``h`` and the counters).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.core import problems, tamuna
 from repro_torch.dist.model_api import param_specs
 from repro_torch.models.transformer import ModelConfig
 
@@ -64,3 +69,45 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
             raise ValueError(f"{name}: shape {a.shape}, want {shape}")
         out[name] = torch.tensor(a, dtype=torch.float32, device=dev)
     return out
+
+
+def convex_problem_from_numpy(arrays: Mapping[str, np.ndarray], *, mu: float,
+                              L: float, x_star: Optional[np.ndarray] = None,
+                              f_star: Optional[float] = None,
+                              name: str = "problem",
+                              device: DeviceLike = "cuda"
+                              ) -> problems.FiniteSumProblem:
+    """The port's float64 problem from the reference's data: ``{"A": (n, m,
+    d), "b": (n, m)}`` (logistic regression) or ``{"diag": (d,), "t": (n,
+    d)}`` (quadratics), with the reference's constants."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=problems.F64, device=dev)
+
+    common = dict(mu=float(mu), L=float(L), name=name,
+                  x_star=None if x_star is None else t(x_star),
+                  f_star=None if f_star is None else float(f_star))
+    if sorted(arrays) == ["A", "b"]:
+        n, _, d = np.shape(arrays["A"])
+        return problems.LogRegProblem(n=n, d=d, A=t(arrays["A"]),
+                                      b=t(arrays["b"]), **common)
+    if sorted(arrays) == ["diag", "t"]:
+        n, d = np.shape(arrays["t"])
+        return problems.QuadraticProblem(n=n, d=d, diag=t(arrays["diag"]),
+                                         t=t(arrays["t"]), **common)
+    raise ValueError(f"want arrays A, b or diag, t; got {sorted(arrays)}")
+
+
+def tamuna_state_from_numpy(x_bar: np.ndarray, h: np.ndarray, round: int = 0,
+                            total_local_steps: int = 0,
+                            up_floats: float = 0.0, down_floats: float = 0.0,
+                            device: DeviceLike = "cuda"
+                            ) -> tamuna.TamunaState:
+    """The port's convex state from the reference's arrays and counters."""
+    dev = resolve_device(device)
+    return tamuna.TamunaState(
+        x_bar=torch.tensor(np.asarray(x_bar), dtype=problems.F64, device=dev),
+        h=torch.tensor(np.asarray(h), dtype=problems.F64, device=dev),
+        round=int(round), total_local_steps=int(total_local_steps),
+        up_floats=float(up_floats), down_floats=float(down_floats))

@@ -34,12 +34,15 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# one count per kernel instantiation: the UpComs per lane type
+# one count per kernel instantiation: the UpComs per lane type, compress
+# per float type and rank
 KERNELS = ("masked_sum", "masked_sum_f16", "masked_sum_bf16",
            "masked_sum_counts", "masked_sum_counts_f16",
            "masked_sum_counts_bf16", "masked_sum_dequant",
            "masked_sum_dequant_counts", "robust_sum", "h_update",
-           "h_update_covered", "fused_local_step", "wire_quantize")
+           "h_update_covered", "fused_local_step", "wire_quantize",
+           "compress_f64", "compress_f32", "compress_1d_f64",
+           "compress_1d_f32")
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -112,10 +115,12 @@ def load() -> ctypes.CDLL:
     lib.tamuna_h_update_covered.argtypes = [p, p, p, p, p, p, p, i64, i64,
                                             i32, i32, f32, p]
     lib.tamuna_local_step.argtypes = [p, p, p, p, i64, f32, p]
+    lib.tamuna_compress.argtypes = [p, i32, p, p, i64, i64, i32, i32, p]
     for fn in (lib.tamuna_masked_sum, lib.tamuna_masked_sum_counts,
                lib.tamuna_masked_sum_dequant, lib.tamuna_wire_quantize,
                lib.tamuna_robust_sum, lib.tamuna_h_update,
-               lib.tamuna_h_update_covered, lib.tamuna_local_step):
+               lib.tamuna_h_update_covered, lib.tamuna_local_step,
+               lib.tamuna_compress):
         fn.restype = ctypes.c_int
     return lib
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the CUDA kernels of the training round.
+"""Plain PyTorch versions of the CUDA kernels of the training round and
+of the convex core's compressor (``compress``).
 
 They are the kernels' oracles: the wrappers run them for CPU tensors, the
 CPU tests hold them against the reference's Pallas kernels in interpret
@@ -35,8 +36,8 @@ from typing import Iterator, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.dist import wire
-from repro_torch.kernels.compress import (chunk_cols, owned_from_band,
-                                          wire_dequant)
+from repro_torch.kernels.compress import (chunk_cols, cyclic_band,
+                                          owned_from_band, wire_dequant)
 
 # columns per chunk of the chunked plain versions; a multiple of the wire's
 # 256-coordinate scale chunk, so a column chunk holds whole scale chunks
@@ -51,6 +52,25 @@ def _div(a: torch.Tensor, b: float) -> torch.Tensor:
 def column_chunks(d: int) -> Iterator[slice]:
     for a in range(0, d, CHUNK):
         yield slice(a, min(a + CHUNK, d))
+
+
+def compress(x: torch.Tensor, slot: torch.Tensor, c: int,
+             s: int) -> torch.Tensor:
+    """C_i(x) under the cyclic template: ``(d,)`` with ``slot`` ``(1,)`` or
+    ``(n, d)`` with ``slot`` ``(n,)``; row ``i`` keeps coordinate ``k``
+    where ``slot[i]`` owns it (band ``(-s (k mod c)) mod c``), else 0, and
+    a slot outside ``[0, c)`` gives a zero row.  Selects, never multiplies;
+    any float type."""
+    rows = x.reshape(-1, x.shape[-1])
+    sl = slot.to(torch.int64)[:, None]
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(rows)
+    for cols in column_chunks(rows.shape[1]):
+        k = torch.arange(cols.start, cols.stop, dtype=torch.int64,
+                         device=x.device)
+        owned = owned_from_band(sl, cyclic_band(k, c, s)[None, :], c, s)
+        out[:, cols] = torch.where(owned, rows[:, cols], zero)
+    return out.reshape(x.shape)
 
 
 def masked_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,

@@ -8,7 +8,10 @@ operation with no FMA contraction, so they agree bitwise (NaN where the
 plain version has NaN).  The wire's kernels are held the same way: the
 dequantizing UpComs with NaN scales in idle and owned rows, the f16/bf16
 lanes, the quantizer in its int8, int4 and DownCom forms, and a wire comm
-step on the card against the same step on the CPU.
+step on the card against the same step on the CPU.  The convex core's
+``compress`` is held bitwise in both ranks and types, and five convex rounds
+on the card against the CPU within 1e-10 relative (cuBLAS and the CPU sum
+the gradients' products in other orders).
 """
 
 import numpy as np
@@ -261,3 +264,50 @@ def test_wire_comm_step_card_matches_cpu_bitwise(dev, policy, wire_down,
         out[str(d)] = (xw.cpu(), hw.cpu())
     for a, b in zip(out["cpu"], out[str(dev)]):
         assert _same(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("rank", [1, 2])
+def test_compress_kernel_matches_plain(dev, dtype, rank):
+    from repro_torch.kernels import compress
+
+    c, s = 7, 3
+    g = torch.Generator(device=dev).manual_seed(5)
+    if rank == 2:
+        x = torch.randn(6, 3 * 4096 + 77, generator=g, device=dev,
+                        dtype=dtype)
+        slot = torch.tensor([0, 3, 6, 7, -1, 2], dtype=torch.int32,
+                            device=dev)
+    else:
+        x = torch.randn(3 * 4096 + 77, generator=g, device=dev, dtype=dtype)
+        slot = torch.tensor([4], dtype=torch.int32, device=dev)
+    x.view(-1)[5::97] = float("nan")  # unowned NaN must not leak
+    name = (f"compress{'_1d' if rank == 1 else ''}_"
+            f"{'f64' if dtype == torch.float64 else 'f32'}")
+    before = _build.launch_counts[name]
+    got = compress.compress(x, slot, c, s)
+    assert _build.launch_counts[name] == before + 1
+    want = ref.compress(x, slot, c, s)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
+
+
+def test_convex_rounds_on_the_card_match_the_cpu(dev):
+    from repro_torch.core import problems, tamuna
+
+    prob = problems.make_logreg_problem(n=40, d=300, samples_per_client=4,
+                                        kappa=100.0, device="cpu")
+    cfg = tamuna.TamunaConfig.tuned(prob, c=10)
+    out = {}
+    for d in ("cpu", dev):
+        _build.reset_launch_counts()
+        out[str(d)] = tamuna.run(prob.to(d), cfg, 5, record_every=5)
+        launches = _build.launch_counts["compress_f64"]
+        assert launches == (0 if d == "cpu" else 10)
+    a, b = out["cpu"]["state"], out[str(dev)]["state"]
+    for x, y in ((a.x_bar, b.x_bar), (a.h, b.h)):
+        assert float((x - y.cpu()).abs().max()) <= 1e-10 * float(
+            x.abs().max())
+    assert a.total_local_steps == b.total_local_steps

@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,19 +35,24 @@ runpy.run_path("chip_smoke.py", run_name="not_main")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack"} <= set(names)
+assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack",
+        "repro_torch.core.masks", "repro_torch.core.compression",
+        "repro_torch.core.problems", "repro_torch.core.tamuna",
+        "repro_torch.core.theory"} <= set(names)
 print(len(names), bad)
 """
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 32
+    assert int(count) >= 35
     assert bad.strip() == "[]", bad
 
 
 def _default_device_calls():
     from repro_torch._device import resolve_device
+    from repro_torch import convert
     from repro_torch.configs import gemma2_2b
+    from repro_torch.core import problems
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import model_api, tamuna_dp
     from repro_torch.launch import train
@@ -61,12 +67,24 @@ def _default_device_calls():
         "pipeline": lambda: SyntheticTokenPipeline(
             DataConfig(n_clients=4), cfg),
         "train.main": lambda: train.main(["--reduced", "--rounds", "1"]),
+        "make_logreg_problem": lambda: problems.make_logreg_problem(
+            n=4, d=8, samples_per_client=2),
+        "make_quadratic_problem": lambda: problems.make_quadratic_problem(
+            n=4, d=8),
+        "convex_problem_from_numpy": lambda: convert.convex_problem_from_numpy(
+            {"diag": np.ones(3), "t": np.zeros((2, 3))}, mu=1.0, L=1.0),
+        "tamuna_state_from_numpy": lambda: convert.tamuna_state_from_numpy(
+            np.zeros(3), np.zeros((2, 3))),
     }
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "model_api.init",
                                    "init_state", "make_comm_step",
-                                   "pipeline", "train.main"])
+                                   "pipeline", "train.main",
+                                   "make_logreg_problem",
+                                   "make_quadratic_problem",
+                                   "convex_problem_from_numpy",
+                                   "tamuna_state_from_numpy"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")

@@ -5,9 +5,13 @@ holds NaN, and the DownCom both to every row and to a row mask.
 
 Tolerances: ``h_update`` and ``fused_local_step`` repeat the reference's
 arithmetic operation for operation, so they agree bitwise; ``masked_sum``
-may add the client rows in another order, so 1e-6 relative.
+may add the client rows in another order, so 1e-6 relative.  ``compress``
+(the convex core's C_i) selects, so it agrees bitwise in f32 and f64 (the
+reference's f64 run under a scoped ``jax.enable_x64``), unowned NaN and
+inf included.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import torch
 
 from repro.dist import comm_ws as jcomm
 from repro.kernels import compress as jcompress
+from repro.kernels import ops as jops
 from repro.kernels import local_step as jlocal
 from repro.kernels import uplink as juplink
 from repro_torch.dist import comm_ws
@@ -134,4 +139,73 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     # CPU tensors never reach a kernel: nothing is launched or counted
     before = dict(_build.launch_counts)
     uplink.masked_sum(x, slot, band, 2, 2)
+    assert _build.launch_counts == before
+
+
+# -- compress (C_i of the convex core) ---------------------------------------
+
+C_C, S_C = 8, 3
+SLOTS_2D = np.array([0, 3, 7, 8, -1, 11], np.int32)  # in [0, c), >= c, < 0
+
+
+def _compress_input(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=shape).astype(dtype)
+    flat = x.reshape(-1)
+    flat[5::97] = np.nan  # unowned NaN and inf must not leak
+    flat[11::89] = np.inf
+    flat[13::83] = -0.0
+    return x
+
+
+def _pallas_compress(x, slot, block):
+    with jax.enable_x64(x.dtype == np.float64):
+        return np.asarray(jops.compress(jnp.asarray(x), jnp.asarray(slot),
+                                        C_C, S_C, block=block))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_compress_2d_matches_pallas_interpret_bitwise(dtype):
+    x = _compress_input((len(SLOTS_2D), 3 * 256 + 77), dtype, 7)
+    want = _pallas_compress(x, SLOTS_2D, 256)
+    assert want.dtype == dtype
+    got = compress.compress(torch.from_numpy(x), torch.from_numpy(SLOTS_2D),
+                            C_C, S_C).numpy()
+    assert got.dtype == dtype and got.tobytes() == want.tobytes()
+    # slots outside [0, c) give zero rows
+    assert not got[3:].any()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("slot", [0, 5, 7, 8, 20, -1])
+def test_compress_1d_matches_pallas_interpret_bitwise(dtype, slot):
+    x = _compress_input((1000,), dtype, slot + 3)
+    sl = np.array([slot], np.int32)
+    want = _pallas_compress(x, sl, 128)
+    got = compress.compress(torch.from_numpy(x), torch.from_numpy(sl), C_C,
+                            S_C).numpy()
+    assert got.dtype == dtype and got.tobytes() == want.tobytes()
+
+
+def test_compress_owners_cover_each_coordinate_s_times():
+    x = torch.ones(C_C, 257, dtype=torch.float64)
+    slot = torch.arange(C_C, dtype=torch.int32)
+    total = compress.compress(x, slot, C_C, S_C).sum(dim=0)
+    assert torch.equal(total, torch.full((257,), float(S_C),
+                                         dtype=torch.float64))
+
+
+def test_compress_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros(3, 8, dtype=torch.float64)
+    slot = torch.zeros(3, dtype=torch.int32)
+    for bad in (lambda: compress.compress(x.half(), slot, 4, 2),
+                lambda: compress.compress(x, slot.long(), 4, 2),
+                lambda: compress.compress(x, slot[:2], 4, 2),
+                lambda: compress.compress(x.t(), slot, 4, 2),
+                lambda: compress.compress(x[0], slot, 4, 2),
+                lambda: compress.compress(x, slot, 4, 5)):
+        with pytest.raises(ValueError):
+            bad()
+    before = dict(_build.launch_counts)
+    compress.compress(x, slot, 4, 2)
     assert _build.launch_counts == before
