@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: build, check, train,
-and run the paper's convex TAMUNA.
+run the paper's convex TAMUNA, and serve.
 
 Run from the root of the repository on a machine with an NVIDIA H100:
 
@@ -32,7 +32,8 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    an idle row of NaN), and in its 1-D form at ``(20958,)`` f64 and
    ``(d,)`` f32, each bitwise;
 4. runs one round of the reduced gemma2-2b config on the card and on the
-   CPU with the same injected schedule and batches, and compares them:
+   CPU (one intra-op thread) with the same injected schedule and batches,
+   and compares them:
    the fault-free round, a round with a dropped member and the trimmed
    mean, and an int8 ``wire_down`` round with a dropped member and the
    trimmed mean whose comm step runs on both devices from the same
@@ -71,7 +72,31 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    time, peak memory, the launches and Theorem 1's tau beside the
    measured Lyapunov rate, and must keep sum_i h_i = 0 (1e-10 of
    max|h|), end with a finite suboptimality below its start and launch
-   ``compress_f64`` exactly twice per round and nothing else.
+   ``compress_f64`` exactly twice per round and nothing else;
+7. holds ``decode_attention`` against its plain version on the card:
+   bf16 queries and cache at gemma2-2b's heads (8, 8, 256) over a
+   (8, 32768, 4, 256) cache at pos 0, 4095 and 30000 with the 4096 window
+   and globally, softcap 50, within one bf16 ulp, and at the serving
+   paths' shapes; f32 queries on f32 and bf16 caches at the reduced
+   config's heads within 2e-5; the kernel untouched by NaN in every cache
+   row outside the visible keys; timing the kernel, the plain version and
+   ``scaled_dot_product_attention`` (softcap off) beside the bound;
+8. serves, launch counts set to 0 just before each path and read just
+   after, through ``repro_torch.launch.serve.run``:
+   ``[serve_reduced]`` the reduced config (f32) past its window of 64, on
+                 an f32 and a bf16 cache, card (kernel) vs CPU (plain
+                 attention): last logits within 1e-4, greedy tokens equal;
+   ``[serve]``   gemma2-2b at published widths and full depth (26
+                 layers), batch 8, prompt 448 + 64 generated, bf16: ms per
+                 step, tok/s, peak memory, a profiled step; 26 x 512
+                 launches, no plain attention, finite logits;
+   ``[serve_long]`` two full-width layers past the 4096 window, batch 4,
+                 prompt 4544 + 64: the launches, and the last step rerun
+                 from the same cache with plain attention.
+
+It takes no options and runs every phase.  ``reduced_round_diag.py``
+runs the first reduced round's card, CPU and float64 evaluations in fresh
+processes.
 
 Any failure raises and exits non-zero.  The last three lines of standard
 output are the kernels' JSON record, the card's name and power limit, and
@@ -83,6 +108,7 @@ when it stands in a directory without the rest of the repository.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -94,9 +120,12 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM device-memory rate (NVIDIA data sheet), the bound of every
-# kernel: they do O(1) operations per byte.
+# H100 SXM device-memory rate and dense peaks (NVIDIA data sheet): the
+# training kernels do O(1) operations per byte and are bound by bytes;
+# decode attention's bound takes the larger of its bytes and operations
 HBM_BYTES_PER_S = 3.35e12
+BF16_OPS_PER_S = 989e12
+F32_OPS_PER_S = 67e12
 
 N, C, S = 4, 3, 2  # clients, cohort, sparsity of the fault-free path
 NF, CF, SF = 5, 4, 3  # the same for the survivor and robust paths
@@ -105,6 +134,17 @@ GAMMA, P = 0.05, 0.34
 # --paper-scale), real-sim-like logistic regression, and their rounds
 CONVEX = dict(n=1000, d=20958, samples_per_client=4, kappa=1e4, seed=0)
 CONVEX_ROUNDS = {"convex": 8000, "convex_full": 1500}
+# intra-op threads of the CPU side of the reduced rounds
+REDUCED_CPU_THREADS = 1
+# decode attention: gemma2-2b's heads over a 32k cache (b 8), and the
+# reduced config's heads over a 4k cache for the f32 instantiations
+DECODE_FULL = dict(b=8, h=8, kvh=4, hd=256, S=32768)
+DECODE_F32 = dict(b=8, h=4, kvh=2, hd=64, S=4096)
+# the serving paths: the reduced config past its window of 64; full-depth
+# gemma2-2b at 512 rows; two full-width layers past the 4096 window
+SERVE_REDUCED = dict(batch=4, prompt_len=72, gen_len=8)
+SERVE = dict(batch=8, prompt_len=448, gen_len=64)
+SERVE_LONG = dict(batch=4, prompt_len=4544, gen_len=64)
 
 
 def smi() -> str:
@@ -599,54 +639,294 @@ def check_reduced_wire_round(dev):
                              f"{err_comm}")
 
 
-def check_reduced_round(dev, n, c, s, cohort, perm, down, arrived=None,
-                        **robust):
-    """One reduced-config round on the card against the same round on the
-    CPU (plain versions), with the same schedule, batches and (if given)
-    arrived rows injected."""
+def reduced_round_inputs(n: int, c: int):
+    """The reduced config, the round's batches ``(2 steps, c, 2, 97)`` and
+    the noise that makes the ``n - 1`` other client rows distinct, the same
+    on every side."""
     from repro_torch.configs import gemma2_2b
-    from repro_torch.dist import comm_ws, model_api, tamuna_dp
+    from repro_torch.dist import comm_ws, model_api
 
     cfg = gemma2_2b.REDUCED
-    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P, **robust)
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, c, 2, 97)))
-    down = torch.tensor(down)
     d_total = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
-    # distinct client rows, the same on both sides
     noise = torch.from_numpy(
         0.01 * rng.normal(size=(n - 1, d_total)).astype(np.float32))
+    return cfg, toks, noise
+
+
+def reduced_local(device, cfg, tcfg, n, cohort, toks, noise):
+    """The round's state after its two local steps on ``device``, and the
+    cohort's rows."""
+    from repro_torch.dist import tamuna_dp
+
+    state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device="cpu")
+    state.x[1:] += noise
+    state.x, state.h = state.x.to(device), state.h.to(device)
+    local = tamuna_dp.make_local_step(cfg, tcfg)
+    compact = tamuna_dp.gather_cohort(state, cohort)
+    for t in range(toks.shape[0]):
+        tk = toks[t].to(device)
+        local(compact, tokens=tk[..., :-1], labels=tk[..., 1:])
+    return state, compact
+
+
+class intra_op_threads:
+    """``torch.set_num_threads(k)`` inside the block (``None`` keeps the
+    current count)."""
+
+    def __init__(self, k):
+        self.k = k
+
+    def __enter__(self):
+        self.prev = torch.get_num_threads()
+        if self.k is not None:
+            torch.set_num_threads(self.k)
+
+    def __exit__(self, *exc):
+        torch.set_num_threads(self.prev)
+
+
+def reduced_round_err(dev, n, c, s, cohort, perm, down, arrived=None,
+                      **robust):
+    """One reduced-config round on the card and on the CPU (plain
+    versions) with the same schedule, batches and (if given) arrived rows
+    injected: ``(max abs err over x and h, where the worst coordinate
+    lies)``."""
+    from repro_torch.dist import comm_ws, model_api, tamuna_dp
+
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P, **robust)
+    cfg, toks, noise = reduced_round_inputs(n, c)
+    down = torch.tensor(down)
     kw = {} if arrived is None else {"arrived": np.asarray(arrived)}
     out = {}
     for device in ("cpu", dev):
-        state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device="cpu")
-        state.x[1:] += noise
-        state.x, state.h = state.x.to(device), state.h.to(device)
-        local = tamuna_dp.make_local_step(cfg, tcfg)
-        compact = tamuna_dp.gather_cohort(state, cohort)
-        for t in range(toks.shape[0]):
-            tk = toks[t].to(device)
-            local(compact, tokens=tk[..., :-1], labels=tk[..., 1:])
+        state, compact = reduced_local(device, cfg, tcfg, n, cohort, toks,
+                                       noise)
         comm = tamuna_dp.make_comm_step(cfg, tcfg, n, device=device)
         state = comm(tamuna_dp.scatter_cohort(state, compact), cohort, perm,
                      down, **kw)
         out[str(device)] = (state.x.cpu(), state.h.cpu())
     (xc, hc), (xg, hg) = out["cpu"], out[str(dev)]
     err = max(max_abs_err(xc, xg), max_abs_err(hc, hg))
-    print(f"[reduced] one round of {cfg.name} (n={n} c={c} s={s} "
-          f"{tcfg.robust_agg}, arrived {arrived}) on the card vs the CPU: "
-          f"max abs err {err:.3e} (tolerance 1e-5)")
+    spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
+    where = []
+    for tag, a, b in (("x", xc, xg), ("h", hc, hg)):
+        row, k = divmod(int((a - b).abs().argmax()), spec.d_total)
+        leaf = max(i for i, o in enumerate(spec.offsets) if o <= k)
+        where.append(f"{tag}[{row}] {spec.names[leaf]}"
+                     f"[{k - spec.offsets[leaf]}]: CPU "
+                     f"{float(a[row, k])!r}, card {float(b[row, k])!r}")
+    return err, "; ".join(where)
+
+
+def check_reduced_round(dev, n, c, s, cohort, perm, down, arrived=None,
+                        **robust):
+    """One reduced-config round on the card against the same round on the
+    CPU (plain versions), gated at 1e-5."""
+    err, where = reduced_round_err(dev, n, c, s, cohort, perm, down,
+                                   arrived, **robust)
+    print(f"[reduced] one round of gemma2-2b-reduced (n={n} c={c} s={s} "
+          f"{robust.get('robust_agg', 'mean')}, arrived {arrived}) on the "
+          f"card vs the CPU: max abs err {err:.3e} (tolerance 1e-5)")
     if not err <= 1e-5:
-        spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
-        where = []
-        for tag, a, b in (("x", xc, xg), ("h", hc, hg)):
-            row, k = divmod(int((a - b).abs().argmax()), d_total)
-            leaf = max(i for i, o in enumerate(spec.offsets) if o <= k)
-            where.append(f"{tag}[{row}] {spec.names[leaf]}"
-                         f"[{k - spec.offsets[leaf]}]: CPU "
-                         f"{float(a[row, k])!r}, card {float(b[row, k])!r}")
         raise AssertionError(f"reduced round: card vs CPU err {err}; "
-                             + "; ".join(where))
+                             + where)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| in units of one bf16 ulp of the larger of |a| and |b|
+    (magnitudes below 2^-10 count as 2^-10, where f32 rounding of a sum of
+    O(1) terms is still far below one ulp)."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -10)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs() / ulp).max())
+
+
+def attn_bound(b, h, kvh, hd, n_keys, q_bytes, kv_bytes):
+    """``(bound ms, "bytes" | "operations")`` of one decode attention: the
+    visible K and V rows read once, q read, the output written; the
+    logits and the weighted sum, 4 b h n_keys hd operations, at the
+    card's rate for the inputs' type (bf16 tensor cores, else f32)."""
+    nbytes = 2 * b * kvh * n_keys * hd * kv_bytes + 2 * b * h * hd * q_bytes
+    ops = 4 * b * h * n_keys * hd
+    peak = BF16_OPS_PER_S if max(q_bytes, kv_bytes) == 2 else F32_OPS_PER_S
+    t_bytes, t_ops = bound_ms(nbytes), ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def sdpa_call(q, k, v, pos: int, window):
+    """``scaled_dot_product_attention`` with ``enable_gqa`` on the same
+    inputs, the cache in its layout ``(b, kvh, S, hd)`` and the window as
+    a boolean mask, softcap off (no PyTorch call applies one): the
+    library's time for the same function without the softcap.  The
+    library takes one dtype, so a bf16 cache under f32 queries is widened
+    first (outside the timed call)."""
+    import torch.nn.functional as F
+
+    S = k.shape[1]
+    qs = q[:, :, None, :]
+    ks, vs = (t.transpose(1, 2).to(q.dtype).contiguous() for t in (k, v))
+    kpos = torch.arange(S, device=q.device)
+    mask = kpos <= pos
+    if window is not None:
+        mask &= kpos > pos - window
+    mask = mask[None, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+
+def check_decode_case(q, k, v, pos, window, softcap, reps, plain_reps,
+                      tol_ulps=None, tol_abs=None, library=False):
+    """The decode kernel against its plain version on one case, both
+    timed; the error in bf16 ulps (``tol_ulps``) or absolute
+    (``tol_abs``)."""
+    from repro_torch.kernels import decode_attn, ref
+
+    b, h, hd = q.shape
+    kvh = k.shape[2]
+    got = decode_attn.decode_attention(q, k, v, pos, window=window,
+                                       softcap=softcap)
+    want = ref.decode_attention(q, k, v, pos, window=window,
+                                softcap=softcap)
+    torch.cuda.synchronize()
+    err = max_abs_err(got.float(), want.float())
+    ulps = bf16_ulps(got, want)
+    del got, want
+    bad = (tol_ulps is not None and not ulps <= tol_ulps) or (
+        tol_abs is not None and not err <= tol_abs)
+    wtag = "global" if window is None or window > k.shape[1] else window
+    if bad:
+        raise AssertionError(
+            f"decode_attention {list(q.shape)} {q.dtype} on {k.dtype} cache "
+            f"pos {pos} window {wtag}: max abs err {err}, {ulps} bf16 ulps")
+    _, n_keys = decode_attn.visible_keys(pos, window)
+    bound, by = attn_bound(b, h, kvh, hd, n_keys, q.element_size(),
+                           k.element_size())
+    rec = {
+        "pos": pos, "window": wtag, "softcap": softcap,
+        "max_abs_err": err, "bf16_ulps": ulps,
+        "ms": cuda_ms(lambda: decode_attn.decode_attention(
+            q, k, v, pos, window=window, softcap=softcap), reps),
+        "plain_ms": cuda_ms(lambda: ref.decode_attention(
+            q, k, v, pos, window=window, softcap=softcap), plain_reps),
+        "bound_ms": bound, "bound_by": by,
+        "splits": decode_attn.split_plan(b, kvh, n_keys)[0],
+    }
+    if library:
+        fn = sdpa_call(q, k, v, pos, window)
+        lib = fn()[:, :, 0]
+        nocap = ref.decode_attention(q, k, v, pos, window=window)
+        torch.cuda.synchronize()
+        rec["library_max_abs_err_softcap_off"] = max_abs_err(
+            lib.float(), nocap.float())
+        del lib, nocap
+        rec["library_ms"] = cuda_ms(fn, reps)
+    return rec
+
+
+def check_decode_kernels(dev):
+    """``decode_attention`` against its plain version on the card: bf16
+    queries and cache at gemma2-2b's attention (h 8, kvh 4, hd 256) over a
+    32k cache, ``pos`` in {0, 4095, 30000} x window in {4096, global},
+    softcap 50, within one bf16 ulp; f32 queries on f32 and bf16 caches at
+    the reduced config's heads within 2e-5.  One case also poisons every
+    cache row outside the visible keys with NaN: the kernel never reads
+    them.  Returns one record per instantiation, the headline case first
+    in ``cases``."""
+    from repro_torch.kernels import decode_attn
+    from repro_torch.models.transformer import GLOBAL_WINDOW
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    recs = []
+    cfgs = (
+        ("decode_attention", DECODE_FULL, torch.bfloat16, torch.bfloat16,
+         (30000, 4095, 0), 4096),
+        ("decode_attention_f32", DECODE_F32, torch.float32, torch.float32,
+         (4095, 1000, 0), 64),
+        ("decode_attention_f32_bf16kv", DECODE_F32, torch.float32,
+         torch.bfloat16, (4095, 1000, 0), 64),
+    )
+    for name, shp, qt, kvt, positions, local in cfgs:
+        b, h, kvh, hd, S = (shp[x] for x in ("b", "h", "kvh", "hd", "S"))
+        q = torch.randn(b, h, hd, generator=g, device=dev).to(qt)
+        k = torch.randn(b, S, kvh, hd, generator=g, device=dev).to(kvt)
+        v = torch.randn(b, S, kvh, hd, generator=g, device=dev).to(kvt)
+        full = name == "decode_attention"
+        tol = dict(tol_ulps=1.0) if qt == torch.bfloat16 else dict(
+            tol_abs=2e-5)
+        cases = []
+        for pos in positions:
+            for window in (GLOBAL_WINDOW, local):
+                cases.append(check_decode_case(
+                    q, k, v, pos, window, 50.0, 20 if full else 50,
+                    3 if full else 10, library=True, **tol))
+        # no softcap, and the NaN-poisoned rows outside [lo, pos]
+        cases.append(check_decode_case(q, k, v, positions[1], local, None,
+                                       20, 3, **tol))
+        path_cases = []
+        if full:
+            # the serving paths' shapes: [serve]'s last step (8 x 512 rows)
+            # and [serve_long]'s (4 x 4608 rows, local and global layer)
+            long_rows = SERVE_LONG["prompt_len"] + SERVE_LONG["gen_len"]
+            for bb, rows, window in (
+                    (SERVE["batch"], SERVE["prompt_len"] + SERVE["gen_len"],
+                     GLOBAL_WINDOW),
+                    (SERVE_LONG["batch"], long_rows, GLOBAL_WINDOW),
+                    (SERVE_LONG["batch"], long_rows, local)):
+                ks, vs = (t[:bb, :rows].contiguous() for t in (k, v))
+                path_cases.append(check_decode_case(
+                    q[:bb].contiguous(), ks, vs, rows - 1, window, 50.0, 50,
+                    10, library=True, **tol))
+                path_cases[-1]["cache"] = [bb, rows, kvh, hd]
+                del ks, vs
+        pos = positions[1]
+        lo, _ = decode_attn.visible_keys(pos, local)
+        clean = decode_attn.decode_attention(q, k, v, pos, window=local,
+                                             softcap=50.0)
+        kp, vp = k.clone(), v.clone()
+        for t in (kp, vp):
+            t[:, :lo] = float("nan")
+            t[:, pos + 1:] = float("nan")
+        poisoned = decode_attn.decode_attention(q, kp, vp, pos,
+                                                window=local, softcap=50.0)
+        torch.cuda.synchronize()
+        if not torch.equal(clean, poisoned):
+            raise AssertionError(f"{name}: a row outside the visible keys "
+                                 "reached the output")
+        del kp, vp, clean, poisoned, q, k, v
+        torch.cuda.empty_cache()
+        head = cases[0]
+        for c in cases + path_cases:
+            cb, cs = c.get("cache", [b, S])[:2]
+            print(f"[decode] {name} {[cb, h, hd]} on ({cb}, {cs}, {kvh}, {hd}) "
+                  f"pos {c['pos']} window {c['window']} softcap "
+                  f"{c['softcap']}: max abs err {c['max_abs_err']:.3e} "
+                  f"({c['bf16_ulps']:.3f} bf16 ulps; tolerance "
+                  f"{tol}), {c['ms']:.5f} ms vs plain {c['plain_ms']:.5f} "
+                  f"ms, library {c.get('library_ms', float('nan')):.5f} ms "
+                  f"(softcap off, err vs plain without softcap "
+                  f"{c.get('library_max_abs_err_softcap_off', float('nan')):.3e}"
+                  f"), bound {c['bound_ms']:.5f} ms ({c['bound_by']}), "
+                  f"{c['splits']} splits")
+        print(f"[decode] {name}: cache rows outside the visible keys "
+              "poisoned with NaN: output unchanged, bitwise")
+        recs.append({
+            "name": name, "shape": [[b, h, hd], [b, S, kvh, hd]],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": (f"{tol['tol_ulps']} bf16 ulp" if "tol_ulps" in tol
+                          else tol["tol_abs"]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": "scaled_dot_product_attention(enable_gqa=True), "
+                       "softcap off: no PyTorch call applies a softcap",
+            "headline": f"pos {head['pos']} window {head['window']}",
+            "cases": cases, "path_cases": path_cases,
+        })
+    return recs
 
 
 def compress_owned(slot, d: int, c: int, s: int) -> int:
@@ -882,7 +1162,305 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, **kw):
     return launches
 
 
-def main() -> int:
+class count_plain_attention:
+    """Counts the calls of the two plain attentions of the decode path
+    (the model's ``_decode_scores_dyn`` and the kernel's plain version
+    ``ref.decode_attention``) inside the block."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        from repro_torch.models import transformer
+
+        self.calls = 0
+        self.saved = [(transformer, "_decode_scores_dyn"),
+                      (ref, "decode_attention")]
+        self.fns = [getattr(m, a) for m, a in self.saved]
+
+        def counted(fn):
+            def wrapper(*args, **kw):
+                self.calls += 1
+                return fn(*args, **kw)
+            return wrapper
+
+        for (m, a), fn in zip(self.saved, self.fns):
+            setattr(m, a, counted(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, a), fn in zip(self.saved, self.fns):
+            setattr(m, a, fn)
+
+
+def serve_params_on(cfg, dev, seed=0):
+    """Random parameters from ``seed`` on ``dev``, cast once for serving
+    (the f32 originals freed)."""
+    from repro_torch.dist import model_api
+    from repro_torch.serve_utils import serving_params
+
+    params = serving_params(model_api.init(cfg, seed=seed, device=dev), cfg)
+    torch.cuda.empty_cache()
+    return params
+
+
+def rerun_last_step(params, cfg, res, prompts, device, attend_fn):
+    """The served batch's last decode step again, on ``device`` from a
+    copy of the final cache (the step rewrites its own row at the last
+    position and attends to the same earlier rows): ``(logits, cache)``."""
+    from repro_torch.dist import model_api
+
+    pos = prompts.shape[1] + res["tokens"].shape[1] - 1
+    cache = {k: v.to(device, copy=True) for k, v in res["cache"].items()}
+    p = params if device == res["logits"].device else {
+        k: v.to(device) for k, v in params.items()}
+    with torch.no_grad():
+        return model_api.decode(p, cfg, res["tokens"][:, -1:].to(device),
+                                cache, pos, attend_fn=attend_fn)
+
+
+def run_serve_reduced(dev) -> dict:
+    """``[serve_reduced]``: the reduced gemma2-2b (f32 compute) served for
+    SERVE_REDUCED on the card (through the kernel) and on the CPU (the
+    model's plain attention), with the same prompts and weights.  On an
+    f32 cache the greedy tokens must be equal and every logit of the last
+    step within 1e-4 of the largest; on a bf16 cache (the CLI's) the last
+    step is rerun on the CPU from the card's own final cache and held to
+    the same 1e-4 (run through many steps, one-ulp roundings of the cache
+    compound).  Returns the launch counts."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attn import make_attend_fn
+    from repro_torch.launch import serve
+
+    cfg = gemma2_2b.REDUCED
+    sr = SERVE_REDUCED
+    params = serve_params_on(cfg, dev)
+    params_cpu = {k: v.cpu() for k, v in params.items()}
+    prompts = serve.make_prompts(sr["batch"], sr["prompt_len"], cfg.vocab,
+                                 0, "cpu")
+    print(f"[serve_reduced] {cfg.name} (f32, window {cfg.sliding_window}), "
+          f"batch {sr['batch']}, prompt {sr['prompt_len']}, gen "
+          f"{sr['gen_len']}: card (kernel) vs CPU (plain attention)")
+    launches = dict.fromkeys(_build.launch_counts, 0)
+    with intra_op_threads(REDUCED_CPU_THREADS):
+        for kv in (torch.float32, torch.bfloat16):
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            with count_plain_attention() as plain:
+                card = serve.run(params, cfg, prompts.to(dev),
+                                 sr["gen_len"], kv_dtype=kv,
+                                 attend_fn=make_attend_fn(cfg))
+            got = {k: v for k, v in _build.launch_counts.items() if v}
+            for k, v in got.items():
+                launches[k] += v
+            steps = sr["prompt_len"] + sr["gen_len"]
+            name = ("decode_attention_f32" if kv == torch.float32
+                    else "decode_attention_f32_bf16kv")
+            if got != {name: cfg.n_layers * steps} or plain.calls:
+                raise AssertionError(f"[serve_reduced] {kv} cache: launches "
+                                     f"{got}, plain attention calls "
+                                     f"{plain.calls}")
+            if kv == torch.float32:
+                cpu = serve.run(params_cpu, cfg, prompts, sr["gen_len"],
+                                kv_dtype=kv)
+                want, same = cpu["logits"], torch.equal(
+                    card["tokens"].cpu(), cpu["tokens"])
+            else:
+                want, cache = rerun_last_step(params_cpu, cfg, card, prompts,
+                                              "cpu", None)
+                pos = steps - 1
+                same = all(bf16_ulps(cache[n][:, :, pos],
+                                     card["cache"][n][:, :, pos].cpu()) <= 1
+                           for n in ("k", "v"))
+            err = float((card["logits"].cpu() - want).abs().max()
+                        / want.abs().max())
+            print(f"[serve_reduced] {kv} cache: {got}; last logits card vs "
+                  f"CPU {err:.3e} of the largest (tolerance 1e-4); "
+                  + ("greedy tokens equal" if kv == torch.float32 else
+                     "rows written at the last step within one bf16 ulp")
+                  + f": {same}; continuations {card['tokens'][:2].tolist()}")
+            if not (card["finite"] and err <= 1e-4 and same):
+                raise AssertionError(f"[serve_reduced] {kv} cache: err {err}"
+                                     f", match {same}")
+    return launches
+
+
+def profile_last_steps(tag, params, cfg, res, prompts, dev, attend_fn,
+                       reps: int = 3) -> None:
+    """The served batch's last decode step run ``reps`` more times under
+    ``torch.profiler`` (after one warm-up): wall time per step, the
+    device's busy time per step (the sum of the kernels' device times)
+    and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rerun_last_step(params, cfg, res, prompts, dev, attend_fn)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            rerun_last_step(params, cfg, res, prompts, dev, attend_fn)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")
+            and getattr(e, "self_device_time_total", 0) > 0]
+    busy = sum(e.self_device_time_total for e in rows) / reps / 1e3
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    attn = [e for e in rows if "decode_attn" in e.key]
+    attn_ms = sum(e.self_device_time_total for e in attn) / reps / 1e3
+    print(f"[{tag}] profiled step (last step rerun {reps} times, cache "
+          f"copy included): wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms ({busy / (wall * 1e3):.1%}); decode_attention "
+          f"{attn_ms:.4f} ms in {sum(e.count for e in attn) // reps} "
+          f"launches ({attn_ms / cfg.n_layers * 1e3:.2f} us of device "
+          f"time per layer); top kernels: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / reps / 1e3:.3f}"
+                      f" ms x{e.count // reps}" for e in top))
+
+
+def run_serve(dev) -> dict:
+    """``[serve]``: gemma2-2b at published widths and full depth through
+    ``launch.serve.run``: SERVE's batch, prompt and generation on a bf16
+    cache, the parameters cast to bf16 once.  Gates: finite logits at
+    every step, ``n_layers x (prompt + gen)`` decode-kernel launches and no
+    call of a plain attention."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attn import make_attend_fn
+    from repro_torch.launch import serve
+
+    cfg = gemma2_2b.CONFIG
+    sv = SERVE
+    steps = sv["prompt_len"] + sv["gen_len"]
+    params = serve_params_on(cfg, dev)
+    nbytes = sum(v.numel() * v.element_size() for v in params.values())
+    prompts = serve.make_prompts(sv["batch"], sv["prompt_len"], cfg.vocab, 0,
+                                 dev)
+    cache_b = 2 * cfg.n_layers * sv["batch"] * steps * cfg.n_kv_heads \
+        * cfg.head_dim * 2
+    print(f"[serve] {cfg.name}, {cfg.n_layers} layers at published widths, "
+          f"parameters {nbytes} B in {cfg.dtype}; batch {sv['batch']}, "
+          f"prompt {sv['prompt_len']}, gen {sv['gen_len']}, bf16 cache "
+          f"{cache_b} B")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with count_plain_attention() as plain:
+        res = serve.run(params, cfg, prompts, sv["gen_len"],
+                        kv_dtype=torch.bfloat16,
+                        attend_fn=make_attend_fn(cfg))
+    counts = dict(_build.launch_counts)
+    launches = {k: v for k, v in counts.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    dt = res["prefill_s"] + res["decode_s"]
+    print(f"[serve] {steps} decode steps: prefill {res['prefill_s']:.3f} s "
+          f"({res['prefill_s'] / sv['prompt_len'] * 1e3:.3f} ms per step), "
+          f"generation {res['decode_s']:.3f} s "
+          f"({res['decode_s'] / sv['gen_len'] * 1e3:.3f} ms per step, "
+          f"{sv['batch'] * sv['gen_len'] / res['decode_s']:.1f} tok/s); "
+          f"{sv['batch'] * steps / dt:.1f} tok/s over all steps")
+    print(f"[serve] max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"[serve] launches {launches}, plain attention calls "
+          f"{plain.calls}, logits finite {res['finite']}")
+    print(f"[serve] sample continuations: {res['tokens'][:2].tolist()}")
+    profile_last_steps("serve", params, cfg, res, prompts, dev,
+                       make_attend_fn(cfg))
+    if not res["finite"] or plain.calls or launches != {
+            "decode_attention": cfg.n_layers * steps}:
+        raise AssertionError(f"[serve] finite {res['finite']}, launches "
+                             f"{launches}, plain calls {plain.calls}")
+    del params, res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_serve_long(dev) -> dict:
+    """``[serve_long]``: gemma2-2b at published widths cut to 2 layers
+    (one local, one global) served past the 4096 window: SERVE_LONG's
+    batch, prompt and generation on a bf16 cache.  Gates: finite logits,
+    ``2 x (prompt + gen)`` launches, no plain attention, and the last
+    step rerun on the card from the same cache with the kernel's plain
+    version (within 1e-2 of the largest logit: the two round the
+    attention output to bf16 apart by at most one ulp, which the next
+    layer carries on) and with the model's plain attention (within 5e-2:
+    it also rounds the probabilities to bf16); a step that drops the local
+    layer's window is printed beside them.  Returns the launch counts."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels.decode_attn import make_attend_fn
+    from repro_torch.launch import serve
+
+    cfg = dataclasses.replace(gemma2_2b.CONFIG, n_layers=2)
+    sl = SERVE_LONG
+    steps = sl["prompt_len"] + sl["gen_len"]
+    params = serve_params_on(cfg, dev)
+    prompts = serve.make_prompts(sl["batch"], sl["prompt_len"], cfg.vocab, 0,
+                                 dev)
+    print(f"[serve_long] {cfg.name} at published widths cut to "
+          f"{cfg.n_layers} layers (windows {cfg.layer_windows()}), batch "
+          f"{sl['batch']}, prompt {sl['prompt_len']}, gen {sl['gen_len']}, "
+          f"bf16 cache of {steps} rows")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    with count_plain_attention() as plain:
+        res = serve.run(params, cfg, prompts, sl["gen_len"],
+                        kv_dtype=torch.bfloat16,
+                        attend_fn=make_attend_fn(cfg))
+    counts = dict(_build.launch_counts)
+    launches = {k: v for k, v in counts.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve_long] prefill {res['prefill_s']:.3f} s "
+          f"({res['prefill_s'] / sl['prompt_len'] * 1e3:.3f} ms per step), "
+          f"generation {res['decode_s']:.3f} s "
+          f"({res['decode_s'] / sl['gen_len'] * 1e3:.3f} ms per step); "
+          f"max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB); "
+          f"launches {launches}, plain attention calls {plain.calls}")
+
+    def kernel_plain(q, k, v, pos, window):
+        return ref.decode_attention(q[:, 0], k, v, pos, window=window,
+                                    softcap=cfg.attn_softcap)[:, None]
+
+    def no_window(q, k, v, pos, window):
+        return kernel_plain(q, k, v, pos, None)
+
+    profile_last_steps("serve_long", params, cfg, res, prompts, dev,
+                       make_attend_fn(cfg))
+    top = res["logits"].abs().max()
+    errs = {}
+    for tag, fn in (("kernel's plain version", kernel_plain),
+                    ("model's plain attention", None),
+                    ("without the local window", no_window)):
+        lg, _ = rerun_last_step(params, cfg, res, prompts, dev, fn)
+        errs[tag] = float((lg - res["logits"]).abs().max() / top)
+    print(f"[serve_long] last step (pos {steps - 1}) rerun from the same "
+          f"cache on the card, max logit difference over the largest: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (tolerances 1e-2 and 5e-2 for the first two)")
+    if not (res["finite"] and not plain.calls
+            and launches == {"decode_attention": cfg.n_layers * steps}
+            and errs["kernel's plain version"] <= 1e-2
+            and errs["model's plain attention"] <= 5e-2):
+        raise AssertionError(f"[serve_long] finite {res['finite']}, launches "
+                             f"{launches}, plain calls {plain.calls}, errs "
+                             f"{errs}")
+    del params, res
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_serve_paths(dev) -> dict:
+    """The serving paths, launch counts set to 0 just before each and read
+    just after; returns them by path."""
+    return {"serve_reduced": run_serve_reduced(dev),
+            "serve": run_serve(dev),
+            "serve_long": run_serve_long(dev)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
@@ -918,7 +1496,8 @@ def main() -> int:
     spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
     print(f"[config] d_total {spec.d_total} f32 per client row")
 
-    recs = list(check_uplink_kernels(spec, tcfg, dev))
+    recs, by_path = [], {}
+    recs += check_uplink_kernels(spec, tcfg, dev)
     torch.cuda.empty_cache()
     recs.append(check_local_step(spec, dev))
     torch.cuda.empty_cache()
@@ -932,18 +1511,20 @@ def main() -> int:
               f"{rec['max_abs_err']} (tolerance {rec['tolerance']}), "
               f"{rec['ms']:.3f} ms vs plain {rec['plain_ms']:.3f} ms, "
               f"bound {rec['bound_ms']:.3f} ms")
-    check_reduced_round(dev, N, C, S, [0, 2, 3], [2, 0, 1],
-                        [True, True, False, True])
-    # the faulted round: member 1 dropped, the trimmed mean
-    check_reduced_round(dev, NF, CF, SF, [0, 1, 3, 4], [3, 0, 2, 1],
-                        [True, True, True, False, True],
-                        arrived=[True, False, False, True, True],
-                        robust_agg="trimmed", trim_k=1)
-    check_reduced_wire_round(dev)
+    # the CPU side on one intra-op thread: its multithreaded products
+    # are not repeatable from run to run, the card's are
+    with intra_op_threads(REDUCED_CPU_THREADS):
+        check_reduced_round(dev, N, C, S, [0, 2, 3], [2, 0, 1],
+                            [True, True, False, True])
+        # the faulted round: member 1 dropped, the trimmed mean
+        check_reduced_round(dev, NF, CF, SF, [0, 1, 3, 4],
+                            [3, 0, 2, 1], [True, True, True, False, True],
+                            arrived=[True, False, False, True, True],
+                            robust_agg="trimmed", trim_k=1)
+        check_reduced_wire_round(dev)
     torch.cuda.empty_cache()
 
     # ---- the paths: 3 rounds of full-width 2-layer gemma2-2b each --------
-    by_path = {}
     by_path["train"] = run_path(
         "train", cfg, tcfg, N, dev,
         need=("masked_sum", "h_update", "fused_local_step"),
@@ -1019,6 +1600,10 @@ def main() -> int:
     del prob
     torch.cuda.empty_cache()
 
+    recs += check_decode_kernels(dev)
+    torch.cuda.empty_cache()
+    by_path.update(run_serve_paths(dev))
+
     src = "src/repro_torch/kernels/csrc/tamuna_kernels.cu"
     # each kernel's body in the reference and the path whose launches the
     # record reports
@@ -1042,6 +1627,11 @@ def main() -> int:
         "compress_f32": ("src/repro/kernels/compress.py:71", None),
         "compress_1d_f64": ("src/repro/kernels/compress.py:63", None),
         "compress_1d_f32": ("src/repro/kernels/compress.py:63", None),
+        "decode_attention": ("src/repro/kernels/decode_attn.py:33", "serve"),
+        "decode_attention_f32": ("src/repro/kernels/decode_attn.py:33",
+                                 "serve_reduced"),
+        "decode_attention_f32_bf16kv": (
+            "src/repro/kernels/decode_attn.py:33", "serve_reduced"),
     }
     kernels = []
     for rec in recs:
@@ -1053,14 +1643,15 @@ def main() -> int:
                          else by_path[path_name][rec["name"]]),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": "bytes", "library_ms": None,
+            "bound_by": rec.get("bound_by", "bytes"),
+            "library_ms": rec.get("library_ms"),
             "shape": rec["shape"], "tolerance": rec["tolerance"],
             "path": path_name,
             "launches_by_path": {p: by_path[p][rec["name"]]
                                  for p in by_path},
             **{k: v for k, v in rec.items() if k not in (
                 "name", "shape", "max_abs_err", "tolerance", "ms",
-                "plain_ms", "bound_ms")},
+                "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

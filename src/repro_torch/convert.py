@@ -6,6 +6,10 @@ directory as ``arrays.npz`` (``leaf_<i>`` in leaf order, bf16 stored as its
 raw uint16 bits) plus ``meta.json`` (``names``, ``dtypes``, ``shapes``).
 Both are read here with numpy and json alone.
 
+A decode cache comes across with ``cache_from_numpy`` (the reference's
+``{"k", "v"}`` arrays, bf16 or f32), so a parity test can start
+mid-sequence.
+
 The convex core's problems and states come across as numpy arrays too:
 ``convex_problem_from_numpy`` (the data, ``mu``, ``L``, ``x*``, ``f*``) and
 ``tamuna_state_from_numpy`` (``x_bar``, ``h`` and the counters).
@@ -68,6 +72,33 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {a.shape}, want {shape}")
         out[name] = torch.tensor(a, dtype=torch.float32, device=dev)
+    return out
+
+
+def cache_from_numpy(arrays: Mapping[str, np.ndarray],
+                     device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
+    """The port's decode cache from the reference's ``{"k", "v"}`` arrays
+    ``(n_layers, batch, max_seq, kv_heads, head_dim)``: bf16 (numpy's
+    ``bfloat16`` extension type) stays bf16, f32 stays f32, bit for
+    bit."""
+    dev = resolve_device(device)
+    if sorted(arrays) != ["k", "v"]:
+        raise ValueError(f"want arrays k and v, got {sorted(arrays)}")
+    out = {}
+    for name in ("k", "v"):
+        a = np.asarray(arrays[name])
+        if a.dtype.name == "bfloat16":
+            bits = np.ascontiguousarray(a).view(np.uint16)
+            out[name] = torch.from_numpy(_bf16_bits_to_f32(bits)).to(
+                device=dev, dtype=torch.bfloat16)
+        elif a.dtype == np.float32:
+            out[name] = torch.tensor(a, device=dev)
+        else:
+            raise ValueError(f"cache {name}: dtype {a.dtype}, want bfloat16 "
+                             "or float32")
+    if out["k"].shape != out["v"].shape or out["k"].dim() != 5:
+        raise ValueError(f"k {tuple(out['k'].shape)} and v "
+                         f"{tuple(out['v'].shape)} must be one 5-d shape")
     return out
 
 

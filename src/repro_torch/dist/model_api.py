@@ -1,19 +1,22 @@
-"""Model API of the port (``repro.dist.model_api``): ``init`` and ``loss``
-over the dense family, plus the parameter layout the workspace packs."""
+"""Model API of the port (``repro.dist.model_api``) over the dense family:
+``init`` and ``loss`` for training, ``prefill``, ``make_cache`` and
+``decode`` for serving, plus the parameter layout the workspace packs."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import DeviceLike, resolve_device
+from repro_torch.models import layers
 from repro_torch.models import transformer as tr
 from repro_torch.models.transformer import ModelConfig
 
 Params = Dict[str, torch.Tensor]
 
-__all__ = ["init", "loss", "param_specs"]
+__all__ = ["init", "loss", "param_specs", "prefill", "make_cache",
+           "decode"]
 
 
 def param_specs(cfg: ModelConfig) -> List[Tuple[str, Tuple[int, ...]]]:
@@ -34,3 +37,30 @@ def loss(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
          labels: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``(scalar loss, metrics)`` of one client's batch."""
     return tr.loss_fn(params, cfg, tokens, labels)
+
+
+def prefill(params: Params, cfg: ModelConfig, *,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """Full-sequence forward; the last position's logits ``(b, vocab)``,
+    the hidden state and the head in f32 (the decode loop's cache is
+    built by stepping ``decode``)."""
+    h = tr.forward(params, cfg, tokens)
+    logits = torch.matmul(h[:, -1].float(),
+                          tr.lm_head_weight(params, cfg).float())
+    return layers.softcap(logits[:, :cfg.vocab], cfg.final_softcap)
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               kv_dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = "cuda") -> Params:
+    """The decode cache (zeros) on ``device``."""
+    return tr.init_cache(cfg, batch, max_seq, kv_dtype, device)
+
+
+def decode(params: Params, cfg: ModelConfig, token: torch.Tensor,
+           cache: Params, pos: int, attend_fn: Optional[tr.AttendFn] = None
+           ) -> Tuple[torch.Tensor, Params]:
+    """One decode step (``transformer.decode_step``); the cache is
+    updated in place and returned."""
+    return tr.decode_step(params, cfg, token, cache, pos,
+                          attend_fn=attend_fn)

@@ -35,14 +35,16 @@ NVCC_FLAGS = (
 )
 
 # one count per kernel instantiation: the UpComs per lane type, compress
-# per float type and rank
+# per float type and rank, decode attention per query and cache type (bf16
+# queries on a bf16 cache, f32 queries on an f32 or a bf16 cache)
 KERNELS = ("masked_sum", "masked_sum_f16", "masked_sum_bf16",
            "masked_sum_counts", "masked_sum_counts_f16",
            "masked_sum_counts_bf16", "masked_sum_dequant",
            "masked_sum_dequant_counts", "robust_sum", "h_update",
            "h_update_covered", "fused_local_step", "wire_quantize",
            "compress_f64", "compress_f32", "compress_1d_f64",
-           "compress_1d_f32")
+           "compress_1d_f32", "decode_attention", "decode_attention_f32",
+           "decode_attention_f32_bf16kv")
 launch_counts: Dict[str, int] = {k: 0 for k in KERNELS}
 
 
@@ -116,11 +118,14 @@ def load() -> ctypes.CDLL:
                                             i32, i32, f32, p]
     lib.tamuna_local_step.argtypes = [p, p, p, p, i64, f32, p]
     lib.tamuna_compress.argtypes = [p, i32, p, p, i64, i64, i32, i32, p]
+    lib.tamuna_decode_attention.argtypes = [p, i32, p, p, i32, p, p, p, i32,
+                                            i32, i32, i32, i64, i64, i64,
+                                            i32, i64, f32, f32, p]
     for fn in (lib.tamuna_masked_sum, lib.tamuna_masked_sum_counts,
                lib.tamuna_masked_sum_dequant, lib.tamuna_wire_quantize,
                lib.tamuna_robust_sum, lib.tamuna_h_update,
                lib.tamuna_h_update_covered, lib.tamuna_local_step,
-               lib.tamuna_compress):
+               lib.tamuna_compress, lib.tamuna_decode_attention):
         fn.restype = ctypes.c_int
     return lib
 

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the CUDA kernels of the training round and
-of the convex core's compressor (``compress``).
+"""Plain PyTorch versions of the CUDA kernels of the training round, of
+the convex core's compressor (``compress``) and of decode attention.
 
 They are the kernels' oracles: the wrappers run them for CPU tensors, the
 CPU tests hold them against the reference's Pallas kernels in interpret
@@ -20,6 +20,11 @@ The versions that make ``(n, d)``-shaped temporaries (ownership masks,
 order-statistic buffers, the h update, the wire) work in column chunks of
 ``CHUNK`` coordinates, so they run at full width beside a full-size state.
 
+``decode_attention`` is the serving side's: single-query GQA attention
+over a KV cache (``repro.kernels.ref.decode_attention_ref``), one-shot f32
+softmax; its kernel's online softmax adds in another order, so the two
+agree to f32 rounding, not bitwise.
+
 The UpComs take f32, bf16 or f16 lanes (cast to f32 exactly, then summed
 in f32) or int8 wire codes with their per-chunk scales
 (``masked_sum_dequant``).  The wire quantizer's plain versions are
@@ -31,6 +36,7 @@ as ``(leaf index, workspace offset, size)`` triples.
 
 from __future__ import annotations
 
+import math
 from typing import Iterator, Optional, Sequence, Tuple
 
 import torch
@@ -270,3 +276,30 @@ def wire_down(x_bar: torch.Tensor, leaves: Sequence[Tuple[int, int, int]],
                               device=x_bar.device)
             seg.copy_(wire.quantize(seg[None], kind, sl, wire.DOWN_ROW,
                                     kk)[0])
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: int, *, window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """Single-query GQA decode attention over a KV cache: ``q (b, h, hd)``
+    against ``k, v (b, S, kvh, hd)`` (any float type, widened exactly),
+    keys ``pos - window < t <= pos`` visible, query head ``j`` on kv head
+    ``j // (h // kvh)``.  Logits ``(q . k) / sqrt(hd)`` and the softmax in
+    f32, ``softcap * tanh(logits / softcap)``, masked logits -1e30; the
+    output in ``q``'s dtype."""
+    b, h, hd = q.shape
+    S, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    qg = q.reshape(b, kvh, group, hd).float()
+    logits = _div(torch.einsum("bkgd,bskd->bkgs", qg, k.float()),
+                  math.sqrt(hd))
+    if softcap is not None:
+        logits = softcap * torch.tanh(_div(logits, softcap))
+    kpos = torch.arange(S, device=q.device)
+    mask = kpos <= pos
+    if window is not None:
+        mask &= kpos > pos - window
+    logits = logits.masked_fill(~mask, -1e30)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
+    return out.reshape(b, h, hd).to(q.dtype)

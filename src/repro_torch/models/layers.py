@@ -5,7 +5,9 @@ compute dtype, parameters stored in f32 and cast to the compute dtype
 before each product, products accumulated in f32, softmax statistics and
 the loss in f32.  Where the reference asks for an f32 result of a product
 of compute-dtype operands (attention logits, vocab logits), the operands
-are rounded to the compute dtype and the product taken in f32.
+are rounded to the compute dtype and the product taken in f32.  A float64
+compute dtype keeps everything in float64 (``widen``): a float64
+evaluation of the same model, which the reference has no counterpart of.
 """
 
 from __future__ import annotations
@@ -17,19 +19,32 @@ import torch
 import torch.nn.functional as F
 
 
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the dtype of statistics and f32 products: f32, or float64
+    where ``x`` is float64."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` with ``w`` cast to ``x``'s dtype; the result is in
     ``x``'s dtype (f32 accumulation inside the product)."""
     return torch.matmul(x, w.to(x.dtype))
 
 
+def wide_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with ``w`` rounded to ``x``'s dtype and the product taken
+    in f32 (float64 for float64 ``x``): the reference's
+    ``preferred_element_type=f32`` product of compute-dtype operands."""
+    return torch.matmul(widen(x), widen(w.to(x.dtype)))
+
+
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
             eps: float = 1e-6) -> torch.Tensor:
     """Gemma-style RMSNorm: the learned scale multiplies as ``1 + scale``."""
-    xf = x.float()
+    xf = widen(x)
     var = (xf * xf).mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(x.dtype)
+    return (y * (1.0 + widen(scale))).to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -37,20 +52,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotary embedding over split halves; ``x (b, t, heads, hd)``,
     ``positions (t,)``."""
     hd = x.shape[-1]
+    xf = widen(x)
     freqs = 1.0 / (theta ** (
-        torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd))
-    angles = positions.float()[:, None] * freqs  # (t, hd/2)
+        torch.arange(0, hd, 2, dtype=xf.dtype, device=x.device) / hd))
+    angles = positions.to(xf.dtype)[:, None] * freqs  # (t, hd/2)
     cos = torch.cos(angles)[:, None, :]  # (t, 1, hd/2)
     sin = torch.sin(angles)[:, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = xf.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def rope_at(x: torch.Tensor, pos: int,
+            theta: float = 10000.0) -> torch.Tensor:
+    """RoPE of a ``(b, 1, heads, hd)`` decode step at position ``pos``
+    (the reference's ``apply_rope(x, full((b, 1), pos))``)."""
+    return apply_rope(x, torch.full((x.shape[1],), pos, device=x.device),
+                      theta)
 
 
 def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return logits
     return cap * torch.tanh(logits / cap)
+
+
+def qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+        wv: torch.Tensor, n_heads: int, n_kv_heads: int, head_dim: int):
+    """The query, key and value projections of ``x (b, t, d)`` as
+    ``(b, t, heads, head_dim)`` (the reference's ``_qkv`` without
+    biases)."""
+    b, t, _ = x.shape
+    return (matmul(x, wq).view(b, t, n_heads, head_dim),
+            matmul(x, wk).view(b, t, n_kv_heads, head_dim),
+            matmul(x, wv).view(b, t, n_kv_heads, head_dim))
 
 
 def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
@@ -61,9 +96,7 @@ def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     window: key ``kp`` is visible from query ``qp`` iff
     ``qp - window < kp <= qp``."""
     b, t, _ = x.shape
-    q = matmul(x, wq).view(b, t, n_heads, head_dim)
-    k = matmul(x, wk).view(b, t, n_kv_heads, head_dim)
-    v = matmul(x, wv).view(b, t, n_kv_heads, head_dim)
+    q, k, v = qkv(x, wq, wk, wv, n_heads, n_kv_heads, head_dim)
     if rope_theta is not None:
         pos = torch.arange(t, device=x.device)
         q = apply_rope(q, pos, rope_theta)
@@ -71,7 +104,7 @@ def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     group = n_heads // n_kv_heads
     qg = q.view(b, t, n_kv_heads, group, head_dim)
     logits = torch.einsum(
-        "btkgd,bskd->bkgts", qg.float(), k.float()
+        "btkgd,bskd->bkgts", widen(qg), widen(k)
     ) / math.sqrt(head_dim)
     logits = softcap(logits, attn_softcap)
     qp = torch.arange(t, device=x.device)[:, None]
@@ -106,11 +139,11 @@ def chunked_softmax_xent(h: torch.Tensor, w_vocab: torch.Tensor,
     """Mean token cross-entropy over sequence chunks, so at most
     ``(b, chunk, vocab)`` f32 logits exist at once.  Logits past
     ``valid_vocab`` (padded embedding rows) are masked to -1e30."""
-    w = w_vocab.to(h.dtype).float()
-    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    w = widen(w_vocab.to(h.dtype))
+    tot = torch.zeros((), dtype=w.dtype, device=h.device)
     cnt = torch.zeros((), dtype=torch.int64, device=h.device)
     for a in range(0, h.shape[1], chunk):
-        logits = torch.matmul(h[:, a:a + chunk].float(), w)
+        logits = torch.matmul(widen(h[:, a:a + chunk]), w)
         logits = softcap(logits, logit_softcap)
         if valid_vocab is not None and valid_vocab < logits.shape[-1]:
             vmask = torch.arange(logits.shape[-1],

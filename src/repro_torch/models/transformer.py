@@ -1,5 +1,6 @@
 """Dense decoder-only transformer (``repro.models.transformer``, family
-``"dense"``): config, parameter layout, init, forward and loss.
+``"dense"``): config, parameter layout, init, forward and loss, and the
+decode side: the KV cache and one decode step against it.
 
 Parameters are a flat ``{name: tensor}`` dict whose names and order are the
 reference's ``jax.tree_util.tree_flatten_with_path`` of ``init_params``
@@ -13,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -21,6 +22,10 @@ from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import layers
 
 Params = Dict[str, torch.Tensor]
+
+# the window a global layer decodes with (the reference's
+# ``jnp.iinfo(jnp.int32).max // 2``): wider than any cache
+GLOBAL_WINDOW = (2 ** 31 - 1) // 2
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,14 +153,21 @@ def _block(p: Params, l: int, x: torch.Tensor, cfg: ModelConfig,
     return x + h
 
 
+def _embed(params: Params, cfg: ModelConfig,
+           tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings in the compute dtype, scaled by sqrt(d_model)
+    (rounded to the compute dtype, as the reference does) for gemma."""
+    x = params["embed"][tokens].to(cfg.dtype)
+    if cfg.scale_embed:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
+                             device=x.device).to(cfg.dtype)
+    return x
+
+
 def forward(params: Params, cfg: ModelConfig,
             tokens: torch.Tensor) -> torch.Tensor:
     """``tokens (b, t)`` -> final hidden states ``(b, t, d_model)``."""
-    x = params["embed"][tokens].to(cfg.dtype)
-    if cfg.scale_embed:
-        # sqrt(d_model) rounded to the compute dtype, as the reference does
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
-                             device=x.device).to(cfg.dtype)
+    x = _embed(params, cfg, tokens)
     for l, w in enumerate(cfg.layer_windows()):
         x = _block(params, l, x, cfg, w)
     return layers.rmsnorm(params["final_norm/scale"], x)
@@ -167,7 +179,114 @@ def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Mean next-token cross-entropy; the tied embedding is the head."""
     h = forward(params, cfg, tokens)
     xent = layers.chunked_softmax_xent(
-        h, params["embed"].T, labels, chunk=cfg.xent_chunk,
+        h, lm_head_weight(params, cfg), labels, chunk=cfg.xent_chunk,
         logit_softcap=cfg.final_softcap, valid_vocab=cfg.vocab,
     )
     return xent, {"xent": xent}
+
+
+def lm_head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    """The vocab projection ``(d_model, padded_vocab)``: the tied
+    embedding, transposed (a view)."""
+    return params["embed"].T
+
+
+# --------------------------------------------------------------------------
+# decode (one new token against a cache)
+# --------------------------------------------------------------------------
+
+AttendFn = Callable[..., torch.Tensor]
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               kv_dtype: torch.dtype = torch.bfloat16,
+               device: DeviceLike = "cuda") -> Params:
+    """The KV cache ``{"k", "v"}``, each ``(n_layers, batch, max_seq,
+    n_kv_heads, head_dim)`` zeros of ``kv_dtype``."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+            "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}
+
+
+def decode_step(params: Params, cfg: ModelConfig, token: torch.Tensor,
+                cache: Params, pos: int,
+                attend_fn: Optional[AttendFn] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    """One decode step: ``token (b, 1)`` at position ``pos`` -> ``(logits
+    (b, vocab) f32, cache)``.  Each layer writes its K/V row at ``pos``
+    into ``cache`` in place (the reference returns an updated copy) and
+    attends with ``attend_fn(q, cache_k, cache_v, pos, window)`` or, when
+    it is ``None``, the plain ``_decode_scores_dyn``.  Global layers use
+    the window ``GLOBAL_WINDOW``.  Raises on ``pos`` outside the cache,
+    where the reference's ``dynamic_update_slice`` clamps to the last
+    row."""
+    pos = int(pos)
+    max_seq = cache["k"].shape[2]
+    if not 0 <= pos < max_seq:
+        raise ValueError(f"pos {pos} outside the cache's {max_seq} rows")
+    x = _embed(params, cfg, token)
+    for l, w in enumerate(cfg.layer_windows()):
+        window = w if w > 0 else GLOBAL_WINDOW
+        h = layers.rmsnorm(params["blocks/ln_attn/scale"][l], x)
+        h = _attention_decode_dyn(params, l, h, cache, pos, cfg, window,
+                                  attend_fn)
+        if cfg.post_norm:
+            h = layers.rmsnorm(params["blocks/ln_attn_post/scale"][l], h)
+        x = x + h
+        h = layers.rmsnorm(params["blocks/ln_ff/scale"][l], x)
+        h = layers.mlp(h, params["blocks/mlp/w_gate"][l],
+                       params["blocks/mlp/w_up"][l],
+                       params["blocks/mlp/w_down"][l], cfg.act)
+        if cfg.post_norm:
+            h = layers.rmsnorm(params["blocks/ln_ff_post/scale"][l], h)
+        x = x + h
+    h = layers.rmsnorm(params["final_norm/scale"], x)[:, 0]
+    logits = layers.wide_matmul(h, lm_head_weight(params, cfg))
+    return layers.softcap(logits[:, :cfg.vocab], cfg.final_softcap), cache
+
+
+def _attention_decode_dyn(p: Params, l: int, x: torch.Tensor, cache: Params,
+                          pos: int, cfg: ModelConfig, window: int,
+                          attend_fn: Optional[AttendFn]) -> torch.Tensor:
+    """Layer ``l``'s attention for one position: q/k/v, RoPE at ``pos``,
+    the K/V row written at ``pos`` (in the cache's dtype), attention over
+    the cache, the output projection."""
+    b = x.shape[0]
+    q, k, v = layers.qkv(x, p["blocks/attn/wq"][l], p["blocks/attn/wk"][l],
+                         p["blocks/attn/wv"][l], cfg.n_heads, cfg.n_kv_heads,
+                         cfg.head_dim_)
+    if cfg.rope_theta is not None:
+        q = layers.rope_at(q, pos, cfg.rope_theta)
+        k = layers.rope_at(k, pos, cfg.rope_theta)
+    cache_k, cache_v = cache["k"][l], cache["v"][l]
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    if attend_fn is not None:
+        out = attend_fn(q, cache_k, cache_v, pos, window)
+    else:
+        out = _decode_scores_dyn(q, cache_k, cache_v, pos, window, cfg)
+    return layers.matmul(out.reshape(b, 1, cfg.n_heads * cfg.head_dim_),
+                         p["blocks/attn/wo"][l])
+
+
+def _decode_scores_dyn(q: torch.Tensor, cache_k: torch.Tensor,
+                       cache_v: torch.Tensor, pos: int, window: int,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """The plain decode attention of the reference's model: the cache
+    converted to ``q``'s dtype, f32 logits and softmax, keys ``pos -
+    window < t <= pos``, the probabilities rounded to ``q``'s dtype before
+    the weighted sum (``(b, 1, h, hd)``)."""
+    b, _, h, hd = q.shape
+    S, kvh = cache_k.shape[1], cache_k.shape[2]
+    qg = q.reshape(b, 1, kvh, h // kvh, hd)
+    logits = torch.einsum(
+        "btkgd,bskd->bkgts", layers.widen(qg),
+        layers.widen(cache_k.to(q.dtype))) / math.sqrt(hd)
+    logits = layers.softcap(logits, cfg.attn_softcap)
+    kpos = torch.arange(S, device=q.device)
+    mask = (kpos <= pos) & (kpos > pos - window)
+    logits = logits.masked_fill(~mask, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, cache_v.to(q.dtype))
+    return out.reshape(b, 1, h, hd)

@@ -11,7 +11,9 @@ lanes, the quantizer in its int8, int4 and DownCom forms, and a wire comm
 step on the card against the same step on the CPU.  The convex core's
 ``compress`` is held bitwise in both ranks and types, and five convex rounds
 on the card against the CPU within 1e-10 relative (cuBLAS and the CPU sum
-the gradients' products in other orders).
+the gradients' products in other orders).  Decode attention is not bitwise:
+its online softmax adds in another order than the plain version's one-shot
+softmax, so it is held within one bf16 ulp (bf16 outputs) or 2e-5 (f32).
 """
 
 import numpy as np
@@ -311,3 +313,87 @@ def test_convex_rounds_on_the_card_match_the_cpu(dev):
         assert float((x - y.cpu()).abs().max()) <= 1e-10 * float(
             x.abs().max())
     assert a.total_local_steps == b.total_local_steps
+
+
+def _bf16_ulps(a, b):
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -10)
+    return float(((a - b).abs() / torch.exp2(torch.floor(torch.log2(mag))
+                                             - 7)).max())
+
+
+@pytest.mark.parametrize("qt,kvt,name", [
+    (torch.bfloat16, torch.bfloat16, "decode_attention"),
+    (torch.float32, torch.float32, "decode_attention_f32"),
+    (torch.float32, torch.bfloat16, "decode_attention_f32_bf16kv"),
+])
+@pytest.mark.parametrize("b,h,kvh,hd,S", [
+    (2, 8, 4, 256, 1500), (3, 6, 6, 32, 300), (1, 8, 1, 64, 700),
+    (2, 7, 1, 128, 520), (2, 8, 2, 64, 4097),
+])
+def test_decode_attention_kernel_matches_plain(dev, qt, kvt, name, b, h, kvh,
+                                               hd, S):
+    """The decode kernel against its plain version: bf16 outputs within
+    one bf16 ulp, f32 within 2e-5 (the online softmax adds in another
+    order), across head dims, GQA groups 1-8, windows and softcaps."""
+    from repro_torch.kernels import decode_attn
+
+    g = torch.Generator(device=dev).manual_seed(b * h + S)
+    q = torch.randn(b, h, hd, generator=g, device=dev).to(qt)
+    k = torch.randn(b, S, kvh, hd, generator=g, device=dev).to(kvt)
+    v = torch.randn(b, S, kvh, hd, generator=g, device=dev).to(kvt)
+    for pos in (0, S // 3, S - 1):
+        for window, cap in ((None, None), (16, 50.0), (S, 30.0)):
+            before = _build.launch_counts[name]
+            got = decode_attn.decode_attention(q, k, v, pos, window=window,
+                                               softcap=cap)
+            assert _build.launch_counts[name] == before + 1
+            want = ref.decode_attention(q, k, v, pos, window=window,
+                                        softcap=cap)
+            torch.cuda.synchronize()
+            assert got.dtype == qt
+            if qt == torch.bfloat16:
+                assert _bf16_ulps(got, want) <= 1.0, (pos, window)
+            else:
+                assert float((got - want).abs().max()) < 2e-5, (pos, window)
+
+
+def test_decode_attention_kernel_rejects_what_it_does_not_take(dev):
+    from repro_torch.kernels import decode_attn
+
+    q = torch.zeros(1, 4, 80, device=dev)
+    k = torch.zeros(1, 8, 2, 80, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attn.decode_attention(q, k, k, 3)
+    q = torch.zeros(1, 4, 64, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, device=dev)
+    with pytest.raises(ValueError, match="no kernel"):
+        decode_attn.decode_attention(q, k, k, 3)
+    with pytest.raises(ValueError, match="outside"):
+        decode_attn.decode_attention(q, k.bfloat16(), k.bfloat16(), 8)
+
+
+def test_decode_step_through_the_kernel_matches_plain(dev):
+    """The reduced config served past its window on the card, through the
+    kernel and through the model's plain attention, from the same
+    weights: logits within 1e-5 of the largest, launches counted."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.dist import model_api
+    from repro_torch.kernels.decode_attn import make_attend_fn
+
+    cfg = gemma2_2b.REDUCED
+    params = model_api.init(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, 70),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    caches = [model_api.make_cache(cfg, 2, 70, torch.float32, dev)
+              for _ in range(2)]
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        for i in range(70):
+            lk, _ = model_api.decode(params, cfg, toks[:, i:i + 1],
+                                     caches[0], i, make_attend_fn(cfg))
+            lp, _ = model_api.decode(params, cfg, toks[:, i:i + 1],
+                                     caches[1], i)
+            assert float((lk - lp).abs().max()) <= 1e-5 * float(
+                lp.abs().max()), i
+    assert _build.launch_counts["decode_attention_f32"] == 70 * cfg.n_layers

@@ -1,6 +1,6 @@
 """The port stands alone: no jax and no ``repro`` at run time, the GPU by
-default with no quiet fallback to the CPU, and a CLI that trains on the
-CPU when asked."""
+default with no quiet fallback to the CPU, and CLIs that train and serve
+on the CPU when asked."""
 
 import math
 import os
@@ -38,13 +38,14 @@ bad = sorted(m for m in sys.modules
 assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack",
         "repro_torch.core.masks", "repro_torch.core.compression",
         "repro_torch.core.problems", "repro_torch.core.tamuna",
-        "repro_torch.core.theory"} <= set(names)
+        "repro_torch.core.theory", "repro_torch.kernels.decode_attn",
+        "repro_torch.serve_utils", "repro_torch.launch.serve"} <= set(names)
 print(len(names), bad)
 """
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 35
+    assert int(count) >= 38
     assert bad.strip() == "[]", bad
 
 
@@ -55,7 +56,7 @@ def _default_device_calls():
     from repro_torch.core import problems
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import model_api, tamuna_dp
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
 
     cfg = gemma2_2b.REDUCED
     tcfg = tamuna_dp.DistTamunaConfig(gamma=0.05, c=3, s=2, p=0.5)
@@ -75,6 +76,13 @@ def _default_device_calls():
             {"diag": np.ones(3), "t": np.zeros((2, 3))}, mu=1.0, L=1.0),
         "tamuna_state_from_numpy": lambda: convert.tamuna_state_from_numpy(
             np.zeros(3), np.zeros((2, 3))),
+        "make_cache": lambda: model_api.make_cache(cfg, 1, 8),
+        "cache_from_numpy": lambda: convert.cache_from_numpy(
+            {"k": np.zeros((1, 1, 2, 1, 4), np.float32),
+             "v": np.zeros((1, 1, 2, 1, 4), np.float32)}),
+        "serve.main": lambda: serve.main(["--reduced", "--batch", "1",
+                                          "--prompt-len", "2",
+                                          "--gen-len", "1"]),
     }
 
 
@@ -84,7 +92,8 @@ def _default_device_calls():
                                    "make_logreg_problem",
                                    "make_quadratic_problem",
                                    "convex_problem_from_numpy",
-                                   "tamuna_state_from_numpy"])
+                                   "tamuna_state_from_numpy", "make_cache",
+                                   "cache_from_numpy", "serve.main"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")

@@ -23,6 +23,7 @@ from repro.dist import model_api as japi
 from repro_torch import convert
 from repro_torch.configs import gemma2_2b, registry
 from repro_torch.dist import comm_ws, model_api
+from repro_torch.models import layers
 
 T, B = 96, 2
 
@@ -86,6 +87,52 @@ def test_loss_and_grads_match_reference():
         want = np.asarray(want)
         err = np.abs(g.numpy() - want).max() / np.abs(want).max()
         assert err <= 1e-5, (name, err)
+
+
+def test_float64_layers_stay_float64():
+    """A float64 compute dtype is not rounded through f32: rmsnorm and RoPE
+    on float64 inputs match a float64 numpy evaluation to 1e-13 (an f32
+    pass would show at ~1e-7)."""
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 5, 3, 16))
+    scale = rng.normal(size=(16,))
+    got = layers.rmsnorm(torch.from_numpy(scale), torch.from_numpy(x))
+    want = x / np.sqrt((x * x).mean(-1, keepdims=True) + 1e-6) * (1 + scale)
+    assert got.dtype == torch.float64
+    assert np.abs(got.numpy() - want).max() <= 1e-13
+    got = layers.apply_rope(torch.from_numpy(x), torch.arange(5), 10000.0)
+    angles = np.arange(5)[:, None] / 10000.0 ** (np.arange(0, 16, 2) / 16)
+    cos, sin = np.cos(angles)[:, None], np.sin(angles)[:, None]
+    x1, x2 = x[..., :8], x[..., 8:]
+    want = np.concatenate([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+    assert got.dtype == torch.float64
+    assert np.abs(got.numpy() - want).max() <= 1e-13
+
+
+def test_float64_model_agrees_with_f32_model():
+    """The reduced model with a float64 compute dtype (the float64
+    evaluation ``reduced_round_diag.py`` holds both sides of a round
+    against) against the f32 model on the same weights, past the local
+    window: the loss within 1e-6 relative, every gradient within 5e-5 of
+    its leaf's largest entry (f32 rounding; 8.7e-8 and 9.3e-6 measured)."""
+    cfg = gemma2_2b.REDUCED
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+    params = model_api.init(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, T + 1)))
+    out = {}
+    for c, cast in ((cfg, torch.float32), (cfg64, torch.float64)):
+        p = {k: v.to(cast).requires_grad_(True) for k, v in params.items()}
+        loss, _ = model_api.loss(p, c, tokens=toks[:, :-1],
+                                 labels=toks[:, 1:])
+        out[cast] = loss, torch.autograd.grad(loss, list(p.values()))
+    (l32, g32), (l64, g64) = out[torch.float32], out[torch.float64]
+    assert l64.dtype == torch.float64
+    assert abs(l32.item() - l64.item()) <= 1e-6 * abs(l64.item())
+    for name, a, b in zip(params, g32, g64):
+        assert b.dtype == torch.float64, name
+        err = float((a.double() - b).abs().max() / b.abs().max())
+        assert err <= 5e-5, (name, err)
 
 
 def test_read_checkpoint_carries_reference_weights(tmp_path):
