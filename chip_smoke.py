@@ -73,7 +73,9 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    measured Lyapunov rate, and must keep sum_i h_i = 0 (1e-10 of
    max|h|), end with a finite suboptimality below its start and launch
    ``compress_f64`` exactly twice per round and nothing else;
-7. holds ``decode_attention`` against its plain version on the card:
+7. holds ``decode_attention`` against its plain version on the card
+   (bf16: 16-key K/V tiles through shared memory, logits and PV on the
+   tensor cores; f32: one key per warp per step):
    bf16 queries and cache at gemma2-2b's heads (8, 8, 256) over a
    (8, 32768, 4, 256) cache at pos 0, 4095 and 30000 with the 4096 window
    and globally, softcap 50, within one bf16 ulp, and at the serving
@@ -813,7 +815,8 @@ def check_decode_case(q, k, v, pos, window, softcap, reps, plain_reps,
         "plain_ms": cuda_ms(lambda: ref.decode_attention(
             q, k, v, pos, window=window, softcap=softcap), plain_reps),
         "bound_ms": bound, "bound_by": by,
-        "splits": decode_attn.split_plan(b, kvh, n_keys)[0],
+        "splits": decode_attn.split_plan(
+            b, kvh, n_keys, tiled=q.dtype == torch.bfloat16)[0],
     }
     if library:
         fn = sdpa_call(q, k, v, pos, window)
@@ -909,8 +912,10 @@ def check_decode_kernels(dev):
                   f"ms, library {c.get('library_ms', float('nan')):.5f} ms "
                   f"(softcap off, err vs plain without softcap "
                   f"{c.get('library_max_abs_err_softcap_off', float('nan')):.3e}"
-                  f"), bound {c['bound_ms']:.5f} ms ({c['bound_by']}), "
-                  f"{c['splits']} splits")
+                  f"), bound {c['bound_ms']:.5f} ms ({c['bound_by']}; "
+                  f"{c['bound_ms'] / c['ms']:.1%} of it), kernel over "
+                  f"library {c['ms'] / c.get('library_ms', math.nan):.3f}"
+                  f"x, {c['splits']} splits")
         print(f"[decode] {name}: cache rows outside the visible keys "
               "poisoned with NaN: output unchanged, bitwise")
         recs.append({
@@ -1510,7 +1515,8 @@ def main(argv=None) -> int:
         print(f"[check] {rec['name']} {rec['shape']}: max abs err "
               f"{rec['max_abs_err']} (tolerance {rec['tolerance']}), "
               f"{rec['ms']:.3f} ms vs plain {rec['plain_ms']:.3f} ms, "
-              f"bound {rec['bound_ms']:.3f} ms")
+              f"bound {rec['bound_ms']:.3f} ms "
+              f"({rec['bound_ms'] / rec['ms']:.1%} of it)")
     # the CPU side on one intra-op thread: its multithreaded products
     # are not repeatable from run to run, the card's are
     with intra_op_threads(REDUCED_CPU_THREADS):

@@ -286,8 +286,11 @@ def run_rounds(
         total_steps += L
         row = {
             "round": g, "L": L, "loss": loss, "local_steps": total_steps,
-            "up_floats": state.up_floats, "down_floats": state.down_floats,
-            "up_bytes": state.up_bytes, "down_bytes": state.down_bytes,
+            # the f32 counters as Python floats, as the reference's rows
+            "up_floats": float(state.up_floats),
+            "down_floats": float(state.down_floats),
+            "up_bytes": float(state.up_bytes),
+            "down_bytes": float(state.down_bytes),
             "seconds": time.perf_counter() - t0,
         }
         if faulted:

@@ -44,6 +44,8 @@ __all__ = [
     "make_local_step",
     "make_comm_step",
     "sample_round_length",
+    "comm_counters",
+    "add_counters",
 ]
 
 
@@ -106,10 +108,12 @@ class DistTamunaState:
     h: torch.Tensor  # (n, d_total) f32 control variates; sum_i h_i == 0
     spec: comm_ws.WorkspaceSpec  # leaf layout of a row
     round: int = 0
-    up_floats: float = 0.0  # cumulative uplink floats per client
-    down_floats: float = 0.0
-    up_bytes: float = 0.0  # cumulative uplink wire bytes per client
-    down_bytes: float = 0.0
+    # cumulative per-client wire counters, f32 scalars as the reference's
+    # (their sums round as the reference's do past 2^24)
+    up_floats: np.float32 = np.float32(0)  # uplink floats
+    down_floats: np.float32 = np.float32(0)
+    up_bytes: np.float32 = np.float32(0)  # uplink wire bytes
+    down_bytes: np.float32 = np.float32(0)
 
 
 def init_state(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int, *,
@@ -229,16 +233,7 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
     plan = comm_ws.wire_plan(spec.dims, tcfg.wire_precision, c, s, band)
     kinds = tuple(wire.resolve_kind(D, tcfg.wire_precision)
                   for D in spec.dims)
-    nnzs = [masks.column_nnz(D, c, s) for D in spec.dims]
-    up_total = float(sum(nnzs))
-    down_total = float(spec.d_total)
-    # per client: leaf_up_bytes at c=1 is one client's codes and (int
-    # kinds) its own chunk scales; the f32 wire is floats * 4 exactly
-    up_bytes_total = float(sum(wire.leaf_up_bytes(nnz, D, 1, k)
-                               for nnz, D, k in zip(nnzs, spec.dims, kinds)))
-    down_bytes_total = float(sum(
-        wire.leaf_down_bytes(D, k if tcfg.wire_down else "f32")
-        for D, k in zip(spec.dims, kinds)))
+    totals = comm_counters(spec.dims, c, s, kinds, tcfg.wire_down)
 
     def fn(state: DistTamunaState, cohort: Sequence[int],
            perm: Sequence[int], down: Optional[torch.Tensor] = None,
@@ -256,29 +251,67 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
         slot_t = torch.from_numpy(slot).to(dev)
         down_t = (None if down is None
                   else torch.as_tensor(down).to(torch.int32).to(dev))
-        arr_t, up, upb = None, up_total, up_bytes_total
+        arr_t, survivors = None, None
         if arrived is not None:
             arrived = np.asarray(arrived, bool)
             arr_t = torch.from_numpy(arrived).to(dev)
-            # only the arrived members' uplinks used the wire: the
-            # template spreads the uplink evenly over the c members, and
-            # a dropped client ships neither codes nor scales
-            k = float(arrived[cohort].sum())
-            up, upb = up_total * k / c, up_bytes_total * k / c
+            survivors = int(arrived[cohort].sum())
         comm_ws.cyclic_comm(state.x, state.h, slot_t, band, c, s, scale,
                             down=down_t, arrived=arr_t, correct=correct,
                             robust=rspec, wire=plan,
                             wire_seed=0 if wire_seed is None else wire_seed,
                             wire_down=tcfg.wire_down)
         state.round += 1
-        state.up_floats += up
-        state.down_floats += down_total
-        state.up_bytes += upb
-        state.down_bytes += down_bytes_total
+        add_counters(state, totals, c, survivors)
         return state
 
     fn.wire_kinds = kinds
     return fn
+
+
+class CommTotals(NamedTuple):
+    """One round's per-client wire counts, f32 as the reference builds
+    them (``jnp.float32`` of the exact sums)."""
+
+    up_floats: np.float32
+    down_floats: np.float32
+    up_bytes: np.float32
+    down_bytes: np.float32
+
+
+def comm_counters(dims: Sequence[int], c: int, s: int,
+                  kinds: Sequence[str], wire_down: bool) -> CommTotals:
+    """The per-round totals of a comm step over leaves of sizes ``dims``
+    with wire kinds ``kinds``: the cohort template's owned columns per
+    client (uplink floats), every coordinate (downlink floats), and their
+    wire bytes (``leaf_up_bytes`` at c=1: one client's codes and, for the
+    int kinds, its own chunk scales; the f32 wire is floats * 4 exactly)."""
+    nnzs = [masks.column_nnz(D, c, s) for D in dims]
+    return CommTotals(
+        np.float32(sum(nnzs)), np.float32(sum(dims)),
+        np.float32(sum(wire.leaf_up_bytes(nnz, D, 1, k)
+                       for nnz, D, k in zip(nnzs, dims, kinds))),
+        np.float32(sum(wire.leaf_down_bytes(D, k if wire_down else "f32")
+                       for D, k in zip(dims, kinds))))
+
+
+def add_counters(state, totals: CommTotals, c: int,
+                 survivors: Optional[int] = None) -> None:
+    """Add one round's totals to ``state``'s four f32 counters, in f32 and
+    in the reference's order.  ``survivors`` (the arrived cohort members of
+    a faulted round; ``None`` when all arrived) scales the uplink by the
+    arrived fraction ``np.float32(survivors) / np.float32(c)``, an f32
+    division as the reference's ``up_arrived``: the template spreads the
+    uplink evenly over the c members, and a dropped client ships neither
+    codes nor scales."""
+    up, upb = totals.up_floats, totals.up_bytes
+    if survivors is not None:
+        frac = np.float32(survivors) / np.float32(c)
+        up, upb = up * frac, upb * frac
+    state.up_floats = np.float32(state.up_floats) + up
+    state.down_floats = np.float32(state.down_floats) + totals.down_floats
+    state.up_bytes = np.float32(state.up_bytes) + upb
+    state.down_bytes = np.float32(state.down_bytes) + totals.down_bytes
 
 
 def sample_round_length(rng: np.random.Generator, p: float,

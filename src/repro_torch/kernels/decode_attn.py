@@ -8,12 +8,15 @@ keys ``pos - window < t <= pos`` visible, an optional logit softcap, query
 head ``j`` reading kv head ``j // (h // kvh)``.
 
 Bound by bytes on one H100: every visible K and V row is read once (the
-whole query group shares it from registers), so the least time is the
-visible rows' bytes over 3.35 TB/s.  The kernel visits only the visible
-keys and splits them over enough blocks to fill the card, then merges the
-splits' partial softmaxes (``tamuna_kernels.cu``).  A CPU tensor runs the
-plain version (``ref.decode_attention``); a CUDA tensor launches the kernel
-or raises.
+whole query group shares it), so the least time is the visible rows' bytes
+over 3.35 TB/s.  The kernel visits only the visible keys and splits them
+over enough blocks to fill the card, then merges the splits' partial
+softmaxes (``tamuna_kernels.cu``).  The bf16 instantiation streams 16-key
+K/V tiles through shared memory with ``cp.async`` and takes the logits and
+the weighted sum on the tensor cores (``mma.sync``), two blocks per SM
+(``split_plan(..., tiled=True)``); the f32 instantiations keep one key per
+warp per step on the CUDA cores.  A CPU tensor runs the plain version
+(``ref.decode_attention``); a CUDA tensor launches the kernel or raises.
 
 ``make_attend_fn(cfg)`` plugs the kernel into ``transformer.decode_step``,
 as ``repro.kernels.ops.make_attend_fn`` does the Pallas kernel, with two
@@ -31,8 +34,12 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# blocks the kernel aims for: 4 per SM on the H100's 132 (8 warps each)
+# blocks the f32 kernels aim for: 4 per SM on the H100's 132 (8 warps each)
 TARGET_BLOCKS = 528
+# the bf16 kernel's: 2 per SM (2 warps and 96 KB of K/V ring each at hd
+# 256), never more than fit at once, and 16-key tiles
+TILED_BLOCKS = 264
+TILE = 16
 # fewest keys a block takes: below this a split costs more than it saves
 MIN_SPLIT = 64
 
@@ -55,13 +62,21 @@ def visible_keys(pos: int, window: Optional[int]) -> Tuple[int, int]:
     return lo, pos - lo + 1
 
 
-def split_plan(b: int, kvh: int, n_keys: int) -> Tuple[int, int]:
+def split_plan(b: int, kvh: int, n_keys: int,
+               tiled: bool = False) -> Tuple[int, int]:
     """``(n_splits, split_len)``: how many blocks share one ``(b, kv
     head)``'s ``n_keys`` keys, and how many keys each takes; no split is
-    empty."""
-    want = max(1, -(-TARGET_BLOCKS // (b * kvh)))
+    empty.  ``tiled`` (the bf16 kernel): at most ``TILED_BLOCKS`` blocks in
+    all where the pairs allow, so they all run at once, and ``split_len`` a
+    multiple of ``TILE``."""
+    pairs = b * kvh
+    if tiled:
+        want, tile = max(1, TILED_BLOCKS // pairs), TILE
+    else:
+        want, tile = max(1, -(-TARGET_BLOCKS // pairs)), 1
     n_splits = max(1, min(want, -(-n_keys // MIN_SPLIT)))
-    split_len = -(-n_keys // n_splits)
+    per_split = -(-n_keys // n_splits)
+    split_len = -(-per_split // tile) * tile
     return -(-n_keys // split_len), split_len
 
 
@@ -113,15 +128,18 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{nm} must be contiguous and 16-byte aligned")
     lo, n_keys = visible_keys(pos, window)
-    n_splits, split_len = split_plan(b, kvh, n_keys)
+    n_splits, split_len = split_plan(b, kvh, n_keys,
+                                     tiled=q.dtype == torch.bfloat16)
     out = torch.empty_like(q)
+    # the splits' partial accumulators, then their (max, denominator)
     n_part = b * kvh * n_splits * group if n_splits > 1 else 0
-    part_acc = torch.empty(n_part * hd, dtype=torch.float32, device=q.device)
-    part_ml = torch.empty(n_part * 2, dtype=torch.float32, device=q.device)
+    part = torch.empty(n_part * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     rc = _build.load().tamuna_decode_attention(
         q.data_ptr(), _DTYPE_CODE[q.dtype], k.data_ptr(), v.data_ptr(),
-        _DTYPE_CODE[k.dtype], out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), b, h, kvh, hd, S, pos, lo, n_splits, split_len,
+        _DTYPE_CODE[k.dtype], out.data_ptr(), part.data_ptr(),
+        part.data_ptr() + 4 * n_part * hd, b, h, kvh, hd, S, pos, lo,
+        n_splits, split_len,
         1.0 / math.sqrt(hd), 0.0 if softcap is None else float(softcap),
         _build.stream_of(q))
     _build.check_launch(name, rc)

@@ -29,7 +29,10 @@ and write h on owned entries, read x_bar and the band, and write the
 ``down`` rows of x: 4 B x (3 s + 2 + n_down) per coordinate.  With
 ``covered`` it replaces ``_h_update_covered_kernel`` (uplink.py:167): both
 updates gated by a ``(d,)`` bool, 1 B per coordinate more, and nothing
-touched where the gate is off.
+touched where the gate is off.  The kernel makes one pass over the
+coordinates, 4 per thread, reading x_bar, the band and the gate once and
+then every row that owns or downloads any of the 4; at most
+``H_UPDATE_MAX_ROWS`` rows.
 
 All evaluate ownership in the kernel from the per-coordinate ``band``
 table and the per-client ``slot`` vector (``compress.owned_from_band``);
@@ -46,6 +49,7 @@ import torch
 from repro_torch.kernels import _build, compress, ref
 
 ROBUST_MAX_S = 16  # the robust kernel is instantiated for s <= 16
+H_UPDATE_MAX_ROWS = 4096  # h_update stages slot and down in shared memory
 # lane types of the mean UpComs and the kernels' lane codes
 LANES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _LANE_NAME = {torch.float32: "", torch.float16: "_f16",
@@ -200,8 +204,9 @@ def h_update(x: torch.Tensor, h: torch.Tensor, x_bar: torch.Tensor,
         ref.h_update(x, h, x_bar, slot, band, m, s, scale, down, covered)
         return
     n, d = x.shape
-    if n > 65535:
-        raise ValueError(f"h_update takes at most 65535 client rows, got {n}")
+    if n > H_UPDATE_MAX_ROWS:
+        raise ValueError(f"h_update takes at most {H_UPDATE_MAX_ROWS} client "
+                         f"rows, got {n}")
     if down is None:
         down = torch.ones(n, dtype=torch.int32, device=x.device)
     lib = _build.load()

@@ -88,19 +88,74 @@ def qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
             matmul(x, wv).view(b, t, n_kv_heads, head_dim))
 
 
+# sequence length at and above which ``attention`` takes the blockwise
+# ``flash_attention`` (the reference's switch, models/layers.py)
+FLASH_THRESHOLD = 2048
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    window: int, attn_softcap: Optional[float],
+                    k_chunk: int = 1024) -> torch.Tensor:
+    """Causal GQA attention of ``q (b, t, h, hd)`` over ``k, v (b, t, kvh,
+    hd)`` in ``k_chunk``-key blocks with an online softmax
+    (``repro.models.layers.flash_attention``): q scaled by ``1/sqrt(hd)``
+    in its own dtype before the logits, f32 logits of the widened
+    operands, the softcap, key ``kp`` visible from query ``qp`` iff
+    ``qp - window < kp <= qp`` (others -1e30), the running max and
+    denominator in f32, the probabilities kept in f32 into the product with
+    the widened ``v``, and ``acc / max(l, 1e-30)`` in ``q``'s dtype.  A
+    ragged last block is cut short, which is the reference's zero padding
+    with the padded keys masked.  At most ``(b, kvh, g, t, k_chunk)``
+    logits exist at once."""
+    b, t, h, hd = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    qg = q.reshape(b, t, kvh, group, hd) * torch.tensor(
+        1.0 / math.sqrt(hd), dtype=q.dtype)
+    qw = widen(qg)
+    qp = torch.arange(t, device=q.device)[:, None]
+    m = torch.full((b, kvh, group, t, 1), -1e30, dtype=qw.dtype,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, group, t, hd), dtype=qw.dtype,
+                      device=q.device)
+    for a in range(0, s, k_chunk):
+        kc, vc = k[:, a:a + k_chunk], v[:, a:a + k_chunk]
+        logits = torch.einsum("btkgd,bskd->bkgts", qw, widen(kc))
+        logits = softcap(logits, attn_softcap)
+        kp = torch.arange(a, a + kc.shape[1], device=q.device)[None, :]
+        mask = (kp <= qp) & (kp > qp - window)
+        logits = logits.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bkgts,bskd->bkgtd", p, widen(vc))
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
+
+
 def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
               wv: torch.Tensor, wo: torch.Tensor, *, n_heads: int,
               n_kv_heads: int, head_dim: int, rope_theta: Optional[float],
               window: int, attn_softcap: Optional[float]) -> torch.Tensor:
     """Causal GQA self-attention over ``x (b, t, d)`` with a sliding
     window: key ``kp`` is visible from query ``qp`` iff
-    ``qp - window < kp <= qp``."""
+    ``qp - window < kp <= qp``.  From ``t >= FLASH_THRESHOLD`` on the
+    blockwise ``flash_attention``, as the reference's forward; below it
+    the dense form, whose probabilities are rounded to the compute dtype
+    before the product with ``v``."""
     b, t, _ = x.shape
     q, k, v = qkv(x, wq, wk, wv, n_heads, n_kv_heads, head_dim)
     if rope_theta is not None:
         pos = torch.arange(t, device=x.device)
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
+    if t >= FLASH_THRESHOLD:
+        out = flash_attention(q, k, v, window=window,
+                              attn_softcap=attn_softcap)
+        return matmul(out.reshape(b, t, n_heads * head_dim), wo)
     group = n_heads // n_kv_heads
     qg = q.view(b, t, n_kv_heads, group, head_dim)
     logits = torch.einsum(

@@ -139,6 +139,59 @@ def test_h_update_covered_kernel_matches_plain(dev, down):
     assert _same(xk, x)
 
 
+# h_update at every row count it is built around, at widths with every
+# remainder mod 4 it handles apart, and on a workspace whose rows start off
+# the 16-byte grid: idle NaN rows, a row that downloads without owning,
+# bands outside [0, m) (the general modulo), and four gates
+_HU_SLOTS = {1: [0], 4: [2, -1, 0, 3], 5: [2, -1, 0, 3, 1],
+             8: [2, -1, 0, 3, 1, -1, -1, 0]}
+_HU_DOWN = {1: [1], 4: [1, 1, 0, 0], 5: [1, 1, 0, 0, 1],
+            8: [1, 1, 0, 0, 1, 0, 1, 1]}
+
+
+@pytest.mark.parametrize("gate", ["none", "random", "all_off", "all_on"])
+@pytest.mark.parametrize("rem", [0, 1, 3])
+@pytest.mark.parametrize("n", [1, 4, 5, 8])
+def test_h_update_kernel_bitwise_at_every_width_and_alignment(dev, n, rem,
+                                                              gate):
+    d = 3 * 4096 + rem
+    rng = np.random.default_rng(100 * n + rem)
+    slot = np.array(_HU_SLOTS[n], np.int32)
+    x0 = rng.normal(size=(n, d)).astype(np.float32)
+    x0[slot < 0] = np.nan
+    h0 = rng.normal(size=(n, d)).astype(np.float32)
+    band = rng.integers(0, M, size=d).astype(np.int32)
+    band[::97] = -3
+    band[5::89] = 7
+    x_bar = rng.normal(size=d).astype(np.float32)
+    covered = {"none": None, "random": rng.random(d) < 0.75,
+               "all_off": np.zeros(d, bool), "all_on": np.ones(d, bool)}[gate]
+    name = "h_update" if covered is None else "h_update_covered"
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    slot_t, band_t, xb_t = to(slot), to(band), to(x_bar)
+    down_t = torch.tensor(_HU_DOWN[n], dtype=torch.int32, device=dev)
+    cov_t = None if covered is None else to(covered)
+    for offset in (0, 1):  # rows aligned to 16 bytes, then one float off
+        bx = torch.empty(n * d + offset, device=dev)
+        bh = torch.empty(n * d + offset, device=dev)
+        xk = bx[offset:].view(n, d)
+        hk = bh[offset:].view(n, d)
+        xk.copy_(to(x0))
+        hk.copy_(to(h0))
+        xp, hp = to(x0), to(h0)
+        before = _build.launch_counts[name]
+        uplink.h_update(xk, hk, xb_t, slot_t, band_t, M, S, 0.37,
+                        down=down_t, covered=cov_t)
+        assert _build.launch_counts[name] == before + 1
+        ref.h_update(xp, hp, xb_t, slot_t, band_t, M, S, 0.37, down=down_t,
+                     covered=cov_t)
+        torch.cuda.synchronize()
+        assert torch.equal(hk, hp), offset
+        assert _same(xk, xp), offset
+        if gate == "all_off":
+            assert torch.equal(hk, to(h0)) and _same(xk, to(x0))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     x, _, band, slot = _inputs(dev)
     with pytest.raises(ValueError):
@@ -356,6 +409,37 @@ def test_decode_attention_kernel_matches_plain(dev, qt, kvt, name, b, h, kvh,
                 assert _bf16_ulps(got, want) <= 1.0, (pos, window)
             else:
                 assert float((got - want).abs().max()) < 2e-5, (pos, window)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+def test_decode_attention_bf16_kernel_at_tile_and_split_edges(dev, group,
+                                                              hd):
+    """The bf16 kernel (16-key tiles, split runs a multiple of 16) with
+    ``pos`` at the first tile's edges, at a split's length and at the
+    cache's end, globally and in a window whose start is off the tile
+    grid: within one bf16 ulp of the plain version."""
+    from repro_torch.kernels import decode_attn
+
+    b, kvh, S = 2, 2, 1200
+    h = kvh * group
+    g = torch.Generator(device=dev).manual_seed(group * hd)
+    q = torch.randn(b, h, hd, generator=g, device=dev).bfloat16()
+    k = torch.randn(b, S, kvh, hd, generator=g, device=dev).bfloat16()
+    v = torch.randn(b, S, kvh, hd, generator=g, device=dev).bfloat16()
+    _, split_len = decode_attn.split_plan(b, kvh, S, tiled=True)
+    assert split_len % decode_attn.TILE == 0
+    tile = decode_attn.TILE
+    for pos in (0, tile - 1, tile, split_len, S - 1):
+        for window in (None, 41):
+            before = _build.launch_counts["decode_attention"]
+            got = decode_attn.decode_attention(q, k, v, pos, window=window,
+                                               softcap=50.0)
+            assert _build.launch_counts["decode_attention"] == before + 1
+            want = ref.decode_attention(q, k, v, pos, window=window,
+                                        softcap=50.0)
+            torch.cuda.synchronize()
+            assert _bf16_ulps(got, want) <= 1.0, (pos, window)
 
 
 def test_decode_attention_kernel_rejects_what_it_does_not_take(dev):

@@ -137,6 +137,11 @@ def test_split_plan_covers_the_visible_keys():
                       (4, 4, 4608), (2, 2, 64)):
         n_splits, split_len = decode_attn.split_plan(b, kvh, n)
         assert n_splits * split_len >= n > (n_splits - 1) * split_len
+        # the bf16 kernel's plan: whole 16-key tiles, every block at once
+        n_splits, split_len = decode_attn.split_plan(b, kvh, n, tiled=True)
+        assert n_splits * split_len >= n > (n_splits - 1) * split_len
+        assert split_len % decode_attn.TILE == 0
+        assert b * kvh * n_splits <= max(b * kvh, decode_attn.TILED_BLOCKS)
     # a global window far past the cache leaves every key visible
     assert decode_attn.visible_keys(30000, tr.GLOBAL_WINDOW) == (0, 30001)
     assert decode_attn.visible_keys(30000, 4096) == (25905, 4096)

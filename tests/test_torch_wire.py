@@ -603,7 +603,8 @@ def test_int8_up_bytes_ratio_and_the_arrived_fraction():
     # a faulted round: 2 of the 3 members arrived
     arrived = np.array([True, False, True, True])
     part, _ = _one_round_bytes("int8", arrived=arrived)
-    assert part.up_bytes == int8.up_bytes * 2.0 / 3
+    # the arrived fraction is an f32 division, as the reference's
+    assert part.up_bytes == int8.up_bytes * (np.float32(2) / np.float32(3))
     assert part.down_bytes == int8.down_bytes
 
 
