@@ -23,9 +23,12 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    dropped so a quarter of the coordinates is uncovered; the wire's
    kernels: ``masked_sum_dequant`` on ``(4, d)`` int8 codes and its
    counts form on ``(5, d)`` with a dropped row of NaN scales and
-   NaN-poisoned chunks in an owned row, ``masked_sum`` (both forms) over
-   f16 and bf16 lanes, and the quantizer ``wire_quantize`` in int8, int4
-   and DownCom modes on rows with +inf, -inf, NaN and an all-zero chunk;
+   NaN-poisoned chunks in an owned row, each with its share of the byte
+   bound and of the sector floor (the owning rows' codes in whole 32-byte
+   sectors), ``masked_sum`` (both forms) over f16 and bf16 lanes, and the
+   quantizer ``wire_quantize`` in int8, int4 and DownCom modes on rows
+   with +inf, -inf, NaN and an all-zero chunk, each form with its share of
+   its bound;
    the convex core's ``compress`` in f64 at the convex paths' shapes
    ``(100, 20958)`` and ``(1000, 20958)`` with their round-0 permutations,
    in f32 on the ``(4, d)`` workspace (slot ``[1, -1, 0, 2]``, c=3, s=2,
@@ -184,6 +187,27 @@ def owned_entries(slot, band, m: int, s: int) -> int:
         if 0 <= sl < m:
             total += sum(cnt for b, cnt in enumerate(per_band)
                          if (sl + b) % m < s)
+    return total
+
+
+def owned_sectors(slot, band, m: int, s: int, width: int,
+                  chunk: int = 1 << 26) -> int:
+    """How many 32-byte sectors of the rows' ``width``-byte entries hold an
+    owned entry: what a kernel that reads whole sectors moves, beside
+    ``owned_entries``' count of the owned entries alone.  Rows start on the
+    sector grid (``d * width`` a multiple of 32 at full width)."""
+    per = 32 // width
+    d = band.numel()
+    total = 0
+    for sl in slot.tolist():
+        if not 0 <= sl < m:
+            continue
+        for a in range(0, d, chunk):
+            own = (sl + band[a:a + chunk]) % m < s
+            pad = -own.numel() % per
+            if pad:
+                own = torch.nn.functional.pad(own, (0, pad))
+            total += int(own.view(-1, per).any(dim=1).sum())
     return total
 
 
@@ -428,8 +452,10 @@ def check_wire_kernels(spec, dev):
     g = torch.Generator(device=dev).manual_seed(4)
     leaves = [(i, o, D) for i, (o, D) in enumerate(zip(spec.offsets,
                                                        spec.dims))]
-    lo = torch.tensor([0] + [o + D for _, o, D in leaves],
-                      dtype=torch.int64, device=dev)
+    # the leaf starts as host integers (the wrapper's form) and as a
+    # tensor on the card (the plain version's)
+    lo = tuple([0] + [o + D for _, o, D in leaves])
+    lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
     nc = sum(wire.n_chunks(D) for D in spec.dims)
     recs = []
 
@@ -441,8 +467,9 @@ def check_wire_kernels(spec, dev):
     scales = torch.rand(N, nc, generator=g, device=dev).mul_(0.01)
     scales[1] = float("nan")  # the idle row's chunks never leak
     owned = owned_entries(slot, band, C, S)
+    sectors = owned_sectors(slot, band, C, S, 1)
     bar = uplink.masked_sum_dequant(codes, scales, lo, slot, band, C, S)
-    bar_p = ref.masked_sum_dequant(codes, scales, lo, slot, band, C, S)
+    bar_p = ref.masked_sum_dequant(codes, scales, lo_t, slot, band, C, S)
     torch.cuda.synchronize()
     err = max_abs_err(bar, bar_p)
     if not bool(bar.isfinite().all()) or err != 0.0:
@@ -454,11 +481,15 @@ def check_wire_kernels(spec, dev):
         "ms": cuda_ms(lambda: uplink.masked_sum_dequant(
             codes, scales, lo, slot, band, C, S), 5),
         "plain_ms": cuda_ms(lambda: ref.masked_sum_dequant(
-            codes, scales, lo, slot, band, C, S), 2),
+            codes, scales, lo_t, slot, band, C, S), 2),
         # owned codes (1 B) read, the owning rows' scales, band read,
         # x_bar written, the leaf tables and slot read
         "bound_ms": bound_ms(owned + 4 * (3 * nc + 2 * d + 2 * len(leaves)
                                           + N)),
+        # the same with the owning rows' codes in whole 32-byte sectors:
+        # the least a kernel that reads sectors can move
+        "sector_ms": bound_ms(32 * sectors + 4 * (
+            3 * nc + 2 * d + 2 * len(leaves) + N)),
     })
     del codes, scales, band
 
@@ -471,9 +502,10 @@ def check_wire_kernels(spec, dev):
     scales[1] = float("nan")  # the dropped row
     scales[0, ::1000] = float("nan")  # poisoned chunks of an owned row
     owned = owned_entries(slot, band, CF, SF)
+    sectors = owned_sectors(slot, band, CF, SF, 1)
     num, cnt = uplink.masked_sum_dequant(codes, scales, lo, slot, band, CF,
                                          SF, counts=True)
-    num_p, cnt_p = ref.masked_sum_dequant(codes, scales, lo, slot, band,
+    num_p, cnt_p = ref.masked_sum_dequant(codes, scales, lo_t, slot, band,
                                           CF, SF, counts=True)
     torch.cuda.synchronize()
     err = max(max_abs_err(num, num_p), max_abs_err(cnt, cnt_p))
@@ -490,12 +522,21 @@ def check_wire_kernels(spec, dev):
         "ms": cuda_ms(lambda: uplink.masked_sum_dequant(
             codes, scales, lo, slot, band, CF, SF, counts=True), 5),
         "plain_ms": cuda_ms(lambda: ref.masked_sum_dequant(
-            codes, scales, lo, slot, band, CF, SF, counts=True), 2),
+            codes, scales, lo_t, slot, band, CF, SF, counts=True), 2),
         # owned codes read, 3 owning rows' scales, band read, num and cnt
         # written, the leaf tables and slot read
         "bound_ms": bound_ms(owned + 4 * (3 * nc + 3 * d + 2 * len(leaves)
                                           + NF)),
+        "sector_ms": bound_ms(32 * sectors + 4 * (
+            3 * nc + 3 * d + 2 * len(leaves) + NF)),
     })
+    for rec in recs:
+        print(f"[check] {rec['name']}: {rec['ms']:.3f} ms, "
+              f"{rec['bound_ms'] / rec['ms']:.1%} of the bound "
+              f"({rec['bound_ms']:.3f} ms), "
+              f"{rec['sector_ms'] / rec['ms']:.1%} of the sector floor "
+              f"({rec['sector_ms']:.3f} ms; the layout's ceiling "
+              f"{rec['bound_ms'] / rec['sector_ms']:.1%} of the bound)")
     del codes, scales
 
     # -- masked_sum over f16 and bf16 lanes, (4, d) -------------------------
@@ -573,6 +614,15 @@ def check_wire_kernels(spec, dev):
     del got, want, row, x
     print(f"[check] wire_quantize: {q['int8'][3]} (int8) and {q['int4'][3]} "
           f"(int4) NaN-poisoned chunk scales of {N * nc}")
+    # x read, the codes and the scales written, the leaf tables read
+    up_bound = bound_ms(5 * N * d + 4 * N * nc + 40 * len(leaves))
+    # the DownCom: x_bar read and written in place, the leaf tables read
+    down_bound = bound_ms(8 * d + 40 * len(leaves))
+    for form, ms, bound in (("int8", q["int8"][1], up_bound),
+                            ("int4", q["int4"][1], up_bound),
+                            ("DownCom", down_ms, down_bound)):
+        print(f"[check] wire_quantize {form}: {ms:.3f} ms, "
+              f"{bound / ms:.1%} of the bound ({bound:.3f} ms)")
     recs.append({
         "name": "wire_quantize", "shape": [N, d],
         "max_abs_err": max(q["int8"][0], q["int4"][0], err_down),
@@ -582,8 +632,7 @@ def check_wire_kernels(spec, dev):
         "ms": q["int8"][1], "plain_ms": q["int8"][2],
         "int4_ms": q["int4"][1], "int4_plain_ms": q["int4"][2],
         "down_ms": down_ms, "down_plain_ms": down_plain_ms,
-        # x read, the codes and the scales written, the leaf tables read
-        "bound_ms": bound_ms(5 * N * d + 4 * N * nc + 40 * len(leaves)),
+        "bound_ms": up_bound, "down_bound_ms": down_bound,
     })
     return recs
 

@@ -111,13 +111,15 @@ def cyclic_band(dims: Sequence[int], c: int, s: int,
 @dataclasses.dataclass(frozen=True)
 class WireGroup:
     """The leaves of one wire kind: ``leaves`` are ``(leaf index, offset
-    in the row, size)`` in leaf order, ``leaf_lo`` ``(L + 1,)`` int64 their
-    starts in the group's columns, ``band`` ``(d_g,)`` int32 the cyclic
-    band over those columns; ``whole``: the group is the whole row."""
+    in the row, size)`` in leaf order, ``leaf_lo`` the ``L + 1`` host
+    integers of their starts in the group's columns (the last ``d_g``),
+    ``band`` ``(d_g,)`` int32 the cyclic band over those columns;
+    ``whole``: the group is the whole row.  The host tables keep the comm
+    step from reading anything back from the card."""
 
     kind: str
     leaves: Tuple[Tuple[int, int, int], ...]
-    leaf_lo: torch.Tensor
+    leaf_lo: Tuple[int, ...]
     band: torch.Tensor
     whole: bool
 
@@ -144,7 +146,7 @@ def wire_plan(dims: Sequence[int], policy: Optional[str], c: int, s: int,
         groups.append(WireGroup(
             kind=kind,
             leaves=tuple((i, offsets[i], dims[i]) for i in idx),
-            leaf_lo=torch.tensor(lo, dtype=torch.int64, device=band.device),
+            leaf_lo=tuple(lo),
             band=band if whole else cyclic_band(gdims, c, s, band.device),
             whole=whole))
     return tuple(groups)
@@ -168,7 +170,7 @@ def _wire_upcom(xw: torch.Tensor, slot: torch.Tensor, c: int, s: int,
     ``survivor``.  Robust combines run on dequantized f32 values, in
     column chunks (the combine is per coordinate)."""
     n = xw.shape[0]
-    d_g = int(grp.leaf_lo[-1])
+    d_g = grp.leaf_lo[-1]
     if grp.kind in wire_mod.F_DTYPES:
         lanes = torch.empty(n, d_g, dtype=wire_mod.F_DTYPES[grp.kind],
                             device=xw.device)
@@ -185,9 +187,11 @@ def _wire_upcom(xw: torch.Tensor, slot: torch.Tensor, c: int, s: int,
         codes, scales = wire_pack.pack_int(xw, grp.leaves, grp.kind, seed)
 
         def f32_cols(a, b):
+            lo = torch.tensor(grp.leaf_lo, dtype=torch.int64,
+                              device=xw.device)
             return compress.wire_dequant(
                 codes[:, a:b], scales,
-                compress.chunk_cols(grp.leaf_lo, a, b)).contiguous()
+                compress.chunk_cols(lo, a, b)).contiguous()
 
         def upcom(counts):
             return uplink.masked_sum_dequant(codes, scales, grp.leaf_lo,

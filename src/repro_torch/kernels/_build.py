@@ -108,8 +108,9 @@ def load() -> ctypes.CDLL:
                                              i32, i32, p]
     lib.tamuna_masked_sum_dequant.argtypes = [p, p, i64, p, p, i32, p, p, p,
                                               p, i64, i64, i32, i32, i32, p]
-    lib.tamuna_wire_quantize.argtypes = [p, i64, i64, p, p, i32, i64, f32, p,
-                                         i64, p, i64, p, i32, p]
+    lib.tamuna_wire_quantize.argtypes = [p, i64, i64, p, p, i32, i64,
+                                         ctypes.c_uint32, f32, p, i64, p, i64,
+                                         p, i32, p]
     lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i32, i32,
                                       i32, i32, p]
     lib.tamuna_h_update.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32,
@@ -128,6 +129,20 @@ def load() -> ctypes.CDLL:
                lib.tamuna_compress, lib.tamuna_decode_attention):
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def device_table(values: Tuple[int, ...], device: torch.device
+                 ) -> torch.Tensor:
+    """``values`` as an int64 tensor on ``device``, made once per
+    ``(values, device)``: a kernel's leaf table, which the kernels only
+    read.  A CUDA copy is uploaded from pinned memory without a
+    synchronisation, so a wrapper that builds its tables on the host never
+    waits for the card."""
+    host = torch.tensor(values, dtype=torch.int64)
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.to(device)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -15,7 +15,11 @@ owned entry), converted to f32 exactly and summed in f32.
 ``_masked_sum_dequant_counts_kernel``, uplink.py:94): the same UpComs over
 the int wire, int8 codes times their row's per-chunk f32 scale.  It reads
 1 B per owned code, the band and writes the outputs: (s + 8) B per
-coordinate, (s + 12) B with the counts.
+coordinate, (s + 12) B with the counts.  The kernel takes 16 coordinates
+per thread as four quads that a warp reads and writes in contiguous
+spans, one scale per quad and row, and a leaf cursor instead of a search
+per coordinate; the wrapper takes the leaf starts as host integers, so
+it never waits for the card.
 
 ``robust_sum`` replaces ``repro.kernels.uplink.robust_sum``
 (``_robust_sum_kernel``, uplink.py:106): the per-coordinate trimmed mean or
@@ -42,7 +46,7 @@ no ``(n, d)`` mask exists.  A CPU tensor runs the plain version in
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -117,41 +121,54 @@ def masked_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
     return out
 
 
+def _leaf_starts(leaf_lo) -> Tuple[int, ...]:
+    """A kind group's leaf starts as host integers, from a sequence of
+    ints or a CPU tensor.  A tensor elsewhere is refused: reading it back
+    would make the caller wait for the card."""
+    if isinstance(leaf_lo, torch.Tensor) and leaf_lo.device.type != "cpu":
+        raise ValueError(f"leaf_lo: want host integers, got a tensor on "
+                         f"{leaf_lo.device}")
+    return tuple(int(v) for v in leaf_lo)
+
+
 def masked_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
-                       leaf_lo: torch.Tensor, slot: torch.Tensor,
+                       leaf_lo: Sequence[int], slot: torch.Tensor,
                        band: torch.Tensor, m: int, s: int,
                        counts: bool = False):
     """``masked_sum`` over int wire lanes: ``codes`` ``(n, d)`` int8 (int4
     codes fit), ``scales`` ``(n, nchunk)`` f32 per-chunk scales, and
-    ``leaf_lo`` ``(L + 1,)`` int64, the kind group's leaf starts in its
-    ``d`` columns (the last entry ``d``), from which each column's scale
-    column follows (``compress.chunk_cols``).  Each owned code times its
-    scale is summed in f32; ``counts=True`` returns ``(num, cnt)`` as
-    ``masked_sum`` does."""
+    ``leaf_lo`` the kind group's ``L + 1`` leaf starts in its ``d``
+    columns (the first 0, the last ``d``), as host integers (a sequence or
+    a CPU tensor), from which each column's scale column follows
+    (``compress.chunk_cols``).  Each owned code times its scale is summed
+    in f32; ``counts=True`` returns ``(num, cnt)`` as ``masked_sum``
+    does.  On the card the leaf tables are copied once per group
+    (``_build.device_table``) and nothing is read back."""
     _check(codes, m, s, lanes=(torch.int8,), slot=slot, band=band)
     n, d = codes.shape
-    coff = compress.chunk_offsets(leaf_lo.tolist())
+    lo = _leaf_starts(leaf_lo)
+    coff = tuple(compress.chunk_offsets(lo))
     nc = coff[-1]
     if (scales.shape != (n, nc) or scales.dtype != torch.float32
             or not scales.is_contiguous() or scales.device != codes.device
-            or leaf_lo.dtype != torch.int64 or leaf_lo.dim() != 1
-            or leaf_lo.device != codes.device or int(leaf_lo[0]) != 0
-            or int(leaf_lo[-1]) != d):
+            or len(lo) < 2 or lo[0] != 0 or lo[-1] != d
+            or any(b < a for a, b in zip(lo, lo[1:]))):
         raise ValueError(
-            f"want scales ({n}, {nc}) f32 and leaf_lo int64 from 0 to {d} "
-            f"on {codes.device}, got scales {tuple(scales.shape)} "
-            f"{scales.dtype}, leaf_lo {leaf_lo.tolist()}")
+            f"want scales ({n}, {nc}) f32 on {codes.device} and leaf_lo "
+            f"rising from 0 to {d}, got scales {tuple(scales.shape)} "
+            f"{scales.dtype} on {scales.device}, leaf_lo {list(lo)}")
     if codes.device.type == "cpu":
-        return ref.masked_sum_dequant(codes, scales, leaf_lo, slot, band,
-                                      m, s, counts=counts)
-    coff = torch.tensor(coff, dtype=torch.int64, device=codes.device)
+        return ref.masked_sum_dequant(codes, scales,
+                                      torch.tensor(lo, dtype=torch.int64),
+                                      slot, band, m, s, counts=counts)
     out = torch.empty(d, dtype=torch.float32, device=codes.device)
     cnt = (torch.empty(d, dtype=torch.float32, device=codes.device)
            if counts else None)
     rc = _build.load().tamuna_masked_sum_dequant(
-        codes.data_ptr(), scales.data_ptr(), nc, leaf_lo.data_ptr(),
-        coff.data_ptr(), leaf_lo.numel() - 1, slot.data_ptr(),
-        band.data_ptr(), out.data_ptr(),
+        codes.data_ptr(), scales.data_ptr(), nc,
+        _build.device_table(lo, codes.device).data_ptr(),
+        _build.device_table(coff, codes.device).data_ptr(), len(lo) - 1,
+        slot.data_ptr(), band.data_ptr(), out.data_ptr(),
         None if cnt is None else cnt.data_ptr(), n, d, m, s, int(counts),
         _build.stream_of(codes))
     _build.check_launch(

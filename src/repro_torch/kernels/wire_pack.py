@@ -14,7 +14,10 @@ nc_g)``, the group's leaves concatenated in the given order.  It reads
 quantizes the DownCom ``x_bar`` in place, one shared row with row id
 ``wire.DOWN_ROW``.  A kind group's leaves are ``(leaf index, offset in the
 row, size)`` triples; the leaf index (the leaf's place in the full leaf
-list) keys the draw.
+list) keys the draw.  The kernel runs one warp per 256-coordinate chunk
+(``csrc/tamuna_kernels.cu``, ``wire_quantize_kernel``); its leaf tables
+are built on the host and copied to the card once, so neither wrapper
+waits for the card.
 
 A CPU tensor runs the plain versions ``ref.wire_pack``/``ref.wire_down``;
 a CUDA tensor launches the kernel or raises.
@@ -32,19 +35,20 @@ from repro_torch.kernels import _build, compress, ref
 Leaves = Sequence[Tuple[int, int, int]]
 
 
-def _tables(leaves: Leaves, seed: int, device, dst_of_src: bool):
-    """The kernel's leaf table ``(L, 4)`` int64 ``(source offset, size,
-    destination offset, folded seed)`` and chunk offsets ``(L + 1,)``; the
-    destination is the group column (``pack_int``) or the source itself
-    (``quantize_down``, in place)."""
+def _tables(leaves: Leaves, dst_of_src: bool
+            ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """The kernel's leaf table, ``(L, 4)`` flattened: ``(source offset,
+    size, destination offset, leaf index)``, and the group's chunk offsets
+    ``(L + 1,)``, as host tuples.  The destination is the group column
+    (``pack_int``) or the source itself (``quantize_down``, in place).  The
+    kernel folds the round's seed with each leaf index itself, so the
+    tables do not change from round to round and their device copies are
+    made once (``_build.device_table``)."""
     tab, lo = [], [0]
     for li, o, D in leaves:
-        tab.append([o, D, o if dst_of_src else lo[-1],
-                    wire.fold_seed(seed, li)])
+        tab += [o, D, o if dst_of_src else lo[-1], li]
         lo.append(lo[-1] + D)
-    coff = compress.chunk_offsets(lo)
-    return (torch.tensor(tab, dtype=torch.int64, device=device),
-            torch.tensor(coff, dtype=torch.int64, device=device), coff[-1])
+    return tuple(tab), tuple(compress.chunk_offsets(lo))
 
 
 def _check(x: torch.Tensor, leaves: Leaves, kind: str) -> None:
@@ -75,13 +79,16 @@ def pack_int(x: torch.Tensor, leaves: Leaves, kind: str,
         return ref.wire_pack(x, leaves, kind, seed)
     n = x.shape[0]
     d_g = sum(D for _, _, D in leaves)
-    tab, coff, nc = _tables(leaves, seed, x.device, dst_of_src=False)
+    tab, coff = _tables(leaves, dst_of_src=False)
+    nc = coff[-1]
     codes = torch.empty(n, d_g, dtype=torch.int8, device=x.device)
     scales = torch.empty(n, nc, dtype=torch.float32, device=x.device)
     rc = _build.load().tamuna_wire_quantize(
-        x.data_ptr(), x.shape[1], n, tab.data_ptr(), coff.data_ptr(),
-        len(leaves), nc, float(wire.LEVELS[kind]), codes.data_ptr(), d_g,
-        scales.data_ptr(), nc, None, 0, _build.stream_of(x))
+        x.data_ptr(), x.shape[1], n,
+        _build.device_table(tab, x.device).data_ptr(),
+        _build.device_table(coff, x.device).data_ptr(), len(leaves), nc,
+        int(seed) & 0xFFFFFFFF, float(wire.LEVELS[kind]), codes.data_ptr(),
+        d_g, scales.data_ptr(), nc, None, 0, _build.stream_of(x))
     _build.check_launch("wire_quantize", rc)
     return codes, scales
 
@@ -97,9 +104,11 @@ def quantize_down(x_bar: torch.Tensor, leaves: Leaves, kind: str,
     if x_bar.device.type == "cpu":
         ref.wire_down(x_bar, leaves, kind, seed)
         return
-    tab, coff, nc = _tables(leaves, seed, x_bar.device, dst_of_src=True)
+    tab, coff = _tables(leaves, dst_of_src=True)
     rc = _build.load().tamuna_wire_quantize(
-        x_bar.data_ptr(), 0, 1, tab.data_ptr(), coff.data_ptr(), len(leaves),
-        nc, float(wire.LEVELS[kind]), None, 0, None, 0, x_bar.data_ptr(), 1,
-        _build.stream_of(x_bar))
+        x_bar.data_ptr(), 0, 1,
+        _build.device_table(tab, x_bar.device).data_ptr(),
+        _build.device_table(coff, x_bar.device).data_ptr(), len(leaves),
+        coff[-1], int(seed) & 0xFFFFFFFF, float(wire.LEVELS[kind]), None, 0,
+        None, 0, x_bar.data_ptr(), 1, _build.stream_of(x_bar))
     _build.check_launch("wire_quantize", rc)

@@ -204,9 +204,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         uplink.robust_sum(x, slot, band, 32, 17, kind="median")
 
 
-def _lo(dims, dev):
-    return torch.tensor(np.concatenate([[0], np.cumsum(dims)]),
-                        dtype=torch.int64, device=dev)
+def _lo(dims):
+    """A kind group's leaf starts as host integers (the wrapper's form)."""
+    return tuple(np.concatenate([[0], np.cumsum(dims)]).tolist())
 
 
 @pytest.mark.parametrize("counts", [False, True])
@@ -221,14 +221,15 @@ def test_masked_sum_dequant_kernel_matches_plain(dev, counts):
         np.float32)).to(dev)
     scales[1] = float("nan")  # the idle row: must not leak
     scales[0, 3] = float("nan")  # a poisoned chunk of an owned row
-    lo = _lo(dims, dev)
+    lo = _lo(dims)
     name = "masked_sum_dequant_counts" if counts else "masked_sum_dequant"
     before = _build.launch_counts[name]
     got = uplink.masked_sum_dequant(codes, scales, lo, slot, band, M, S,
                                     counts=counts)
     assert _build.launch_counts[name] == before + 1
-    want = ref.masked_sum_dequant(codes, scales, lo, slot, band, M, S,
-                                  counts=counts)
+    want = ref.masked_sum_dequant(
+        codes, scales, torch.tensor(lo, device=dev), slot, band, M, S,
+        counts=counts)
     torch.cuda.synchronize()
     if not counts:
         got, want = (got,), (want,)
@@ -287,6 +288,158 @@ def test_wire_quantize_kernel_matches_plain(dev, kind):
     ref.wire_down(want, leaves, kind, 12345)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# The int wire's kernels at their edges: leaves whose sizes and offsets
+# are not multiples of 4, 8, 16 or 256 (a leaf of one coordinate among
+# them), rows off the 16-byte grid (an odd row width), ragged last chunks,
+# an all-zero chunk, +-inf, NaN and -0.0 inputs, idle rows of NaN; and the
+# same at widths where every chunk and run takes the 16-byte path.
+_WQ_DIMS = {"ragged": (300, 13, 1, 1030, 511, 258),
+            "aligned": (256, 1024, 512, 2048)}
+
+
+@pytest.mark.parametrize("layout", ["ragged", "aligned"])
+@pytest.mark.parametrize("n", [1, 4, 5])
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_wire_quantize_kernel_bitwise_at_its_edges(dev, kind, n, layout):
+    from repro_torch.kernels import wire_pack
+
+    dims = _WQ_DIMS[layout]
+    offs = np.concatenate([[0], np.cumsum(dims)]).tolist()
+    rng = np.random.default_rng(len(dims) * 10 + n)
+    x = torch.from_numpy((rng.normal(size=(n, offs[-1])) * 3).astype(
+        np.float32)).to(dev)
+    if n > 1:
+        x[1] = float("nan")  # an idle row is quantized too
+    x[0, 5] = float("inf")
+    x[-1, 310] = float("-inf")
+    x[0, 400] = float("nan")
+    x[-1, offs[3]:offs[3] + 256] = 0.0  # an all-zero chunk
+    x[:, 1000:1600] = torch.where(x[:, 1000:1600] > 1.0, -0.0,
+                                  x[:, 1000:1600])
+    # every leaf but the second, in another order than the row's
+    leaves = [(i, offs[i], dims[i]) for i in range(len(dims)) if i != 1]
+    leaves = leaves[1:] + leaves[:1]
+    before = _build.launch_counts["wire_quantize"]
+    codes, scales = wire_pack.pack_int(x, leaves, kind, 0xC0FFEE)
+    assert _build.launch_counts["wire_quantize"] == before + 1
+    codes_p, scales_p = ref.wire_pack(x, leaves, kind, 0xC0FFEE)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, codes_p)
+    assert torch.equal(scales.view(torch.int32), scales_p.view(torch.int32))
+    assert bool(scales.isnan().any())
+    # the DownCom in place on a row that starts off the 16-byte grid
+    buf = torch.empty(offs[-1] + 1, device=dev)
+    got = buf[1:]
+    got.copy_(x[0])
+    want = x[0].clone()
+    wire_pack.quantize_down(got, leaves, kind, 0xC0FFEE)
+    wire_pack.quantize_down(x[-1], leaves, kind, 12345)  # aligned, in place
+    ref.wire_down(want, leaves, kind, 0xC0FFEE)
+    assert _build.launch_counts["wire_quantize"] == before + 3
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    want_last = x[-1].clone()
+    ref.wire_down(want_last, leaves, kind, 12345)  # quantizing is idempotent
+    assert torch.equal(x[-1].view(torch.int32), want_last.view(torch.int32))
+
+
+# group leaf starts one coordinate either side of multiples of 16, a leaf
+# of one coordinate and ragged chunks; "offgrid": d % 4 != 0, so rows
+# leave the 16-byte grid and every column takes the scalar path; "mixed":
+# d % 4 == 0, so the 512-column warp blocks inside a leaf that starts on
+# the 4-column grid take the 16-byte path beside scalar ones (and bands
+# outside [0, m) send some of them back); "aligned": most blocks on the
+# 16-byte path
+_DQ_DIMS = {"offgrid": (15, 17, 1, 31, 16, 255, 257, 4096, 333),
+            "mixed": (15, 17, 1, 31, 16, 255, 257, 4096, 336),
+            "aligned": (256, 4096, 512, 1024)}
+_DQ_SLOTS = {1: [1], 4: [2, -1, 0, 3], 5: [2, -1, 0, 3, 1]}
+
+
+@pytest.mark.parametrize("layout", ["offgrid", "mixed", "aligned"])
+@pytest.mark.parametrize("n", [1, 4, 5])
+@pytest.mark.parametrize("counts", [False, True])
+def test_masked_sum_dequant_kernel_bitwise_at_its_edges(dev, counts, n,
+                                                        layout):
+    from repro_torch.kernels import compress
+
+    dims = _DQ_DIMS[layout]
+    d = sum(dims)
+    lo = _lo(dims)
+    nc = sum(-(-D // 256) for D in dims)
+    rng = np.random.default_rng(n * 7 + len(dims))
+    slot = torch.tensor(_DQ_SLOTS[n], dtype=torch.int32, device=dev)
+    band = rng.integers(0, M, size=d).astype(np.int32)
+    if layout == "mixed":  # bands outside [0, m): the general modulo
+        band[::97] = -3
+        band[5::89] = M + 3
+    band = torch.from_numpy(band).to(dev)
+    codes = torch.from_numpy(rng.integers(-127, 128, size=(n, d)).astype(
+        np.int8)).to(dev)
+    codes[:, ::11] = 0  # +0 products, some of them against -0 scales
+    scales = torch.from_numpy(rng.random(size=(n, nc)).astype(
+        np.float32)).to(dev)
+    scales[:, ::5] = -0.0
+    for i, sl in enumerate(_DQ_SLOTS[n]):
+        if sl < 0:
+            scales[i] = float("nan")  # idle rows: must not leak
+    # a poisoned chunk of an active row: NaN where it owns, nowhere else
+    poisoned = nc - 3
+    scales[0, poisoned] = float("nan")
+    name = "masked_sum_dequant_counts" if counts else "masked_sum_dequant"
+    before = _build.launch_counts[name]
+    got = uplink.masked_sum_dequant(codes, scales, lo, slot, band, M, S,
+                                    counts=counts)
+    assert _build.launch_counts[name] == before + 1
+    want = ref.masked_sum_dequant(
+        codes, scales, torch.tensor(lo, device=dev), slot, band, M, S,
+        counts=counts)
+    torch.cuda.synchronize()
+    if not counts:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    chunk = compress.chunk_cols(torch.tensor(lo, device=dev), 0, d)
+    owned0 = (_DQ_SLOTS[n][0] + band.long()) % M < S
+    assert torch.equal(got[0].isnan(), owned0 & (chunk == poisoned))
+
+
+@pytest.mark.parametrize("policy", ["int8", "auto"])
+def test_wire_comm_step_makes_no_host_sync_on_the_card(dev, policy):
+    """One wire comm step (the UpCom over the int wire, ``wire_down``) with
+    PyTorch's sync debugging set to raise: the wrappers read nothing back
+    from the card.  The step then agrees bitwise with the CPU's."""
+    from repro_torch.dist import comm_ws
+
+    rng = np.random.default_rng(9)
+    dims = (300, 70001, 50, 3, 4096)
+    n, c, s = 4, 3, 2
+    x = rng.normal(size=(n, sum(dims))).astype(np.float32)
+    h = 0.01 * rng.normal(size=(n, sum(dims))).astype(np.float32)
+    x[1] = np.nan  # idle
+    slot = np.array([1, -1, 0, 2], np.int32)
+    down = np.array([1, 0, 1, 1], np.int32)
+    out = {}
+    for d in ("cpu", dev):
+        band = comm_ws.cyclic_band(dims, c, s, d)
+        plan = comm_ws.wire_plan(dims, policy, c, s, band)
+        xw, hw = torch.tensor(x, device=d), torch.tensor(h, device=d)
+        slot_t = torch.from_numpy(slot).to(d)
+        down_t = torch.from_numpy(down).to(d)
+        if d == dev:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            x_bar = comm_ws.cyclic_comm(xw, hw, slot_t, band, c, s, 0.37,
+                                        down=down_t, wire=plan,
+                                        wire_seed=0xBEEF, wire_down=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[str(d)] = (x_bar.cpu(), xw.cpu(), hw.cpu())
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert _same(a, b)
 
 
 @pytest.mark.parametrize("policy,wire_down,survivor", [
