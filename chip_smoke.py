@@ -10,7 +10,8 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. builds the CUDA kernels of ``src/repro_torch/kernels/csrc/`` with nvcc
-   for sm_90a and prints the build time and ptxas' register report;
+   for sm_90a and prints the build time and ptxas' register and spill
+   report;
 3. holds each kernel against its plain PyTorch version on the card at the
    shapes of the paths below (gemma2-2b at published widths cut to 2
    layers, d_total = 745,558,272), timing both with CUDA events:
@@ -23,14 +24,20 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    dropped so a quarter of the coordinates is uncovered; the wire's
    kernels: ``masked_sum_dequant`` on ``(4, d)`` int8 codes and its
    counts form on ``(5, d)`` with a dropped row of NaN scales and
-   NaN-poisoned chunks in an owned row, each with its share of the byte
-   bound and of the sector floor (the owning rows' codes in whole 32-byte
-   sectors), ``masked_sum`` (both forms) over f16 and bf16 lanes, and the
+   NaN-poisoned chunks in an owned row, ``masked_sum`` (both forms) over
+   f16 and bf16 lanes, the f16 form also at the width of ``[wire]``'s own
+   f16 group (the small leaves), and the
    quantizer ``wire_quantize`` in int8, int4 and DownCom modes on rows
    with +inf, -inf, NaN and an all-zero chunk, each form with its share of
    its bound;
+   every UpCom (``masked_sum`` in both forms and every lane,
+   ``robust_sum``, ``masked_sum_dequant``) with its share of the byte bound
+   and of the sector floor (the owning rows' entries in whole 32-byte
+   sectors);
    the convex core's ``compress`` in f64 at the convex paths' shapes
-   ``(100, 20958)`` and ``(1000, 20958)`` with their round-0 permutations,
+   ``(100, 20958)`` and ``(1000, 20958)`` with their round-0 permutations
+   (and the kernel body's own time there, from ``torch.profiler`` or a
+   replayed CUDA graph, without the wrapper's host time),
    in f32 on the ``(4, d)`` workspace (slot ``[1, -1, 0, 2]``, c=3, s=2,
    an idle row of NaN), and in its 1-D form at ``(20958,)`` f64 and
    ``(d,)`` f32, each bitwise;
@@ -174,6 +181,41 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_only_ms(fn, name: str, reps: int = 100):
+    """The device time of kernel ``name`` per call of ``fn``, without the
+    wrapper's host time (which CUDA events around back-to-back calls of a
+    small kernel measure instead): ``torch.profiler``'s device time over
+    ``reps`` calls, or, where the profiler records no device time, a CUDA
+    graph of ``reps`` captured calls replayed under CUDA events.  Returns
+    ``(ms, "profiler" or "graph")``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, calls = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total_us += (getattr(ev, "device_time_total", None)
+                         or getattr(ev, "cuda_time_total", 0.0))
+            calls += ev.count
+    if calls and total_us > 0:
+        return total_us / calls / 1e3, "profiler"
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 5) / reps, "graph"
+
+
 def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
@@ -209,6 +251,21 @@ def owned_sectors(slot, band, m: int, s: int, width: int,
                 own = torch.nn.functional.pad(own, (0, pad))
             total += int(own.view(-1, per).any(dim=1).sum())
     return total
+
+
+def with_floor(rec: dict) -> dict:
+    """Adds a record's shares of its byte bound and of its sector floor
+    (what a kernel that reads whole 32-byte sectors must move) and prints
+    them; returns the record."""
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["share_of_floor"] = rec["sector_floor_ms"] / rec["ms"]
+    print(f"[check] {rec['name']}: {rec['ms']:.3f} ms, "
+          f"{rec['share_of_bound']:.1%} of the bound "
+          f"({rec['bound_ms']:.3f} ms), {rec['share_of_floor']:.1%} of the "
+          f"sector floor ({rec['sector_floor_ms']:.3f} ms; the layout's "
+          f"ceiling {rec['bound_ms'] / rec['sector_floor_ms']:.1%} of the "
+          f"bound)")
+    return rec
 
 
 def max_abs_err(a, b, chunk: int = 1 << 26) -> float:
@@ -266,14 +323,17 @@ def check_uplink_kernels(spec, tcfg, dev):
     del xbar_p
     if not bool(xbar.isfinite().all()) or ms_err > ms_tol:
         raise AssertionError(f"masked_sum: max abs err {ms_err} > {ms_tol}")
-    rec_ms = {
+    rec_ms = with_floor({
         "name": "masked_sum", "shape": [n, d],
         "max_abs_err": ms_err, "tolerance": ms_tol,
         "ms": cuda_ms(lambda: uplink.masked_sum(x, slot, band, C, S), 5),
         "plain_ms": cuda_ms(lambda: ref.masked_sum(x, slot, band, C, S), 2),
         # owned x entries read, band read, x_bar written, slot read
         "bound_ms": bound_ms(4 * (owned + 2 * d + n)),
-    }
+        # the same with the owning rows' entries in whole 32-byte sectors
+        "sector_floor_ms": bound_ms(
+            32 * owned_sectors(slot, band, C, S, 4) + 4 * (2 * d + n)),
+    })
 
     h = torch.randn(n, d, generator=g, device=dev).mul_(0.01)
     xk, hk = x.clone(), h.clone()
@@ -353,6 +413,9 @@ def check_fault_kernels(spec, dev):
           f"{owned} owned entries")
     # owned x entries read, band read, two (d,) outputs written, slot read
     uplink_bound = bound_ms(4 * (owned + 3 * d + n))
+    # the same with the owning rows' entries in whole 32-byte sectors
+    uplink_floor = bound_ms(32 * owned_sectors(slot, band, CF, SF, 4)
+                            + 4 * (3 * d + n))
 
     num, cnt = uplink.masked_sum(x, slot, band, CF, SF, counts=True)
     num_p, cnt_p = ref.masked_sum_counts(x, slot, band, CF, SF)
@@ -361,15 +424,15 @@ def check_fault_kernels(spec, dev):
     del num, cnt, num_p, cnt_p
     if err != 0.0:
         raise AssertionError(f"masked_sum_counts: max abs err {err}, want 0")
-    recs = [{
+    recs = [with_floor({
         "name": "masked_sum_counts", "shape": [n, d], "max_abs_err": err,
         "tolerance": 0.0,
         "ms": cuda_ms(lambda: uplink.masked_sum(
             x, slot, band, CF, SF, counts=True), 5),
         "plain_ms": cuda_ms(lambda: ref.masked_sum_counts(
             x, slot, band, CF, SF), 2),
-        "bound_ms": uplink_bound,
-    }]
+        "bound_ms": uplink_bound, "sector_floor_ms": uplink_floor,
+    })]
 
     rb = {}
     for kind, k in (("trimmed", 1), ("median", 0)):
@@ -388,15 +451,15 @@ def check_fault_kernels(spec, dev):
             x, slot, band, CF, SF, kind=kind, k=k), 5),
             cuda_ms(lambda: ref.robust_sum(x, slot, band, CF, SF, kind, k),
                     2))
-    recs.append({
+    recs.append(with_floor({
         "name": "robust_sum", "shape": [n, d],
         "max_abs_err": max(v[0] for v in rb.values()), "tolerance": 0.0,
         # the trimmed mean is the path's combiner; the median's times
         # ride along
         "ms": rb["trimmed"][1], "plain_ms": rb["trimmed"][2],
         "median_ms": rb["median"][1], "median_plain_ms": rb["median"][2],
-        "bound_ms": uplink_bound,
-    })
+        "bound_ms": uplink_bound, "sector_floor_ms": uplink_floor,
+    }))
 
     # 3 of the 4 members dropped: a quarter of the coordinates uncovered
     slot_c = torch.tensor([1, -1, -1, -1, -1], dtype=torch.int32,
@@ -475,7 +538,7 @@ def check_wire_kernels(spec, dev):
     if not bool(bar.isfinite().all()) or err != 0.0:
         raise AssertionError(f"masked_sum_dequant: max abs err {err}")
     del bar, bar_p
-    recs.append({
+    recs.append(with_floor({
         "name": "masked_sum_dequant", "shape": [N, d], "max_abs_err": err,
         "tolerance": 0.0,
         "ms": cuda_ms(lambda: uplink.masked_sum_dequant(
@@ -488,9 +551,9 @@ def check_wire_kernels(spec, dev):
                                           + N)),
         # the same with the owning rows' codes in whole 32-byte sectors:
         # the least a kernel that reads sectors can move
-        "sector_ms": bound_ms(32 * sectors + 4 * (
+        "sector_floor_ms": bound_ms(32 * sectors + 4 * (
             3 * nc + 2 * d + 2 * len(leaves) + N)),
-    })
+    }))
     del codes, scales, band
 
     # -- masked_sum_dequant(counts=True), (5, d), the [wire_faults] shape --
@@ -516,7 +579,7 @@ def check_wire_kernels(spec, dev):
         raise AssertionError(f"masked_sum_dequant_counts: max abs err {err},"
                              f" {n_nan} NaN")
     del num, cnt, num_p, cnt_p
-    recs.append({
+    recs.append(with_floor({
         "name": "masked_sum_dequant_counts", "shape": [NF, d],
         "max_abs_err": err, "tolerance": 0.0,
         "ms": cuda_ms(lambda: uplink.masked_sum_dequant(
@@ -527,22 +590,16 @@ def check_wire_kernels(spec, dev):
         # written, the leaf tables and slot read
         "bound_ms": bound_ms(owned + 4 * (3 * nc + 3 * d + 2 * len(leaves)
                                           + NF)),
-        "sector_ms": bound_ms(32 * sectors + 4 * (
+        "sector_floor_ms": bound_ms(32 * sectors + 4 * (
             3 * nc + 3 * d + 2 * len(leaves) + NF)),
-    })
-    for rec in recs:
-        print(f"[check] {rec['name']}: {rec['ms']:.3f} ms, "
-              f"{rec['bound_ms'] / rec['ms']:.1%} of the bound "
-              f"({rec['bound_ms']:.3f} ms), "
-              f"{rec['sector_ms'] / rec['ms']:.1%} of the sector floor "
-              f"({rec['sector_ms']:.3f} ms; the layout's ceiling "
-              f"{rec['bound_ms'] / rec['sector_ms']:.1%} of the bound)")
+    }))
     del codes, scales
 
     # -- masked_sum over f16 and bf16 lanes, (4, d) -------------------------
     band = comm_ws.cyclic_band(spec.dims, C, S, dev)
     slot = torch.tensor([1, -1, 0, 2], dtype=torch.int32, device=dev)
     owned = owned_entries(slot, band, C, S)
+    sectors = owned_sectors(slot, band, C, S, 2)
     for lane, tag in ((torch.float16, "f16"), (torch.bfloat16, "bf16")):
         x = torch.randn(N, d, generator=g, device=dev).to(lane)
         x[1] = float("nan")
@@ -559,7 +616,7 @@ def check_wire_kernels(spec, dev):
         err = max(errs)
         if err != 0.0:
             raise AssertionError(f"masked_sum {tag} lanes: max abs err {err}")
-        recs.append({
+        recs.append(with_floor({
             "name": f"masked_sum_{tag}", "shape": [N, d],
             "max_abs_err": err, "tolerance": 0.0,
             "ms": cuda_ms(lambda: uplink.masked_sum(x, slot, band, C, S), 5),
@@ -571,9 +628,40 @@ def check_wire_kernels(spec, dev):
                 x, slot, band, C, S), 2),
             # owned lanes (2 B) read, band read, x_bar written, slot read
             "bound_ms": bound_ms(2 * owned + 4 * (2 * d + N)),
-        })
+            "sector_floor_ms": bound_ms(32 * sectors + 4 * (2 * d + N)),
+        }))
         del x
     del band
+
+    # -- masked_sum over f16 lanes at the width of [wire]'s f16 group -------
+    # (the auto policy's small leaves; the width the path runs)
+    gdims = [D for D in spec.dims if wire.resolve_kind(D, "auto") == "f16"]
+    dg = sum(gdims)
+    band = comm_ws.cyclic_band(gdims, C, S, dev)
+    x = torch.randn(N, dg, generator=g, device=dev).half()
+    x[1] = float("nan")
+    got = uplink.masked_sum(x, slot, band, C, S)
+    want = ref.masked_sum(x, slot, band, C, S)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err != 0.0:
+        raise AssertionError(f"masked_sum f16 lanes at [wire]'s group width "
+                             f"{dg}: max abs err {err}")
+    f16 = next(r for r in recs if r["name"] == "masked_sum_f16")
+    f16.update({
+        "wire_shape": [N, dg], "wire_max_abs_err": err,
+        "wire_ms": cuda_ms(lambda: uplink.masked_sum(x, slot, band, C, S),
+                           200),
+        "wire_plain_ms": cuda_ms(lambda: ref.masked_sum(x, slot, band, C, S),
+                                 20),
+        "wire_bound_ms": bound_ms(2 * owned_entries(slot, band, C, S)
+                                  + 4 * (2 * dg + N)),
+    })
+    print(f"[check] masked_sum_f16 at [wire]'s f16 group ({len(gdims)} "
+          f"leaves, {dg} columns): {f16['wire_ms']:.4f} ms, plain "
+          f"{f16['wire_plain_ms']:.4f} ms, bound {f16['wire_bound_ms']:.4f} "
+          f"ms")
+    del x, got, want, band
 
     # -- wire_quantize: int8, int4 (UpCom) and the DownCom -----------------
     x = torch.randn(N, d, generator=g, device=dev)
@@ -1030,6 +1118,7 @@ def check_compress_kernels(d_total, dev):
     row of NaN) and its one-row form; returns one record per
     instantiation."""
     from repro_torch.core import masks, theory
+    from repro_torch.kernels import compress
 
     g = torch.Generator(device=dev).manual_seed(7)
     d = CONVEX["d"]
@@ -1040,6 +1129,12 @@ def check_compress_kernels(d_total, dev):
             device=dev, dtype=torch.int32)
         x = torch.randn(c, d, generator=g, device=dev, dtype=torch.float64)
         rec = check_compress(x, perm, c, s, reps, 20)
+        # the kernel body's own time, without the wrapper's host time
+        rec["kernel_ms"], rec["kernel_ms_by"] = kernel_only_ms(
+            lambda: compress.compress(x, perm, c, s), "compress_kernel")
+        print(f"[check] compress_f64 {[c, d]}: kernel only "
+              f"{rec['kernel_ms']:.4f} ms ({rec['kernel_ms_by']}), per call "
+              f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
         if c == 100:
             recs["compress_f64"] = rec
             x1 = x[0].contiguous()
@@ -1048,7 +1143,8 @@ def check_compress_kernels(d_total, dev):
         else:  # the [convex_full] shape rides along
             recs["compress_f64"].update(
                 {f"full_{k}": rec[k] for k in ("shape", "max_abs_err", "ms",
-                                               "plain_ms", "bound_ms")})
+                                               "plain_ms", "bound_ms",
+                                               "kernel_ms", "kernel_ms_by")})
         del x
     x = torch.randn(N, d_total, generator=g, device=dev)
     x[1] = float("nan")  # the idle row never reaches the output
@@ -1536,8 +1632,12 @@ def main(argv=None) -> int:
     path, secs, log = _build.build()
     print(f"[build] {os.path.relpath(path, here)} in {secs:.1f} s")
     for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "spill" in line):
             print(f"[build] {line.strip()}")
+    spills = [line for line in log.splitlines() if "spill" in line
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    print(f"[build] {len(spills)} kernel instantiations spill registers")
     _build.load()
 
     cfg = dataclasses.replace(gemma2_2b.CONFIG, n_layers=2)

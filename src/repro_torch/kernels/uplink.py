@@ -8,7 +8,15 @@ coordinate on one H100 at 3.35 TB/s.  With ``counts=True`` it replaces
 ``_masked_sum_counts_kernel`` (uplink.py:65), the survivor UpCom: the raw
 owner sum and the owner count, 4 B per owned entry + 12 B per coordinate.
 Both also take the bf16 and f16 lanes of the narrow float wire (2 B per
-owned entry), converted to f32 exactly and summed in f32.
+owned entry), converted to f32 exactly and summed in f32.  The kernel
+gives a warp 512 columns (a grid of the blocks the card holds at once
+strides over them) and each lane four quads of 4 columns, 128 apart, so
+that every warp-wide load and store is one contiguous span; it reads the
+band as 16-byte loads, loads 4 rows' quads (16 or 8 bytes each) together
+before their ownership is known, for the rows whose slot lies in
+``[0, m)`` only, tests ownership by a compare and writes 16-byte stores.
+Rows off the 16-byte grid, bands outside ``[0, m)`` and the ragged tail
+take a scalar path with the same arithmetic.
 
 ``masked_sum_dequant`` replaces ``repro.kernels.uplink.masked_sum_dequant``
 (``_masked_sum_dequant_kernel``, uplink.py:80, and with ``counts=True``
@@ -23,8 +31,9 @@ it never waits for the card.
 
 ``robust_sum`` replaces ``repro.kernels.uplink.robust_sum``
 (``_robust_sum_kernel``, uplink.py:106): the per-coordinate trimmed mean or
-median of the owned values.  It moves the bytes of the counts kernel; its
-order statistics stay in registers.
+median of the owned values.  It moves the bytes of the counts kernel, in
+the same layout; its order statistics stay in registers, S per column, so
+a lane takes 16 columns for s <= 4, 8 for s <= 8 and 4 for s <= 16.
 
 ``h_update`` replaces ``repro.kernels.uplink.h_update`` (``_h_update_kernel``,
 uplink.py:153): ``h += scale (x_bar - x)`` on owned coordinates and the

@@ -47,17 +47,6 @@ def _inputs(dev, seed=0):
     return [torch.from_numpy(a).to(dev) for a in (x, h, band, slot)]
 
 
-def test_masked_sum_kernel_matches_plain(dev):
-    x, _, band, slot = _inputs(dev)
-    before = _build.launch_counts["masked_sum"]
-    got = uplink.masked_sum(x, slot, band, M, S)
-    assert _build.launch_counts["masked_sum"] == before + 1
-    want = ref.masked_sum(x, slot, band, M, S)
-    torch.cuda.synchronize()
-    assert torch.isfinite(got).all()
-    assert torch.equal(got, want)
-
-
 @pytest.mark.parametrize("down", [None, [1, 0, 1, 0, 1]])
 def test_h_update_kernel_matches_plain(dev, down):
     x, h, band, slot = _inputs(dev, 1)
@@ -91,31 +80,109 @@ def _same(a, b):
             and torch.equal(a.nan_to_num(7.0), b.nan_to_num(7.0)))
 
 
-def test_masked_sum_counts_kernel_matches_plain(dev):
-    x, _, band, slot = _inputs(dev)
-    before = _build.launch_counts["masked_sum_counts"]
-    num, cnt = uplink.masked_sum(x, slot, band, M, S, counts=True)
-    assert _build.launch_counts["masked_sum_counts"] == before + 1
-    num_p, cnt_p = ref.masked_sum_counts(x, slot, band, M, S)
+# The f32/f16/bf16 UpComs and the robust UpCom at their edges: n rows with
+# idle and dropped rows of NaN; "aligned": every 512-column warp block on
+# the vector path but the ragged last one (d not a multiple of 512);
+# "offgrid": d % 4 != 0, so rows leave the vector grid and every column
+# takes the scalar path; "offptr": a view whose pointer is off the grid;
+# "outside": bands outside [0, m), negative and >= m, sending some blocks
+# back to the scalar path; "ragged5": the single-shape inputs of the
+# earlier tests (``_inputs``, d % 4 == 1).
+_MS_LAYOUTS = ("aligned", "offgrid", "offptr", "outside")
+_MS_SLOTS = {1: [1], 4: [2, -1, 0, 3], 5: [2, -1, 0, 3, 1],
+             9: [2, -1, 0, 3, 1, -1, 3, 2, 0]}
+_MS_WIDTH = {"aligned": 3 * 4096 + 260, "offgrid": 3 * 4096 + 77,
+             "offptr": 3 * 4096 + 260, "outside": 3 * 4096 + 260}
+
+
+def _edge_inputs(dev, n, layout, m, slots, seed, dtype=torch.float32):
+    """``(x, slot, band)`` of ``n`` rows at ``layout``; rows whose slot is
+    outside [0, m) hold NaN, and x has -0.0 entries."""
+    if layout == "ragged5":
+        x, _, band, slot = _inputs(dev, seed)
+        return x.to(dtype), slot, band
+    d = _MS_WIDTH[layout]
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[:, ::13] = -0.0
+    slot = np.array(slots, np.int32)
+    x[(slot < 0) | (slot >= m)] = np.nan
+    band = rng.integers(0, m, size=d).astype(np.int32)
+    if layout == "outside":
+        band[::97] = -3
+        band[5::89] = m + 3
+        band[7::1001] = -m - 1
+    xt = torch.from_numpy(x).to(dev, dtype)
+    if layout == "offptr":
+        buf = torch.empty(n * d + 1, dtype=dtype, device=dev)
+        buf[1:].copy_(xt.reshape(-1))
+        xt = buf[1:].view(n, d)
+    return (xt, torch.from_numpy(slot).to(dev),
+            torch.from_numpy(band).to(dev))
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("n,layout", [(n, layout) for n in (1, 4, 5, 9)
+                                      for layout in _MS_LAYOUTS]
+                         + [(5, "ragged5")])
+@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("lane", [torch.float32, torch.float16,
+                                  torch.bfloat16])
+def test_masked_sum_kernel_bitwise_at_its_edges(dev, lane, counts, n,
+                                                layout):
+    x, slot, band = _edge_inputs(dev, n, layout, M, _MS_SLOTS[n], 10 + n,
+                                 lane)
+    name = (("masked_sum_counts" if counts else "masked_sum")
+            + uplink._LANE_NAME[lane])
+    before = _build.launch_counts[name]
+    got = uplink.masked_sum(x, slot, band, M, S, counts=counts)
+    assert _build.launch_counts[name] == before + 1
+    want = (ref.masked_sum_counts(x, slot, band, M, S) if counts
+            else ref.masked_sum(x, slot, band, M, S))
     torch.cuda.synchronize()
-    assert torch.equal(num, num_p) and torch.equal(cnt, cnt_p)
+    if not counts:
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert torch.equal(_bits(g), _bits(w))
 
 
-@pytest.mark.parametrize("kind,k,s", [("trimmed", 1, 3), ("median", 0, 3),
-                                      ("trimmed", 1, 4), ("median", 0, 4)])
-def test_robust_sum_kernel_matches_plain(dev, kind, k, s):
-    x, _, band, slot = _inputs(dev, 2)
-    x[0, ::7] = x[2, ::7]  # ties
-    x[0, ::101] = float("inf")
-    x[3, 50::101] = float("-inf")
-    x[4, 9::57] = float("nan")  # an owned NaN
+@pytest.mark.parametrize("kind", ["trimmed", "median"])
+@pytest.mark.parametrize("s,layout", [(s, layout) for s in (1, 3, 4, 8, 16)
+                                      for layout in _MS_LAYOUTS]
+                         + [(3, "ragged5"), (4, "ragged5")])
+def test_robust_sum_kernel_bitwise_at_its_edges(dev, s, layout, kind):
+    """n = s + 2 rows over m = s + 2 template columns (``ragged5``: the
+    earlier single-shape inputs at m = 4): a dropped and an idle row of
+    NaN, ties, +-inf, -0.0 and +0.0, an owned NaN, all-+inf columns; the
+    trimmed mean trims (s - 1) // 2 per side."""
+    k = (s - 1) // 2 if kind == "trimmed" else 0
+    m = M if layout == "ragged5" else s + 2
+    cols = np.random.default_rng(s).permutation(m)[:s].tolist()
+    slots = [cols[0], -1] + cols[1:] + [-1]
+    x, slot, band = _edge_inputs(dev, s + 2, layout, m, slots, 20 + s)
+    act = [i for i, v in enumerate(slot.tolist()) if 0 <= v < m]
+    x[act[-1], ::7] = x[act[0], ::7]  # ties
+    x[act[0], ::101] = float("inf")
+    x[act[-1], 50::101] = float("-inf")
+    x[act[-1], 9::57] = float("nan")  # an owned NaN
+    x[act[0], 3::29] = 0.0
+    x[act[-1], 3::29] = -0.0
+    x[act, 11::211] = float("inf")
     before = _build.launch_counts["robust_sum"]
-    bar, cnt = uplink.robust_sum(x, slot, band, M, s, kind=kind, k=k)
+    bar, cnt = uplink.robust_sum(x, slot, band, m, s, kind=kind, k=k)
     assert _build.launch_counts["robust_sum"] == before + 1
-    bar_p, cnt_p = ref.robust_sum(x, slot, band, M, s, kind, k)
+    bar_p, cnt_p = ref.robust_sum(x, slot, band, m, s, kind, k)
     torch.cuda.synchronize()
-    assert torch.equal(cnt, cnt_p)
-    assert _same(bar, bar_p)
+    assert torch.equal(_bits(cnt), _bits(cnt_p))
+    nan = bar.isnan()
+    assert torch.equal(nan, bar_p.isnan()) and bool(nan.any())
+    assert torch.equal(_bits(bar.masked_fill(nan, 0.0)),
+                       _bits(bar_p.masked_fill(nan, 0.0)))
+    assert bool(bar.isinf().any())
 
 
 @pytest.mark.parametrize("down", [None, [1, 0, 1, 0, 1]])
@@ -236,25 +303,6 @@ def test_masked_sum_dequant_kernel_matches_plain(dev, counts):
     for g, w in zip(got, want):
         assert _same(g, w)
     assert 0 < int(got[0].isnan().sum()) < 256
-
-
-@pytest.mark.parametrize("lane", [torch.float16, torch.bfloat16])
-@pytest.mark.parametrize("counts", [False, True])
-def test_narrow_lane_masked_sum_kernel_matches_plain(dev, lane, counts):
-    x, _, band, slot = _inputs(dev, 5)
-    xl = x.to(lane)
-    suffix = "_f16" if lane == torch.float16 else "_bf16"
-    name = ("masked_sum_counts" if counts else "masked_sum") + suffix
-    before = _build.launch_counts[name]
-    got = uplink.masked_sum(xl, slot, band, M, S, counts=counts)
-    assert _build.launch_counts[name] == before + 1
-    want = (ref.masked_sum_counts(xl, slot, band, M, S) if counts
-            else ref.masked_sum(xl, slot, band, M, S))
-    torch.cuda.synchronize()
-    if not counts:
-        got, want = (got,), (want,)
-    for g, w in zip(got, want):
-        assert torch.isfinite(g).all() and torch.equal(g, w)
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])
@@ -435,6 +483,49 @@ def test_wire_comm_step_makes_no_host_sync_on_the_card(dev, policy):
             x_bar = comm_ws.cyclic_comm(xw, hw, slot_t, band, c, s, 0.37,
                                         down=down_t, wire=plan,
                                         wire_seed=0xBEEF, wire_down=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        out[str(d)] = (x_bar.cpu(), xw.cpu(), hw.cpu())
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("step", ["f32", "survivor", "robust",
+                                  "robust_survivor"])
+def test_comm_step_makes_no_host_sync_on_the_card(dev, step):
+    """The f32, survivor and robust comm steps (``cyclic_comm`` without a
+    wire) with PyTorch's sync debugging set to raise: the wrappers read
+    nothing back from the card.  The step then agrees bitwise with the
+    CPU's."""
+    from repro_torch.dist import comm_ws
+
+    rng = np.random.default_rng(11)
+    dims = (300, 70001, 50, 3, 4096)
+    n, c, s = 5, 4, 3
+    x = rng.normal(size=(n, sum(dims))).astype(np.float32)
+    h = 0.01 * rng.normal(size=(n, sum(dims))).astype(np.float32)
+    x[4] = np.nan  # idle
+    slot = np.array([1, 0, 3, 2, -1], np.int32)
+    down = np.array([1, 1, 0, 1, 1], np.int32)
+    arrived = (np.array([True, True, False, True, True])
+               if step in ("survivor", "robust_survivor") else None)
+    if arrived is not None:
+        x[2] = np.nan  # the dropped row
+    robust = ("trimmed", 1) if step.startswith("robust") else None
+    out = {}
+    for d in ("cpu", dev):
+        band = comm_ws.cyclic_band(dims, c, s, d)
+        xw, hw = torch.tensor(x, device=d), torch.tensor(h, device=d)
+        slot_t = torch.from_numpy(slot).to(d)
+        down_t = torch.from_numpy(down).to(d)
+        arr_t = None if arrived is None else torch.from_numpy(arrived).to(d)
+        if d == dev:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            x_bar = comm_ws.cyclic_comm(xw, hw, slot_t, band, c, s, 0.37,
+                                        down=down_t, arrived=arr_t,
+                                        robust=robust)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         out[str(d)] = (x_bar.cpu(), xw.cpu(), hw.cpu())

@@ -5,7 +5,8 @@
   and attempts, quarantine included; the host fault resolver agrees for
   every policy;
 * the plain ``masked_sum(counts=True)`` and covered ``h_update`` against
-  the Pallas kernels in interpret mode on a ragged width (``cnt`` exact,
+  the Pallas kernels in interpret mode on a ragged width (the counts also
+  at n = 1, 5 and 9 rows with bands outside [0, m); ``cnt`` exact,
   ``num`` to 1e-6 relative since the rows may be added in another order;
   the covered update bitwise, uncovered coordinates byte-identical);
 * ``nonfinite_clients``/``corrupt_rows`` on the workspace against the
@@ -173,6 +174,33 @@ def test_masked_sum_counts_matches_pallas_interpret():
                                  torch.from_numpy(band), M, S, counts=True)
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_w))
     assert set(np.unique(cnt.numpy())) == {2.0, 3.0}
+    np.testing.assert_allclose(num.numpy(), np.asarray(num_w), rtol=1e-6,
+                               atol=1e-6)
+
+
+# dropped and idle rows of NaN; "outside": bands outside [0, m), negative
+# and >= m (the CUDA kernel's scalar path).  D % 4 != 0.
+_EDGE_SLOTS = {1: [1], 5: [2, -1, 0, 3, -1],
+               9: [2, -1, 0, 3, 1, -1, 3, -1, 0]}
+
+
+@pytest.mark.parametrize("bands", ["in_range", "outside"])
+@pytest.mark.parametrize("n", [1, 5, 9])
+def test_masked_sum_counts_matches_pallas_interpret_at_edges(n, bands):
+    slot = np.array(_EDGE_SLOTS[n], np.int32)
+    x, band = _inputs(n, D, M, n)
+    x[slot < 0] = np.nan
+    if bands == "outside":
+        band[::97] = -3
+        band[5::89] = M + 3
+        band[7::101] = -M - 1
+    num_w, cnt_w = juplink.masked_sum(
+        jnp.asarray(x), jnp.asarray(slot), jnp.asarray(band), M, S,
+        counts=True, interpret=True)
+    num, cnt = uplink.masked_sum(torch.from_numpy(x), torch.from_numpy(slot),
+                                 torch.from_numpy(band), M, S, counts=True)
+    np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_w))
+    assert np.isfinite(num.numpy()).all()
     np.testing.assert_allclose(num.numpy(), np.asarray(num_w), rtol=1e-6,
                                atol=1e-6)
 

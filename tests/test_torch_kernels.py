@@ -1,7 +1,8 @@
 """The port's kernel wrappers on CPU tensors (their plain PyTorch versions)
 against the reference's Pallas kernels in interpret mode, on the same
 seeded numpy inputs: a ragged width, an idle client (slot -1) whose row
-holds NaN, and the DownCom both to every row and to a row mask.
+holds NaN, and the DownCom both to every row and to a row mask;
+``masked_sum`` also at n = 1, 5 and 9 rows with bands outside [0, m).
 
 Tolerances: ``h_update`` and ``fused_local_step`` repeat the reference's
 arithmetic operation for operation, so they agree bitwise; ``masked_sum``
@@ -66,6 +67,33 @@ def test_masked_sum_matches_pallas_interpret():
         jnp.asarray(x), jnp.asarray(SLOT), jnp.asarray(band), M, S,
         interpret=True))
     got = uplink.masked_sum(torch.from_numpy(x), torch.from_numpy(SLOT),
+                            torch.from_numpy(band), M, S).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# n rows with idle and dropped rows of NaN; "outside": bands outside
+# [0, m), negative and >= m (the CUDA kernel's scalar path).  D % 4 != 0.
+_EDGE_SLOTS = {1: [1], 5: [2, -1, 0, 3, 1],
+               9: [2, -1, 0, 3, 1, -1, 3, 2, 0]}
+
+
+@pytest.mark.parametrize("bands", ["in_range", "outside"])
+@pytest.mark.parametrize("n", [1, 5, 9])
+def test_masked_sum_matches_pallas_interpret_at_edges(n, bands):
+    rng = np.random.default_rng(n)
+    slot = np.array(_EDGE_SLOTS[n], np.int32)
+    x = rng.normal(size=(n, D)).astype(np.float32)
+    x[slot < 0] = np.nan
+    band = rng.integers(0, M, size=(D,)).astype(np.int32)
+    if bands == "outside":
+        band[::97] = -3
+        band[5::89] = M + 3
+        band[7::101] = -M - 1
+    want = np.asarray(juplink.masked_sum(
+        jnp.asarray(x), jnp.asarray(slot), jnp.asarray(band), M, S,
+        interpret=True))
+    got = uplink.masked_sum(torch.from_numpy(x), torch.from_numpy(slot),
                             torch.from_numpy(band), M, S).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)

@@ -4,7 +4,9 @@
   reference's specs and raise where it raises;
 * the plain ``robust_sum`` against the Pallas kernel in interpret mode on a
   ragged width, trimmed (k=1) and median at s=3 and s=4, with tied owner
-  values, owned +inf and -inf payloads and NaN in dropped and idle rows:
+  values, owned +inf and -inf payloads and NaN in dropped and idle rows,
+  and at s = 1, 2, 8 and 16 with n = s + 2 rows, all-+inf columns, an
+  owned NaN and bands outside [0, m) (the CUDA kernel's scalar path):
   bitwise (both take the same order statistics, and the combine repeats
   the body's operations in order);
 * ``adversarial_rows`` (every mode), ``payload_norms`` and
@@ -74,29 +76,65 @@ def test_normalize_robust_matches_reference(kind, k, s):
 D, M = 3 * 4096 + 77, 4
 
 
-@pytest.mark.parametrize("kind,k,s", [("trimmed", 1, 3), ("trimmed", 1, 4),
-                                      ("median", 0, 3), ("median", 0, 4)])
-def test_robust_sum_matches_pallas_interpret_bitwise(kind, k, s):
-    rng = np.random.default_rng(s)
-    # rows 1 (dropped) and 5 (idle) own nothing and hold NaN
-    slot = np.array([2, -1, 0, 3, 1, -1], np.int32)
-    x = rng.normal(size=(len(slot), D)).astype(np.float32)
-    x[1] = x[5] = np.nan
-    x[2, ::7] = x[0, ::7]  # tied owner values: the tie rule
-    x[4, 3::11] = x[3, 3::11]
-    x[0, ::101] = np.inf
-    x[3, 50::101] = -np.inf
-    x[4, ::303] = np.inf
-    band = rng.integers(0, M, size=(D,)).astype(np.int32)
+def _robust_edge_inputs(s):
+    """n = s + 2 rows over m = s + 2 template columns, D % 4 != 0: s
+    active rows, row 1 dropped and the last row idle (both NaN); ties,
+    +-inf, an owned NaN, columns whose every entry is +inf, and bands
+    outside [0, m), both negative and >= m (the kernel's scalar path)."""
+    rng = np.random.default_rng(100 + s)
+    n = m = s + 2
+    cols = rng.permutation(m)[:s].tolist()
+    slot = np.array([cols[0], -1] + cols[1:] + [-1], np.int32)
+    x = rng.normal(size=(n, D)).astype(np.float32)
+    x[1] = x[-1] = np.nan
+    act = [i for i in range(n) if slot[i] >= 0]
+    x[act[-1], ::7] = x[act[0], ::7]  # tied owner values
+    x[act[0], ::101] = np.inf
+    x[act[-1], 50::101] = -np.inf
+    x[act[0], 9::157] = np.nan  # an owned NaN
+    x[np.ix_(act, np.arange(3, D, 211))] = np.inf
+    band = rng.integers(0, m, size=(D,)).astype(np.int32)
+    band[::97] = -3
+    band[5::89] = m + 3
+    band[7::101] = -m - 1
+    return x, slot, band, m
+
+
+@pytest.mark.parametrize("kind,k,s,edges", [
+    pytest.param("trimmed", 1, 3, False, id="trimmed-1-3"),
+    pytest.param("trimmed", 1, 4, False, id="trimmed-1-4"),
+    pytest.param("median", 0, 3, False, id="median-0-3"),
+    pytest.param("median", 0, 4, False, id="median-0-4"),
+    *[pytest.param(kind, k, s, True, id=f"edges-{kind}-{k}-{s}")
+      for s in (1, 2, 8, 16)
+      for kind, k in (("trimmed", (s - 1) // 2), ("median", 0))],
+])
+def test_robust_sum_matches_pallas_interpret_bitwise(kind, k, s, edges):
+    m = M
+    if edges:
+        x, slot, band, m = _robust_edge_inputs(s)
+    else:
+        rng = np.random.default_rng(s)
+        # rows 1 (dropped) and 5 (idle) own nothing and hold NaN
+        slot = np.array([2, -1, 0, 3, 1, -1], np.int32)
+        x = rng.normal(size=(len(slot), D)).astype(np.float32)
+        x[1] = x[5] = np.nan
+        x[2, ::7] = x[0, ::7]  # tied owner values: the tie rule
+        x[4, 3::11] = x[3, 3::11]
+        x[0, ::101] = np.inf
+        x[3, 50::101] = -np.inf
+        x[4, ::303] = np.inf
+        band = rng.integers(0, M, size=(D,)).astype(np.int32)
     bar_w, cnt_w = juplink.robust_sum(
-        jnp.asarray(x), jnp.asarray(slot), jnp.asarray(band), M, s,
+        jnp.asarray(x), jnp.asarray(slot), jnp.asarray(band), m, s,
         kind=kind, k=k, interpret=True)
     bar, cnt = uplink.robust_sum(torch.from_numpy(x), torch.from_numpy(slot),
-                                 torch.from_numpy(band), M, s, kind=kind,
+                                 torch.from_numpy(band), m, s, kind=kind,
                                  k=k)
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_w))
     bar_w = np.asarray(bar_w)
     assert np.isinf(bar.numpy()).any()
+    assert np.isnan(bar.numpy()).any() or not edges
     np.testing.assert_array_equal(np.isnan(bar.numpy()), np.isnan(bar_w))
     live = ~np.isnan(bar_w)
     assert bar.numpy()[live].tobytes() == bar_w[live].tobytes()

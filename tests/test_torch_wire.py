@@ -276,21 +276,31 @@ def test_masked_sum_dequant_matches_pallas_interpret_bitwise(counts, s,
 
 
 @pytest.mark.parametrize("lane", ["f16", "bf16"])
-@pytest.mark.parametrize("counts,s,slot", [
-    (False, 2, [2, -1, 0, 3, 1]),
-    (True, 3, [2, -1, 0, -1, 3, 1]),
+@pytest.mark.parametrize("counts,s,slot,outside", [
+    pytest.param(False, 2, [2, -1, 0, 3, 1], False, id="False-2-slot0"),
+    pytest.param(True, 3, [2, -1, 0, -1, 3, 1], False, id="True-3-slot1"),
+    # n = 1, 5 and 9 rows with bands outside [0, m), negative and >= m
+    # (the CUDA kernel's scalar path)
+    *[pytest.param(counts, s, slot, True,
+                   id=f"{counts}-{s}-n{len(slot)}-outside")
+      for counts, s in ((False, 2), (True, 3))
+      for slot in ([1], [2, -1, 0, 3, -1], [2, -1, 0, 3, 1, -1, 3, 2, 0])],
 ])
 def test_narrow_lane_masked_sum_matches_pallas_interpret_bitwise(
-        lane, counts, s, slot):
+        lane, counts, s, slot, outside):
     slot = np.asarray(slot, np.int32)
     rng = np.random.default_rng(1)
     x = rng.normal(size=(len(slot), DW)).astype(np.float32)
-    x[1] = np.nan
+    x[slot < 0] = np.nan
     xj = jnp.asarray(x).astype(jnp.float16 if lane == "f16"
                                else jnp.bfloat16)
     xt = wire.narrow(torch.from_numpy(x), lane)
     assert _bits_equal(xt.float().numpy()[0], xj.astype(jnp.float32)[0])
     band = rng.integers(0, MW, size=(DW,)).astype(np.int32)
+    if outside:
+        band[::97] = -3
+        band[5::89] = MW + 3
+        band[7::101] = -MW - 1
     want = juplink.masked_sum(xj, jnp.asarray(slot), jnp.asarray(band), MW,
                               s, counts=counts, interpret=True)
     got = uplink.masked_sum(xt, torch.from_numpy(slot),
