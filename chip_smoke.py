@@ -37,7 +37,8 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    the convex core's ``compress`` in f64 at the convex paths' shapes
    ``(100, 20958)`` and ``(1000, 20958)`` with their round-0 permutations
    (and the kernel body's own time there, from ``torch.profiler`` or a
-   replayed CUDA graph, without the wrapper's host time),
+   replayed CUDA graph, without the wrapper's host time, and that host
+   time per call),
    in f32 on the ``(4, d)`` workspace (slot ``[1, -1, 0, 2]``, c=3, s=2,
    an idle row of NaN), and in its 1-D form at ``(20958,)`` f64 and
    ``(d,)`` f32, each bitwise;
@@ -83,6 +84,21 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    measured Lyapunov rate, and must keep sum_i h_i = 0 (1e-10 of
    max|h|), end with a finite suboptimality below its start and launch
    ``compress_f64`` exactly twice per round and nothing else;
+   ``[convex_comm]`` the plain comm implementations
+                     (``comm_ws.cyclic_comm_leaves``, the reference's
+                     ``impl="ws"`` and ``impl="dense"``) on the same
+                     problem, c=100, s=2, f64 storage: 3 quorum rounds at
+                     p_fail 0.2 and one int8 ``wire_down`` round, each
+                     comm step's ws held against dense (equal values),
+                     against ws on the CPU (bitwise) and against the
+                     workspace kernel path on an f32 copy (2**-20); ms
+                     per comm step of each, peak memory, no launches;
+   ``[convex_bench]`` the reference's convex round-count benches
+                     (``benchmarks/faults_bench.py``, the convergence
+                     half of ``quant_comm_bench.py``) at their full size
+                     through ``repro_torch.launch.convex_bench``, every
+                     row beside the BENCH file's, gated on the benches'
+                     acceptance and no launches;
 7. holds ``decode_attention`` against its plain version on the card
    (bf16: 16-key K/V tiles through shared memory, logits and PV on the
    tensor cores; f32: one key per warp per step):
@@ -1132,9 +1148,18 @@ def check_compress_kernels(d_total, dev):
         # the kernel body's own time, without the wrapper's host time
         rec["kernel_ms"], rec["kernel_ms_by"] = kernel_only_ms(
             lambda: compress.compress(x, perm, c, s), "compress_kernel")
+        # the wrapper's host time: calls issued without a synchronisation
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            compress.compress(x, perm, c, s)
+        rec["host_ms"] = (time.perf_counter() - t0) / reps * 1e3
+        torch.cuda.synchronize()
         print(f"[check] compress_f64 {[c, d]}: kernel only "
               f"{rec['kernel_ms']:.4f} ms ({rec['kernel_ms_by']}), per call "
-              f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms")
+              f"{rec['ms']:.4f} ms, the wrapper's host time "
+              f"{rec['host_ms']:.4f} ms per call, bound "
+              f"{rec['bound_ms']:.4f} ms")
         if c == 100:
             recs["compress_f64"] = rec
             x1 = x[0].contiguous()
@@ -1144,7 +1169,8 @@ def check_compress_kernels(d_total, dev):
             recs["compress_f64"].update(
                 {f"full_{k}": rec[k] for k in ("shape", "max_abs_err", "ms",
                                                "plain_ms", "bound_ms",
-                                               "kernel_ms", "kernel_ms_by")})
+                                               "kernel_ms", "kernel_ms_by",
+                                               "host_ms")})
         del x
     x = torch.randn(N, d_total, generator=g, device=dev)
     x[1] = float("nan")  # the idle row never reaches the output
@@ -1238,6 +1264,212 @@ def run_convex_path(tag, prob, c: int, rounds: int) -> dict:
     del tr, state
     torch.cuda.empty_cache()
     return launches
+
+
+def same_values(a, b) -> bool:
+    """Equal values (a zero's sign aside), NaN where both are NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def run_convex_bench(dev) -> dict:
+    """``[convex_bench]``: the reference's convex round-count benches
+    (``benchmarks/faults_bench.py`` and the convergence half of
+    ``quant_comm_bench.py``) at their full size through
+    ``repro_torch.launch.convex_bench`` on the card, every row beside the
+    reference's ``BENCH_faults.json`` / ``BENCH_quant_comm.json`` value.
+    Gates: the benches' own acceptance (quorum within 2x the fault-free
+    rounds at p_fail 0.2, the wait-all control stalls, a bitwise replay,
+    the int8 floor within 10x of f32's) and no kernel launch (the plain
+    comm step).  Counts that differ from the BENCH files are printed, not
+    gated: the trajectories are the reference's to the last f32 bit only
+    where the f64 local steps round alike.  Returns the launch counts."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import convex_bench
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "BENCH_faults.json")) as f:
+        ref_f = json.load(f)
+    with open(os.path.join(here, "BENCH_quant_comm.json")) as f:
+        ref_q = json.load(f)["convergence"]
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    bench = convex_bench.ConvexBench.for_bench(False, dev)
+    t1 = time.perf_counter()
+    faults = convex_bench.run_faults(bench)
+    t2 = time.perf_counter()
+    quant = convex_bench.run_quant(bench)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(_build.launch_counts)
+    print(f"[convex_bench] n={bench.n} d={bench.d} c={bench.c} "
+          f"s={bench.cfg.s} L={bench.L} float64 on the card: set-up "
+          f"{t1 - t0:.3f} s, faults {t2 - t1:.3f} s, quant {t3 - t2:.3f} s")
+    differ = []
+
+    def show(tag, got, want, keys):
+        same = all(got[k] == want[k] for k in keys)
+        if not same:
+            differ.append(tag)
+        print(f"[convex_bench] {tag}: "
+              + ", ".join(f"{k} {got[k]} (BENCH {want[k]})" for k in keys)
+              + f"; final {got['final_suboptimality']:.6e} (BENCH "
+              f"{want['final_suboptimality']:.6e})"
+              + ("" if same else "  <- differs"))
+
+    for got, want in zip(faults["rows"], ref_f["rows"]):
+        show(f"faults p_fail={got['p_fail']} {got['policy']}", got, want,
+             ("rounds_to_target", "retries", "quorum_miss"))
+        print(f"[convex_bench]   x_fingerprint {got['x_fingerprint']} "
+              f"(BENCH {want['x_fingerprint']})")
+    for k in ("fault_free_rounds", "quorum_ratio_at_p02",
+              "wait_all_control_stalls_at_p02", "deterministic_replay_ok"):
+        print(f"[convex_bench] {k} {faults[k]} (BENCH {ref_f[k]})")
+    for got, want in zip(quant["rows"], ref_q["rows"]):
+        show(f"quant {got['kind']}", got, want,
+             ("rounds", "rounds_to_target"))
+        print(f"[convex_bench]   floor {got['floor']:.6e} (BENCH "
+              f"{want['floor']:.6e})")
+    print(f"[convex_bench] matched rounds {quant['matched_rounds']} (BENCH "
+          f"{ref_q['matched_rounds']}), floor_ratio_int8_vs_f32 "
+          f"{quant['floor_ratio_int8_vs_f32']:.4f} (BENCH "
+          f"{ref_q['floor_ratio_int8_vs_f32']:.4f}; the wire seeds are "
+          f"the port's stream, not the reference's threefry)")
+    print(f"[convex_bench] rows that differ from the BENCH files: "
+          f"{differ or 'none'}; launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    ratio = faults["quorum_ratio_at_p02"]
+    if not (ratio is not None and ratio <= 2.0
+            and faults["wait_all_control_stalls_at_p02"]
+            and faults["deterministic_replay_ok"]
+            and quant["floor_ratio_int8_vs_f32"] <= 10.0
+            and not any(launches.values())):
+        raise AssertionError(f"[convex_bench] acceptance failed: quorum "
+                             f"ratio {ratio}, {faults}, {quant}")
+    return launches
+
+
+def run_convex_comm(prob, dev) -> dict:
+    """``[convex_comm]``: the plain comm implementations at Fig. 3's paper
+    scale (n=1000, d=20958, c=100, s=2, f64 storage): 3 quorum rounds at
+    p_fail 0.2 and one int8 ``wire_down`` round of the convex bench's
+    driver.  Each comm step's ws output is held against dense on the card
+    (equal values, a zero's sign aside), against ws on the CPU on the same
+    inputs (bitwise) and against the workspace kernel path
+    (``comm_ws.cyclic_comm``) on an f32 copy (within 2**-20 of
+    max(1, |value|): the kernels add the owners in row order).  Prints ms
+    per comm step of each and the peak memory; returns the launch counts
+    of ws and dense (none)."""
+    from repro_torch.dist import comm_ws
+    from repro_torch.dist.cohort import CohortPlan
+    from repro_torch.dist.faults import FaultModel, FaultPlan
+    from repro_torch.kernels import _build
+    from repro_torch.launch import convex_bench as cb
+
+    c = 100
+    bench = cb.ConvexBench(prob, c)
+    n, d, s = bench.n, bench.d, bench.cfg.s
+    plan = CohortPlan(seed=7, n=n, c=c)
+    faults = FaultPlan(seed=3, n=n, model=FaultModel(p_drop=0.2))
+    band = comm_ws.cyclic_band([d], c, s, dev)
+    x_bar = torch.zeros(d, dtype=torch.float64, device=dev)
+    h = torch.zeros(n, d, dtype=torch.float64, device=dev)
+    ms = {"ws": [], "dense": [], "kernel": []}
+    plain_launches = {k: 0 for k in _build.launch_counts}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed(tag, fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        ms[tag].append(start.elapsed_time(end))
+        return out
+
+    for g in range(4):
+        if g < 3:  # the quorum rounds
+            cohort, arrived, attempt, _ = cb.resolve_round(
+                plan, faults, g, c // 2 + 1)
+            kw = dict(arrived=torch.from_numpy(arrived).to(dev))
+            kern_kw = dict(arrived=kw["arrived"])
+            desc = (f"quorum round {g}: attempt {attempt}, "
+                    f"{int(arrived.sum())} of {c} arrived")
+        else:  # the int8 wire_down round
+            cohort = plan.cohort(g)
+            attempt = 0
+            seed = cb.port_wire_seeds(g + 1)[g]
+            kw = dict(wire="int8", wire_seed=seed, wire_down=True)
+            kern_kw = dict(wire=comm_ws.wire_plan([d], "int8", c, s, band),
+                           wire_seed=seed, wire_down=True)
+            desc = "int8 wire_down round"
+        perm = cb.round_permutation(g, attempt, c)
+        cohort_t = torch.from_numpy(cohort.astype(np.int64)).to(dev)
+        slot = bench.slot_of(cohort, perm)
+        Xc = bench.local_steps(x_bar, h, cohort_t)
+        X = x_bar.expand(n, d).clone()
+        X[cohort_t] = Xc
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        ws = timed("ws", lambda: comm_ws.cyclic_comm_leaves(
+            X, h, slot, c, s, bench.scale, impl="ws", **kw))
+        dense = timed("dense", lambda: comm_ws.cyclic_comm_leaves(
+            X, h, slot, c, s, bench.scale, impl="dense", **kw))
+        for k, v in _build.launch_counts.items():
+            plain_launches[k] += v
+        with intra_op_threads(REDUCED_CPU_THREADS):
+            cpu = comm_ws.cyclic_comm_leaves(
+                X.cpu(), h.cpu(), slot.cpu(), c, s, bench.scale, impl="ws",
+                **{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                   for k, v in kw.items()})
+        xw, hw = X.float(), h.float()
+        timed("kernel", lambda: comm_ws.cyclic_comm(
+            xw, hw, slot.to(torch.int32), band, c, s, bench.scale,
+            **kern_kw))
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, b_dense, b_cpu, b_kern in (
+                ("x", ws[0], dense[0], cpu[0], xw),
+                ("h", ws[1], dense[1], cpu[1], hw)):
+            if not same_values(a, b_dense):
+                raise AssertionError(f"[convex_comm] {desc}: ws and dense "
+                                     f"differ in {name}")
+            if not torch.equal(a.cpu().view(torch.int64),
+                               b_cpu.view(torch.int64)):
+                raise AssertionError(f"[convex_comm] {desc}: ws on the "
+                                     f"card and the CPU differ in {name}")
+            errs[name] = max_abs_err(a.float(), b_kern)
+            tol = 2.0 ** -20 * max(1.0, float(a.abs().max()))
+            if not errs[name] <= tol:
+                raise AssertionError(f"[convex_comm] {desc}: ws and the "
+                                     f"kernel path differ in {name} by "
+                                     f"{errs[name]} > {tol}")
+        x_bar = bench.server_model(ws[0], cohort)
+        h = ws[1]
+        print(f"[convex_comm] {desc}: ws vs dense equal, ws card vs CPU "
+              f"bitwise, ws vs the kernel path max abs err x "
+              f"{errs['x']:.3e} h {errs['h']:.3e}; ms ws "
+              f"{ms['ws'][-1]:.3f} dense {ms['dense'][-1]:.3f} kernel "
+              f"{ms['kernel'][-1]:.3f}; suboptimality "
+              f"{bench.suboptimality(x_bar):.6e}")
+        del ws, dense, cpu, xw, hw, X, Xc
+    peak = torch.cuda.max_memory_allocated()
+    # the first step of each includes its warm-up
+    mean = {k: sum(v[1:3]) / 2 for k, v in ms.items()}
+    print(f"[convex_comm] n={n} d={d} c={c} s={s} f64 storage: ms per "
+          f"comm step (quorum rounds 1-2) ws {mean['ws']:.3f}, dense "
+          f"{mean['dense']:.3f}, kernel path (f32 workspace) "
+          f"{mean['kernel']:.3f}; int8 wire_down round ws "
+          f"{ms['ws'][3]:.3f}, dense {ms['dense'][3]:.3f}, kernel path "
+          f"{ms['kernel'][3]:.3f}; max_memory_allocated {peak} B "
+          f"({peak / 2**30:.3f} GiB)")
+    if any(plain_launches.values()):
+        raise AssertionError(f"[convex_comm] the plain implementations "
+                             f"launched kernels: {plain_launches}")
+    torch.cuda.empty_cache()
+    return plain_launches
 
 
 def h_sum_ratio(h, d: int) -> float:
@@ -1752,8 +1984,10 @@ def main(argv=None) -> int:
                                         CONVEX_ROUNDS["convex"])
     by_path["convex_full"] = run_convex_path("convex_full", prob, 1000,
                                              CONVEX_ROUNDS["convex_full"])
+    by_path["convex_comm"] = run_convex_comm(prob, dev)
     del prob
     torch.cuda.empty_cache()
+    by_path["convex_bench"] = run_convex_bench(dev)
 
     recs += check_decode_kernels(dev)
     torch.cuda.empty_cache()

@@ -23,15 +23,28 @@ DownCom never read wire values.
 The cyclic band ``(-s k_leaf) mod c`` restarts at every leaf, so the leaf
 order and the stacked ``(n_layers, ...)`` block leaves decide which client
 owns which coordinate.
+
+``cyclic_comm_leaves`` is the reference's two plain implementations,
+``impl="ws"`` (the sparse UpCom: ``s`` owner-row gathers per leaf, then one
+fused h update and DownCom) and ``impl="dense"`` (the materialized
+``(n, D)`` ownership mask, the reference's ground truth), over
+client-stacked leaves in any float storage type.  Like the reference they
+compute the comm step in f32 whatever the storage type and return new
+leaves in it: x and h leave the step as (for f64 storage) f64 tensors
+holding f32 values.  They are plain PyTorch by design: the reference keeps
+them as jnp, with no Pallas kernel.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+import functools
+from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
+from repro_torch.core import masks
 from repro_torch.dist import wire as wire_mod
 from repro_torch.kernels import compress, ref, uplink, wire_pack
 
@@ -256,7 +269,9 @@ def cyclic_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
     from the raw rows (idle rows included: ownership selects) and the
     survivor rebuild and the robust combine run after dequantization.
     ``wire_down`` also quantizes ``x_bar`` before the DownCom.  ``wire=None``
-    is the f32 path.  The reference's kernel path, ``comm_ws._pallas_comm``."""
+    is the f32 path.  The reference's ``cyclic_comm(impl="pallas")``, its
+    kernel path ``comm_ws._pallas_comm``; ``cyclic_comm_leaves`` is its
+    ``impl="ws"`` and ``impl="dense"``."""
     survivor = arrived is not None and correct
     if arrived is not None:
         slot = torch.where(arrived.to(slot.device), slot, -1).to(torch.int32)
@@ -300,3 +315,293 @@ def cyclic_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
     uplink.h_update(xw, hw, x_bar, slot, band, c, s, scale, down=down,
                     covered=covered)
     return x_bar
+
+
+# --------------------------------------------------------------------------
+# the plain implementations: impl="ws" and impl="dense"
+# --------------------------------------------------------------------------
+
+COMM_IMPLS = ("ws", "dense")
+
+Leaves = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+@functools.lru_cache(maxsize=None)
+def _cyclic_leaf_tables_np(D: int, c: int, s: int):
+    """(owner-column table (s, D), band (D,), tall?) for one leaf
+    (``comm_ws._cyclic_leaf_tables_np``).
+
+    cols[t, k] = the t-th template column owning coordinate k: the cyclic
+    band ``(s k + t) mod c`` when ``D s >= c`` (paper Fig. 1 left), else
+    the tall-and-thin columns ``k + t D`` (all < D s <= c; columns past
+    ``D s`` own nothing).  band[k] = (s k) mod c drives the ownership
+    predicate of the cyclic regime."""
+    k = np.arange(D, dtype=np.int64)
+    tall = D * s < c
+    if tall:
+        cols = np.stack([k + t * D for t in range(s)])
+    else:
+        cols = np.stack([(s * k + t) % c for t in range(s)])
+    band = ((s * k) % c).astype(np.int32)
+    return cols.astype(np.int32), band, tall
+
+
+def _wrapped_lt(diff: torch.Tensor, m: int, s: int) -> torch.Tensor:
+    """``diff mod m < s`` for ``diff in (-m, m)`` as two compares."""
+    return ((diff >= 0) & (diff < s)) | (diff < s - m)
+
+
+def _wrapped_owned(slot2: torch.Tensor, band: torch.Tensor, m: int,
+                   s: int) -> torch.Tensor:
+    """Kernel-convention ownership ``(slot + band) mod m < s`` as two
+    compares, idle rows (``slot < 0``) excluded.  ``slot2`` broadcasts
+    against ``band``; both in ``[0, m)``."""
+    sb = slot2 + band
+    return (slot2 >= 0) & (slot2 < m) & (
+        (sb < s) | ((sb >= m) & (sb < m + s)))
+
+
+def _downcom(xl: torch.Tensor, x_bar: torch.Tensor,
+             down: Optional[torch.Tensor],
+             covered: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """DownCom of one leaf: ``down`` rows (all when None) receive ``x_bar``
+    in storage dtype; every other row keeps its ``x`` bit-exactly.
+    ``covered`` additionally gates per coordinate: columns with no arrived
+    owner keep their ``x`` bit-exactly."""
+    n, D = xl.shape[0], x_bar.shape[0]
+    bar = x_bar.to(xl.dtype)[None]
+    x2 = xl.reshape(n, D)
+    if covered is None:
+        if down is None:
+            return bar.expand(n, D).clone().reshape(xl.shape)
+        return torch.where(down[:, None], bar, x2).reshape(xl.shape)
+    gate = covered[None, :] if down is None else (down[:, None]
+                                                  & covered[None, :])
+    return torch.where(gate, bar, x2).reshape(xl.shape)
+
+
+def _finish_leaf(xl, hl, xf, x_bar, owned, scale, down=None, covered=None):
+    """The h update and DownCom of one leaf: ``h + scale (x_bar - x)`` in
+    f32 where ``owned``, cast back to h's storage dtype; ``covered`` gates
+    the DownCom per coordinate (the h update needs no gate: an uncovered
+    coordinate has no arrived owner, so ``owned`` is false there)."""
+    n, D = xf.shape
+    zero = torch.zeros((), dtype=torch.float32, device=xf.device)
+    h_new = hl.reshape(n, D).to(torch.float32) + scale * torch.where(
+        owned, x_bar[None] - xf, zero)
+    return (_downcom(xl, x_bar, down, covered),
+            h_new.to(hl.dtype).reshape(hl.shape))
+
+
+def _survivor_bar(num: torch.Tensor, cnt: torch.Tensor):
+    """``x_bar = num / max(cnt, 1)`` and the covered mask: the per-
+    coordinate 1/(arrived owner count) rebuild."""
+    return num / cnt.clamp(min=1.0), cnt > 0
+
+
+def _leaf_quant(kind: str, seed: int, li: int, D: int):
+    """Quantize-dequantize one leaf's ``(rows, D)`` f32 payload at ``kind``
+    (None for the f32 wire), keyed on the round seed folded with the leaf
+    index, the row and the leaf coordinate (``comm_ws._leaf_quant``)."""
+    if kind == "f32":
+        return None
+    sl = wire_mod.fold_seed(seed, li)
+
+    def quant(xf):
+        rid = torch.arange(xf.shape[0], dtype=torch.int64,
+                           device=xf.device)[:, None]
+        kk = torch.arange(D, dtype=torch.int64, device=xf.device)
+        return wire_mod.quantize(xf, kind, sl, rid, kk)
+
+    return quant
+
+
+def _down_quant(kind: str, seed: int, li: int, D: int):
+    """The DownCom quantizer of one leaf: one shared quantization of
+    ``x_bar`` keyed on the pseudo row ``wire.DOWN_ROW``
+    (``comm_ws._down_quant``)."""
+    if kind == "f32":
+        return None
+    sl = wire_mod.fold_seed(seed, li)
+
+    def quant(xb):
+        kk = torch.arange(D, dtype=torch.int64, device=xb.device)
+        return wire_mod.quantize(xb[None, :], kind, sl, wire_mod.DOWN_ROW,
+                                 kk)[0]
+
+    return quant
+
+
+def _dense_cyclic_leaf(xl, hl, slot, c: int, s: int, scale, down=None,
+                       sanitize=False, survivor=False, quant=None,
+                       down_quant=None):
+    """One leaf of the reference's dense comm step
+    (``comm_ws._dense_cyclic_leaf``): the ``(n, D)`` ownership mask from
+    ``masks.mask_from_permutation`` (both template regimes), the masked
+    sum over every row, the ``1/s`` (or survivor) rebuild, the masked h
+    update and the DownCom.  ``sanitize`` zeroes idle rows first (the mask
+    multiplies: ``NaN * 0`` is NaN); ``quant`` quantizes the UpCom payload
+    after it, ``down_quant`` the rebuilt broadcast."""
+    n = xl.shape[0]
+    D = xl[0].numel()
+    sl = slot[:, None]
+    q = masks.mask_from_permutation(
+        torch.arange(c, dtype=torch.int32, device=xl.device), D, c,
+        s).to(torch.bool)  # (D, c) template
+    qf = (q.T[slot.clamp(0, c - 1)] & (sl >= 0)
+          & (sl < c)).to(torch.float32)
+    xf = xl.reshape(n, D).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=xl.device)
+    if sanitize:
+        xf = torch.where(sl >= 0, xf, zero)
+    xq = xf if quant is None else quant(xf)
+    if survivor:
+        x_bar, covered = _survivor_bar((xq * qf).sum(dim=0), qf.sum(dim=0))
+    else:
+        x_bar, covered = ref._div((xq * qf).sum(dim=0), s), None
+    if down_quant is not None:
+        x_bar = down_quant(x_bar)
+    h_new = hl.reshape(n, D).to(torch.float32) + scale * qf * (
+        x_bar[None] - xf)
+    return (_downcom(xl, x_bar, down, covered),
+            h_new.to(hl.dtype).reshape(hl.shape))
+
+
+def _ws_cyclic_leaf(xl, hl, slot, client_of, col_ok, c: int, s: int,
+                    scale, down=None, survivor=False, quant=None,
+                    down_quant=None):
+    """One leaf of the reference's sparse comm step (``impl="ws"``,
+    ``meshed=False``): ``s`` owner-row gathers per coordinate through
+    ``client_of`` (the round's column-to-row table), summed in owner order
+    from +0, the ``1/s`` (or survivor) rebuild, then ``_finish_leaf``.
+    ``col_ok`` (faulted rounds) gates the columns whose owner did not
+    arrive."""
+    n = xl.shape[0]
+    D = xl[0].numel()
+    dev = xl.device
+    cols, band, tall = _cyclic_leaf_tables_np(D, c, s)
+    xf = xl.reshape(n, D).to(torch.float32)
+    xq = xf if quant is None else quant(xf)
+    sl = slot[:, None]
+    if tall:
+        kj = torch.arange(D, dtype=torch.int64, device=dev)[None, :]
+        owned = (sl < D * s) & (torch.remainder(sl, D) == kj)
+    else:
+        owned = _wrapped_lt(sl - torch.from_numpy(band).to(dev)[None, :],
+                            c, s)
+    owned = owned & (sl >= 0)
+    cols_t = torch.from_numpy(cols).to(dev, torch.int64)
+    vals = xq.gather(0, client_of[cols_t])  # (s, D) owner rows' payloads
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    if col_ok is not None:
+        ok = col_ok[cols_t]
+        vals = torch.where(ok, vals, zero)
+    num = torch.zeros(D, dtype=torch.float32, device=dev)
+    for t in range(s):
+        num = num + vals[t]
+    if survivor:
+        x_bar, cov = _survivor_bar(num, ok.to(torch.float32).sum(dim=0))
+    else:
+        x_bar, cov = ref._div(num, s), None
+    if down_quant is not None:
+        x_bar = down_quant(x_bar)
+    return _finish_leaf(xl, hl, xf, x_bar, owned, scale, down, cov)
+
+
+def _leaf_items(leaves: Leaves):
+    """``[(name, tensor)]`` in the reference's leaf order: a tensor is one
+    leaf; a dict's leaves go in sorted key order, as ``jax.tree`` flattens
+    a dict."""
+    if isinstance(leaves, torch.Tensor):
+        return [(None, leaves)]
+    return [(k, leaves[k]) for k in sorted(leaves)]
+
+
+def cyclic_comm_leaves(x: Leaves, h: Leaves, slot: torch.Tensor, c: int,
+                       s: int, scale: float, impl: str = "ws", *,
+                       down: Optional[torch.Tensor] = None,
+                       arrived: Optional[torch.Tensor] = None,
+                       correct: bool = True,
+                       wire: Optional[str] = None,
+                       wire_seed: int = 0,
+                       wire_down: bool = False,
+                       robust=None) -> Tuple[Leaves, Leaves]:
+    """The reference's ``comm_ws.cyclic_comm(impl="ws"|"dense",
+    meshed=False)`` over client-stacked leaves: UpCom, control-variate
+    update and DownCom of the cyclic template; returns new ``(x, h)`` of
+    the same structure, shapes and storage types.
+
+    ``x`` and ``h`` are an ``(n, ...)`` tensor or a dict of them (leaves
+    in sorted key order, the reference's order, which keys each leaf's
+    wire draw).  ``slot`` ``(n,)`` int is each client's template column,
+    -1 when idle; ``scale`` is ``eta / gamma``.  The step runs in f32
+    whatever the storage type.
+
+    ``down`` ``(n,)`` bool: the DownCom rows (``None``: every row).
+    ``arrived`` ``(n,)`` bool demotes the rows that did not arrive to idle;
+    with ``correct`` the rebuild divides by the per-coordinate count of
+    arrived owners and coordinates no arrived row owns keep x and h
+    untouched; without it the ``1/s`` rebuild stays (the wait-all
+    control).  ``wire`` (a ``wire.WIRE_POLICIES`` policy) quantizes the
+    UpCom payload with the round's uint32 ``wire_seed``; ``wire_down`` also
+    quantizes ``x_bar`` before the DownCom.
+
+    ``impl="ws"`` gathers the ``s`` owner rows of every coordinate
+    (``O(s D)`` reads); ``impl="dense"`` materializes the ``(n, D)`` mask,
+    the reference's ground truth.  The two agree bitwise at ``s = 2`` but
+    for the sign of zeros, and to f32 reassociation at ``s >= 3``."""
+    if impl not in COMM_IMPLS:
+        raise ValueError(f"unknown comm impl {impl!r}; want one of "
+                         f"{COMM_IMPLS} (the kernel path is cyclic_comm)")
+    if robust is not None:
+        raise NotImplementedError(
+            "robust= of the plain comm implementations is not ported yet "
+            "(ROADMAP.md A2: robust_combine_stack); cyclic_comm runs the "
+            "robust combiners on the workspace")
+    xs, hs = _leaf_items(x), _leaf_items(h)
+    if [k for k, _ in xs] != [k for k, _ in hs]:
+        raise ValueError("x and h must have the same leaves")
+    n = xs[0][1].shape[0]
+    dev = xs[0][1].device
+    slot = slot.to(device=dev, dtype=torch.int64)
+    faulted = arrived is not None
+    survivor = faulted and correct
+    if faulted:
+        slot = torch.where(arrived.to(device=dev, dtype=torch.bool), slot,
+                           -1)
+    if down is not None:
+        down = down.to(device=dev, dtype=torch.bool)
+    policy = wire if wire_mod.is_wire(wire) else None
+    seed = int(wire_seed) & 0xFFFFFFFF
+    wdown = bool(wire_down) and policy is not None
+    client_of = col_ok = None
+    if impl == "ws":
+        # column -> client row of this round; idle rows write to the
+        # dropped overflow cell, and a column nobody holds reads row 0
+        # (col_ok gates those on faulted rounds)
+        valid = (slot >= 0) & (slot < c)
+        cell = torch.where(valid, slot, c)
+        client_of = torch.zeros(c + 1, dtype=torch.int64, device=dev)
+        client_of[cell] = torch.arange(n, dtype=torch.int64, device=dev)
+        client_of = client_of[:c]
+        if faulted:
+            col_ok = torch.zeros(c + 1, dtype=torch.bool, device=dev)
+            col_ok[cell] = True
+            col_ok = col_ok[:c]
+    out_x, out_h = {}, {}
+    for i, ((name, xl), (_, hl)) in enumerate(zip(xs, hs)):
+        D = xl[0].numel()
+        kind = wire_mod.resolve_kind(D, policy)
+        quant = _leaf_quant(kind, seed, i, D)
+        down_quant = _down_quant(kind, seed, i, D) if wdown else None
+        if impl == "ws":
+            out_x[name], out_h[name] = _ws_cyclic_leaf(
+                xl, hl, slot, client_of, col_ok, c, s, scale, down,
+                survivor, quant, down_quant)
+        else:
+            out_x[name], out_h[name] = _dense_cyclic_leaf(
+                xl, hl, slot, c, s, scale, down, sanitize=faulted,
+                survivor=survivor, quant=quant, down_quant=down_quant)
+    if isinstance(x, torch.Tensor):
+        return out_x[None], out_h[None]
+    return out_x, out_h

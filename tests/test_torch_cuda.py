@@ -593,6 +593,35 @@ def test_compress_kernel_matches_plain(dev, dtype, rank):
     assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", [
+    # (n, d, c, s, storage offset in elements, slots)
+    (5, 3 * 4096 + 77, 7, 3, 1, [0, 3, 6, 7, -1]),  # d % 4 != 0, off grid
+    (3, 1023, 5, 2, 3, [4, 0, 2]),        # every row's start off the grid
+    (4, 5, 9, 2, 0, [0, 8, 3, -2]),       # c > d
+    (4, 2049, 6, 6, 1, [5, 0, 9, -1]),    # s = c
+    (3, 4096, 4, 2, 0, [-5, 4, 100]),     # every slot outside [0, c)
+    (1, 20958, 100, 2, 1, [37]),          # n = 1, off grid
+])
+def test_compress_kernel_bitwise_at_its_edges(dev, dtype, case):
+    from repro_torch.kernels import compress
+
+    n, d, c, s, off, slots = case
+    g = torch.Generator(device=dev).manual_seed(n * d + c)
+    buf = torch.randn(n * d + off, generator=g, device=dev, dtype=dtype)
+    buf[::5] = float("nan")  # unowned NaN and inf must not leak
+    buf[2::7] = float("inf")
+    buf[3::11] = -0.0
+    x = buf[off:].view(n, d)  # contiguous, starting off the 16-byte grid
+    slot = torch.tensor(slots, dtype=torch.int32, device=dev)
+    for xs, sl in ((x, slot), (x[0], slot[:1])):  # both ranks
+        got = compress.compress(xs, sl, c, s)
+        want = ref.compress(xs, sl, c, s)
+        torch.cuda.synchronize()
+        bits = torch.int64 if dtype == torch.float64 else torch.int32
+        assert torch.equal(got.view(bits), want.view(bits))
+
+
 def test_convex_rounds_on_the_card_match_the_cpu(dev):
     from repro_torch.core import problems, tamuna
 

@@ -39,7 +39,8 @@ assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack",
         "repro_torch.core.masks", "repro_torch.core.compression",
         "repro_torch.core.problems", "repro_torch.core.tamuna",
         "repro_torch.core.theory", "repro_torch.kernels.decode_attn",
-        "repro_torch.serve_utils", "repro_torch.launch.serve"} <= set(names)
+        "repro_torch.serve_utils", "repro_torch.launch.serve",
+        "repro_torch.launch.convex_bench"} <= set(names)
 print(len(names), bad)
 """
     proc = _run(["-c", code])
