@@ -49,10 +49,10 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    mean, and an int8 ``wire_down`` round with a dropped member and the
    trimmed mean whose comm step runs on both devices from the same
    trained state and must agree bitwise;
-5. drives five paths of ``repro_torch.dist.rounds.run_rounds``, each for
-   3 rounds of 2-layer full-width gemma2-2b (seq 128, 2 sequences per
-   client, max_L 4) with the launch counts set to 0 just before and read
-   just after:
+5. drives six paths of ``repro_torch.dist.rounds.run_rounds``, each for
+   3 rounds (4 on ``[reputation]``) of 2-layer full-width gemma2-2b (seq
+   128, 2 sequences per client, max_L 4) with the launch counts set to 0
+   just before and read just after:
    ``[train]``  the fault-free round, n=4 clients, cohort c=3, s=2;
    ``[faults]`` the survivor round, n=5, c=4, s=3, a ``CohortPlan``,
                 25% uplink drops and 20% NaN payloads, quorum policy,
@@ -60,6 +60,13 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    ``[robust]`` the robust round, n=5, c=4, s=3, 20% drops, one
                 sign-flipping Byzantine client, quorum, trimmed mean k=1
                 behind the adaptive payload guard;
+   ``[reputation]`` the robust round with the anomaly reputation, n=5,
+                c=4, s=3, a ``CohortPlan``, one sign-flipping client,
+                quorum, trimmed mean k=1, ``reputation=True``: prints each
+                round's ``anomaly_max``, the quarantine windows and
+                ``anomaly_scores``' own time on a full-width workspace;
+                gated on the flipped client's quarantine once it arrived
+                unguarded and no honest client's;
    ``[wire]``   the quantized wire, n=4, c=3, s=2, ``auto`` (the norm
                 leaves as f16 lanes, the rest int8 codes) with the DownCom
                 quantized too; prints the per-client wire bytes;
@@ -88,17 +95,30 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
                      (``comm_ws.cyclic_comm_leaves``, the reference's
                      ``impl="ws"`` and ``impl="dense"``) on the same
                      problem, c=100, s=2, f64 storage: 3 quorum rounds at
-                     p_fail 0.2 and one int8 ``wire_down`` round, each
+                     p_fail 0.2, one int8 ``wire_down`` round and a
+                     quorum round with the median combiner, each
                      comm step's ws held against dense (equal values),
                      against ws on the CPU (bitwise) and against the
                      workspace kernel path on an f32 copy (2**-20); ms
-                     per comm step of each, peak memory, no launches;
+                     per comm step of each, peak memory, no launches
+                     (the kernel path's median launches ``robust_sum``);
+   ``[baselines]``   paper Fig. 3 at paper scale through
+                     ``repro_torch.launch.paper_bench``: Scaffold (2000
+                     rounds) at both participations and Scaffnew (12,000
+                     iterations) at full participation beside the TAMUNA
+                     traces of ``[convex]`` and ``[convex_full]``, each
+                     algorithm's floats to 1e-6 of the initial gap at
+                     alpha 0 and 0.1; gated on finite, falling
+                     suboptimalities and no launches;
    ``[convex_bench]`` the reference's convex round-count benches
                      (``benchmarks/faults_bench.py``, the convergence
-                     half of ``quant_comm_bench.py``) at their full size
-                     through ``repro_torch.launch.convex_bench``, every
-                     row beside the BENCH file's, gated on the benches'
-                     acceptance and no launches;
+                     half of ``quant_comm_bench.py``, and
+                     ``robust_bench.py``) at their full size through
+                     ``repro_torch.launch.convex_bench``, every row beside
+                     the BENCH file's, gated on the benches' acceptance
+                     (the robust comm step's overhead printed, not gated)
+                     and no launches but the robust bench's kernel-path
+                     timing;
 7. holds ``decode_attention`` against its plain version on the card
    (bf16: 16-key K/V tiles through shared memory, logits and PV on the
    tensor cores; f32: one key per warp per step):
@@ -1203,12 +1223,14 @@ def check_convex_card_vs_cpu(prob, cfg, rounds: int = 5) -> None:
         raise AssertionError(f"[convex] card vs CPU: {errs}")
 
 
-def run_convex_path(tag, prob, c: int, rounds: int) -> dict:
+def run_convex_path(tag, prob, c: int, rounds: int):
     """Drive ``tamuna.run`` for ``rounds`` rounds of the paper-scale
-    problem at cohort ``c`` with the launch counts set to 0 just before and
-    read just after; gates (b) sum_i h_i = 0 to 1e-10 of max|h|, (c) a
-    finite suboptimality that ends below where it started and (d) two
-    ``compress_f64`` launches per round.  Returns the launch counts."""
+    problem at cohort ``c`` (records every 10 rounds, as Fig. 3's) with
+    the launch counts set to 0 just before and read just after; gates (b)
+    sum_i h_i = 0 to 1e-10 of max|h|, (c) a finite suboptimality that
+    ends below where it started and (d) two ``compress_f64`` launches per
+    round.  Returns the launch counts and the trace (without its
+    state)."""
     from repro_torch.core import tamuna, theory
     from repro_torch.kernels import _build
 
@@ -1221,23 +1243,25 @@ def run_convex_path(tag, prob, c: int, rounds: int) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
-    tr = tamuna.run(prob, cfg, rounds, seed=0,
-                    record_every=max(1, rounds // 8))
+    tr = tamuna.run(prob, cfg, rounds, seed=0, record_every=10)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     state = tr["state"]
+    shown = set(range(0, len(tr["rounds"]), max(1, len(tr["rounds"]) // 8)))
     for i, r in enumerate(tr["rounds"]):
+        if i not in shown | {len(tr["rounds"]) - 1}:
+            continue
         print(f"[{tag}] round {r}: local steps {tr['local_steps'][i]} "
               f"suboptimality {tr['suboptimality'][i]:.6e} lyapunov "
               f"{tr['lyapunov'][i]:.6e} at {tr['seconds'][i]:.3f} s")
     steps = state.total_local_steps
     print(f"[{tag}] {rounds} rounds, {steps} local steps in {wall:.3f} s: "
           f"{wall / rounds * 1e3:.4f} ms per round, "
-          f"{wall / steps * 1e3:.4f} ms per local step (record points "
-          f"included); up_floats {state.up_floats:.0f} down_floats "
-          f"{state.down_floats:.0f} per client")
+          f"{wall / steps * 1e3:.4f} ms per local step ({len(tr['rounds'])}"
+          f" record points included); up_floats {state.up_floats:.0f} "
+          f"down_floats {state.down_floats:.0f} per client")
     print(f"[{tag}] launches {({k: v for k, v in launches.items() if v})}")
     print(f"[{tag}] max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB)")
     chi = cfg.eta / cfg.p
@@ -1261,9 +1285,9 @@ def run_convex_path(tag, prob, c: int, rounds: int) -> dict:
     if launches["compress_f64"] != 2 * rounds or others:
         raise AssertionError(f"[{tag}] want 2 compress_f64 launches per "
                              f"round and nothing else: {launches}")
-    del tr, state
+    del tr["state"], state
     torch.cuda.empty_cache()
-    return launches
+    return launches, tr
 
 
 def same_values(a, b) -> bool:
@@ -1280,9 +1304,18 @@ def run_convex_bench(dev) -> dict:
     Gates: the benches' own acceptance (quorum within 2x the fault-free
     rounds at p_fail 0.2, the wait-all control stalls, a bitwise replay,
     the int8 floor within 10x of f32's) and no kernel launch (the plain
-    comm step).  Counts that differ from the BENCH files are printed, not
-    gated: the trajectories are the reference's to the last f32 bit only
-    where the f64 local steps round alike.  Returns the launch counts."""
+    comm step).  Then ``benchmarks/robust_bench.py`` (16 clients, c = s =
+    12, a Byzantine quarter) through ``convex_bench.run_robust``, every row
+    beside ``BENCH_robust.json``'s, gated on its acceptance but the
+    overhead (both robust aggregators within 2x the fault-free rounds, both
+    mean controls stall, the replay and the identity bitwise, the int8
+    deviation at most 0.25), its drivers launching nothing (only its
+    kernel-path timing and identity check launch ``masked_sum``,
+    ``robust_sum`` and ``h_update``); prints the robust comm step's cost
+    over the mean's at (16, 65536), s = 4, ws and kernel path.  Counts
+    that differ from the BENCH files are printed, not gated: the
+    trajectories are the reference's to the last f32 bit only where the
+    f64 local steps round alike.  Returns the launch counts."""
     from repro_torch.kernels import _build
     from repro_torch.launch import convex_bench
 
@@ -1291,6 +1324,8 @@ def run_convex_bench(dev) -> dict:
         ref_f = json.load(f)
     with open(os.path.join(here, "BENCH_quant_comm.json")) as f:
         ref_q = json.load(f)["convergence"]
+    with open(os.path.join(here, "BENCH_robust.json")) as f:
+        ref_r = json.load(f)
     torch.cuda.synchronize()
     _build.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1346,16 +1381,64 @@ def run_convex_bench(dev) -> dict:
             and not any(launches.values())):
         raise AssertionError(f"[convex_bench] acceptance failed: quorum "
                              f"ratio {ratio}, {faults}, {quant}")
+
+    _build.reset_launch_counts()
+    t4 = time.perf_counter()
+    rob = convex_bench.run_robust(bench)
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    rob_launches = {k: v for k, v in _build.launch_counts.items() if v}
+    cfg_r = rob["config"]
+    print(f"[convex_bench] robust n={cfg_r['n']} d={cfg_r['d']} c="
+          f"{cfg_r['c']} s={cfg_r['s']} trim_k={cfg_r['trim_k']} L="
+          f"{cfg_r['L']} byzantine {cfg_r['byzantine']} (BENCH "
+          f"{ref_r['config']['byzantine']}): {t5 - t4:.3f} s")
+    differ = []
+    for got, want in zip(rob["rows"], ref_r["rows"]):
+        show(f"robust {got['attack']}/{got['agg']}", got, want,
+             ("rounds_to_target", "diverged", "guarded_rows",
+              "quarantine_windows", "quarantined_byz_only"))
+        gf, wf = got["x_fingerprint"], want["x_fingerprint"]
+        dev_fp = (None if gf is None or wf is None
+                  else max(abs(a - b) for a, b in zip(gf, wf))
+                  / max(abs(b) for b in wf))
+        print(f"[convex_bench]   x_fingerprint {gf} (BENCH {wf}); max "
+              f"difference over the largest entry {dev_fp}")
+    for k in ("fault_free_rounds", "ratios", "mean_control_stalls",
+              "deterministic_replay_ok", "identity_bitwise_ok",
+              "int8_wire_max_dev"):
+        print(f"[convex_bench] robust {k} {rob[k]} (BENCH {ref_r[k]})")
+    us, kus = rob["comm_step_us"], rob["kernel_comm_step_us"]
+    print(f"[convex_bench] robust comm step at (n={cfg_r['n']}, d="
+          f"{rob['overhead_shape']['d']}), s={rob['overhead_shape']['s']}, "
+          f"us per step: ws mean {us['mean']:.1f}, trimmed "
+          f"{us['trimmed']:.1f}, median {us['median']:.1f} (robust over "
+          f"mean {rob['robust_overhead_ratio']:.3f}x; at s = c "
+          f"{rob['robust_overhead_ratio_s_eq_c']:.3f}x); kernel path mean "
+          f"{kus['mean']:.1f}, trimmed {kus['trimmed']:.1f}, median "
+          f"{kus['median']:.1f} ({rob['kernel_robust_overhead_ratio']:.3f}"
+          f"x); not gated")
+    print(f"[convex_bench] robust rows that differ from BENCH_robust.json: "
+          f"{differ or 'none'}; launches {rob_launches}")
+    if not (convex_bench.robust_accepted(rob)
+            and set(rob_launches) <= {"masked_sum", "robust_sum",
+                                      "h_update"}):
+        raise AssertionError(f"[convex_bench] robust acceptance failed: "
+                             f"{rob}, launches {rob_launches}")
+    for k, v in rob_launches.items():
+        launches[k] += v
     return launches
 
 
 def run_convex_comm(prob, dev) -> dict:
     """``[convex_comm]``: the plain comm implementations at Fig. 3's paper
     scale (n=1000, d=20958, c=100, s=2, f64 storage): 3 quorum rounds at
-    p_fail 0.2 and one int8 ``wire_down`` round of the convex bench's
-    driver.  Each comm step's ws output is held against dense on the card
-    (equal values, a zero's sign aside), against ws on the CPU on the same
-    inputs (bitwise) and against the workspace kernel path
+    p_fail 0.2, one int8 ``wire_down`` round and one quorum round with the
+    median combiner (``robust=("median", 0)``: the ws owner stack of 2, the
+    dense sort over 1000 rows, the ``robust_sum`` kernel) of the convex
+    bench's driver.  Each comm step's ws output is held against dense on
+    the card (equal values, a zero's sign aside), against ws on the CPU on
+    the same inputs (bitwise) and against the workspace kernel path
     (``comm_ws.cyclic_comm``) on an f32 copy (within 2**-20 of
     max(1, |value|): the kernels add the owners in row order).  Prints ms
     per comm step of each and the peak memory; returns the launch counts
@@ -1375,6 +1458,7 @@ def run_convex_comm(prob, dev) -> dict:
     x_bar = torch.zeros(d, dtype=torch.float64, device=dev)
     h = torch.zeros(n, d, dtype=torch.float64, device=dev)
     ms = {"ws": [], "dense": [], "kernel": []}
+    kernel_launches = {k: 0 for k in _build.launch_counts}
     plain_launches = {k: 0 for k in _build.launch_counts}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1389,14 +1473,17 @@ def run_convex_comm(prob, dev) -> dict:
         ms[tag].append(start.elapsed_time(end))
         return out
 
-    for g in range(4):
-        if g < 3:  # the quorum rounds
+    for g in range(5):
+        if g != 3:  # the quorum rounds, the last one with the median
             cohort, arrived, attempt, _ = cb.resolve_round(
                 plan, faults, g, c // 2 + 1)
             kw = dict(arrived=torch.from_numpy(arrived).to(dev))
-            kern_kw = dict(arrived=kw["arrived"])
             desc = (f"quorum round {g}: attempt {attempt}, "
                     f"{int(arrived.sum())} of {c} arrived")
+            if g == 4:
+                kw["robust"] = ("median", 0)
+                desc = "median " + desc
+            kern_kw = dict(kw)
         else:  # the int8 wire_down round
             cohort = plan.cohort(g)
             attempt = 0
@@ -1425,10 +1512,13 @@ def run_convex_comm(prob, dev) -> dict:
                 **{k: (v.cpu() if isinstance(v, torch.Tensor) else v)
                    for k, v in kw.items()})
         xw, hw = X.float(), h.float()
+        _build.reset_launch_counts()
         timed("kernel", lambda: comm_ws.cyclic_comm(
             xw, hw, slot.to(torch.int32), band, c, s, bench.scale,
             **kern_kw))
         torch.cuda.synchronize()
+        for k, v in _build.launch_counts.items():
+            kernel_launches[k] += v
         errs = {}
         for name, a, b_dense, b_cpu, b_kern in (
                 ("x", ws[0], dense[0], cpu[0], xw),
@@ -1463,13 +1553,136 @@ def run_convex_comm(prob, dev) -> dict:
           f"{mean['dense']:.3f}, kernel path (f32 workspace) "
           f"{mean['kernel']:.3f}; int8 wire_down round ws "
           f"{ms['ws'][3]:.3f}, dense {ms['dense'][3]:.3f}, kernel path "
-          f"{ms['kernel'][3]:.3f}; max_memory_allocated {peak} B "
-          f"({peak / 2**30:.3f} GiB)")
+          f"{ms['kernel'][3]:.3f}; median round ws {ms['ws'][4]:.3f}, "
+          f"dense {ms['dense'][4]:.3f}, kernel path {ms['kernel'][4]:.3f};"
+          f" max_memory_allocated {peak} B ({peak / 2**30:.3f} GiB)")
+    print(f"[convex_comm] the kernel path's launches "
+          f"{({k: v for k, v in kernel_launches.items() if v})}")
     if any(plain_launches.values()):
         raise AssertionError(f"[convex_comm] the plain implementations "
                              f"launched kernels: {plain_launches}")
+    if not kernel_launches["robust_sum"]:
+        raise AssertionError("[convex_comm] the median round's kernel path "
+                             "did not launch robust_sum")
     torch.cuda.empty_cache()
     return plain_launches
+
+
+def run_reputation(cfg, dev) -> dict:
+    """``[reputation]``: the robust round with the anomaly reputation,
+    n=5, c=4, s=3, a ``CohortPlan``, one sign-flipping client (f_byz
+    0.2), quorum, the trimmed mean k=1 and ``reputation=True``, 4 rounds;
+    the launch counts as ``run_path``'s.  Gates: ``run_path``'s, the
+    sign-flipped client quarantined once it has arrived unguarded, no
+    honest client quarantined.  Prints the windows and ``anomaly_scores``'
+    own time at full width (CUDA events).  Returns the launch counts."""
+    from repro_torch.dist import cohort, comm_ws, faults, model_api, robust
+    from repro_torch.dist import tamuna_dp
+
+    class RecordingReputation(robust.Reputation):
+        """The reputation with each update's unguarded arrivals kept."""
+
+        def __init__(self, n):
+            super().__init__(n)
+            self.arrived = []
+
+        def update(self, anomaly, arrived):
+            self.arrived.append(np.asarray(arrived, bool).copy())
+            return super().update(anomaly, arrived)
+
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=CF, s=SF, p=P,
+                                      robust_agg="trimmed", trim_k=1)
+    plan = cohort.CohortPlan(0, NF, CF)
+    fp = faults.FaultPlan(seed=0, n=NF, adversary="sign_flip", f_byz=0.2)
+    rep = RecordingReputation(NF)
+    launches = run_path(
+        "reputation", cfg, tcfg, NF, dev,
+        need=("robust_sum", "h_update_covered", "fused_local_step"),
+        check_h_sum=False, rounds_=4, plan=plan, faults=fp,
+        policy="quorum", reputation=rep)
+    byz = set(np.flatnonzero(fp.byzantine).tolist())
+    windows = [(ids.tolist(), a, b) for ids, a, b in plan._quarantine]
+    quarantined = {i for ids, _, _ in windows for i in ids}
+    seen = {i for arr in rep.arrived for i in np.flatnonzero(arr).tolist()}
+    print(f"[reputation] byzantine {sorted(byz)}; arrived unguarded in some "
+          f"round: {sorted(seen)}; quarantine windows (clients, first, "
+          f"last round) {windows}; strikes {rep.strikes.tolist()}")
+    if not (quarantined <= byz and (byz & seen) <= quarantined):
+        raise AssertionError(f"[reputation] want every Byzantine client "
+                             f"that arrived unguarded quarantined and no "
+                             f"honest one: windows {windows}, arrived "
+                             f"{sorted(seen)}, byzantine {sorted(byz)}")
+    # anomaly_scores' own time on a full-width (NF, d) workspace
+    d = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(NF, d, generator=g, device=dev)
+    mask = np.array([True, True, False, True, True])
+    robust.anomaly_scores(x, mask)  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    scores = robust.anomaly_scores(x, mask)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    # the rows it reads, once: a bound by bytes
+    print(f"[reputation] anomaly_scores on ({NF}, {d}) f32, 4 rows listed: "
+          f"{ms:.3f} ms (CUDA events; the rows read once: "
+          f"{bound_ms(4 * d * 4):.3f} ms at {HBM_BYTES_PER_S / 1e12} TB/s);"
+          f" scores {[round(float(v), 6) for v in scores]}")
+    del x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_baselines(prob, tamuna_traces: dict) -> dict:
+    """``[baselines]``: paper Fig. 3 at paper scale
+    (``benchmarks/paper_fig3.py --paper-scale``) through
+    ``repro_torch.launch.paper_bench`` on the card: Scaffold at half the GD
+    step with L = 1/p local steps for 2000 rounds and, at full
+    participation, Scaffnew for 12,000 iterations, beside TAMUNA's traces
+    of ``[convex]`` (10% participation) and ``[convex_full]`` (full), each
+    algorithm's TotalCom to 1e-6 of the initial gap at alpha 0 and 0.1.
+    Gates: finite suboptimalities that end below where they start; no
+    launch (the baselines are plain torch).  Returns the launch counts."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import paper_bench
+
+    target = paper_bench.gap_target(prob)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    traces = paper_bench.figure_traces(prob, 8000, seed=0,
+                                       tamuna_traces=tamuna_traces)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    print(f"[baselines] Fig. 3 at paper scale (n={prob.n}, d={prob.d}), "
+          f"target 1e-6 of the initial gap = {target:.6e}; baselines in "
+          f"{wall:.3f} s")
+    bad = []
+    for regime, by_algo in traces.items():
+        for name, tr in by_algo.items():
+            sub = tr["suboptimality"]
+            t = tr["seconds"][-1]
+            print(f"[baselines] {regime} {name}: {tr['rounds'][-1]} rounds "
+                  f"in {t:.3f} s ({t / tr['rounds'][-1] * 1e3:.4f} ms per "
+                  f"round, records included); suboptimality {sub[0]:.6e} "
+                  f"-> {sub[-1]:.6e}; up_floats {tr['up_floats'][-1]:.0f} "
+                  f"down_floats {tr['down_floats'][-1]:.0f}")
+            if not (np.isfinite(sub).all() and sub[-1] < sub[0]):
+                bad.append(f"{regime}/{name}")
+    for row in paper_bench.figure_rows("fig3", traces, target):
+        print(f"[baselines] {row['regime']} alpha={row['alpha']} "
+              f"{row['algo']}: floats to target {row['floats_to_target']}, "
+              f"final suboptimality {row['final_subopt']:.6e}")
+    print(f"[baselines] launches "
+          f"{({k: v for k, v in launches.items() if v})}")
+    if bad or any(launches.values()):
+        raise AssertionError(f"[baselines] suboptimality not finite and "
+                             f"falling in {bad}, or launches {launches}")
+    return launches
 
 
 def h_sum_ratio(h, d: int) -> float:
@@ -1481,11 +1694,12 @@ def h_sum_ratio(h, d: int) -> float:
     return hsum / hmax if hmax > 0 else math.inf
 
 
-def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, **kw):
-    """Drive ``run_rounds`` for 3 rounds of ``cfg`` at ``n`` clients with
-    the launch counts set to 0 just before and read just after; check
-    finite losses, a launch of every kernel in ``need`` and, if asked,
-    sum_i h_i = 0 (printed in any case).  Returns the launch counts."""
+def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3, **kw):
+    """Drive ``run_rounds`` for ``rounds_`` rounds of ``cfg`` at ``n``
+    clients with the launch counts set to 0 just before and read just
+    after; check finite losses, a launch of every kernel in ``need`` and,
+    if asked, sum_i h_i = 0 (printed in any case).  Returns the launch
+    counts."""
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import comm_ws, model_api, rounds, tamuna_dp
     from repro_torch.kernels import _build
@@ -1499,7 +1713,11 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, **kw):
         desc.append(f"{fp.model} byzantine clients "
                     f"{np.flatnonzero(fp.byzantine).tolist()}")
     desc += [f"{k}={v}" for k, v in kw.items()
-             if k not in ("faults", "plan")]
+             if k not in ("faults", "plan", "reputation")]
+    if "reputation" in kw:
+        rep = kw["reputation"]
+        desc.append(f"Reputation(threshold={rep.threshold}, alpha="
+                    f"{rep.alpha}, base_rounds={rep.base_rounds})")
     if "plan" in kw:
         desc.append("cohorts from CohortPlan(0, n, c)")
     print(f"[{tag}] " + ", ".join(desc))
@@ -1511,13 +1729,13 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, **kw):
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     state, rows = rounds.run_rounds(
-        state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=3,
+        state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=rounds_,
         rng=np.random.default_rng(0),
         generator=torch.Generator().manual_seed(1), max_L=4, **kw)
     launches = dict(_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
     fault_keys = ("arrivals", "corrupted", "retries", "backoff_s",
-                  "quorum_miss", "round_latency_s")
+                  "quorum_miss", "round_latency_s", "anomaly_max")
     for row in rows:
         extra = " ".join(f"{k} {row[k]:.6g}" for k in fault_keys if k in row)
         print(f"[{tag}] round {row['round']}: L={row['L']} loss "
@@ -1935,6 +2153,7 @@ def main(argv=None) -> int:
         faults=faults.FaultPlan(seed=0, n=NF, p_drop=0.2,
                                 adversary="sign_flip", f_byz=0.2),
         policy="quorum")
+    by_path["reputation"] = run_reputation(cfg, dev)
     tcfg_w = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P,
                                         wire_precision="auto",
                                         wire_down=True)
@@ -1980,12 +2199,14 @@ def main(argv=None) -> int:
           f"convex paths")
     check_convex_card_vs_cpu(prob, tamuna.TamunaConfig.tuned(prob, c=100))
     torch.cuda.empty_cache()
-    by_path["convex"] = run_convex_path("convex", prob, 100,
-                                        CONVEX_ROUNDS["convex"])
-    by_path["convex_full"] = run_convex_path("convex_full", prob, 1000,
-                                             CONVEX_ROUNDS["convex_full"])
+    by_path["convex"], tr_pp10 = run_convex_path(
+        "convex", prob, 100, CONVEX_ROUNDS["convex"])
+    by_path["convex_full"], tr_full = run_convex_path(
+        "convex_full", prob, 1000, CONVEX_ROUNDS["convex_full"])
     by_path["convex_comm"] = run_convex_comm(prob, dev)
-    del prob
+    by_path["baselines"] = run_baselines(
+        prob, {"full": tr_full, "pp10": tr_pp10})
+    del prob, tr_full, tr_pp10
     torch.cuda.empty_cache()
     by_path["convex_bench"] = run_convex_bench(dev)
 

@@ -28,7 +28,9 @@ owns which coordinate.
 ``impl="ws"`` (the sparse UpCom: ``s`` owner-row gathers per leaf, then one
 fused h update and DownCom) and ``impl="dense"`` (the materialized
 ``(n, D)`` ownership mask, the reference's ground truth), over
-client-stacked leaves in any float storage type.  Like the reference they
+client-stacked leaves in any float storage type, with the mean, survivor
+and robust rebuilds (``robust.robust_combine_stack`` over the ``(s, D)``
+owner stack or the masked ``(n, D)`` stack).  Like the reference they
 compute the comm step in f32 whatever the storage type and return new
 leaves in it: x and h leave the step as (for f64 storage) f64 tensors
 holding f32 values.  They are plain PyTorch by design: the reference keeps
@@ -45,6 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import masks
+from repro_torch.dist import robust as robust_mod
 from repro_torch.dist import wire as wire_mod
 from repro_torch.kernels import compress, ref, uplink, wire_pack
 
@@ -434,14 +437,15 @@ def _down_quant(kind: str, seed: int, li: int, D: int):
 
 def _dense_cyclic_leaf(xl, hl, slot, c: int, s: int, scale, down=None,
                        sanitize=False, survivor=False, quant=None,
-                       down_quant=None):
+                       down_quant=None, robust=None):
     """One leaf of the reference's dense comm step
     (``comm_ws._dense_cyclic_leaf``): the ``(n, D)`` ownership mask from
     ``masks.mask_from_permutation`` (both template regimes), the masked
     sum over every row, the ``1/s`` (or survivor) rebuild, the masked h
     update and the DownCom.  ``sanitize`` zeroes idle rows first (the mask
     multiplies: ``NaN * 0`` is NaN); ``quant`` quantizes the UpCom payload
-    after it, ``down_quant`` the rebuilt broadcast."""
+    after it, ``down_quant`` the rebuilt broadcast.  ``robust`` combines
+    the ``(n, D)`` payload with the mask as its validity mask."""
     n = xl.shape[0]
     D = xl[0].numel()
     sl = slot[:, None]
@@ -455,7 +459,10 @@ def _dense_cyclic_leaf(xl, hl, slot, c: int, s: int, scale, down=None,
     if sanitize:
         xf = torch.where(sl >= 0, xf, zero)
     xq = xf if quant is None else quant(xf)
-    if survivor:
+    if robust is not None:
+        x_bar, rcnt = robust_mod.robust_combine_stack(xq, qf > 0, *robust)
+        covered = (rcnt > 0) if survivor else None
+    elif survivor:
         x_bar, covered = _survivor_bar((xq * qf).sum(dim=0), qf.sum(dim=0))
     else:
         x_bar, covered = ref._div((xq * qf).sum(dim=0), s), None
@@ -469,13 +476,16 @@ def _dense_cyclic_leaf(xl, hl, slot, c: int, s: int, scale, down=None,
 
 def _ws_cyclic_leaf(xl, hl, slot, client_of, col_ok, c: int, s: int,
                     scale, down=None, survivor=False, quant=None,
-                    down_quant=None):
+                    down_quant=None, robust=None):
     """One leaf of the reference's sparse comm step (``impl="ws"``,
     ``meshed=False``): ``s`` owner-row gathers per coordinate through
     ``client_of`` (the round's column-to-row table), summed in owner order
     from +0, the ``1/s`` (or survivor) rebuild, then ``_finish_leaf``.
     ``col_ok`` (faulted rounds) gates the columns whose owner did not
-    arrive."""
+    arrive.  ``robust`` combines the ``(s, D)`` owner stack with ``col_ok``
+    as its validity mask, and with none (``ok=None``, the static window)
+    on fault-free rounds; the reference's gather-free stack of a fault-free
+    leaf that is not tall holds the same values as the gathers."""
     n = xl.shape[0]
     D = xl[0].numel()
     dev = xl.device
@@ -492,17 +502,21 @@ def _ws_cyclic_leaf(xl, hl, slot, client_of, col_ok, c: int, s: int,
     owned = owned & (sl >= 0)
     cols_t = torch.from_numpy(cols).to(dev, torch.int64)
     vals = xq.gather(0, client_of[cols_t])  # (s, D) owner rows' payloads
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    if col_ok is not None:
-        ok = col_ok[cols_t]
-        vals = torch.where(ok, vals, zero)
-    num = torch.zeros(D, dtype=torch.float32, device=dev)
-    for t in range(s):
-        num = num + vals[t]
-    if survivor:
-        x_bar, cov = _survivor_bar(num, ok.to(torch.float32).sum(dim=0))
+    ok = None if col_ok is None else col_ok[cols_t]
+    if robust is not None:
+        x_bar, rcnt = robust_mod.robust_combine_stack(vals, ok, *robust)
+        cov = (rcnt > 0) if survivor else None
     else:
-        x_bar, cov = ref._div(num, s), None
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        if ok is not None:
+            vals = torch.where(ok, vals, zero)
+        num = torch.zeros(D, dtype=torch.float32, device=dev)
+        for t in range(s):
+            num = num + vals[t]
+        if survivor:
+            x_bar, cov = _survivor_bar(num, ok.to(torch.float32).sum(dim=0))
+        else:
+            x_bar, cov = ref._div(num, s), None
     if down_quant is not None:
         x_bar = down_quant(x_bar)
     return _finish_leaf(xl, hl, xf, x_bar, owned, scale, down, cov)
@@ -544,7 +558,11 @@ def cyclic_comm_leaves(x: Leaves, h: Leaves, slot: torch.Tensor, c: int,
     untouched; without it the ``1/s`` rebuild stays (the wait-all
     control).  ``wire`` (a ``wire.WIRE_POLICIES`` policy) quantizes the
     UpCom payload with the round's uint32 ``wire_seed``; ``wire_down`` also
-    quantizes ``x_bar`` before the DownCom.
+    quantizes ``x_bar`` before the DownCom.  ``robust``
+    (``robust.normalize_robust``'s spec; ``None`` is the mean path)
+    replaces the rebuild by the trimmed mean or median of the arrived
+    owner values, on the dequantized wire values; with ``correct`` the
+    coordinates without an arrived owner keep x and h.
 
     ``impl="ws"`` gathers the ``s`` owner rows of every coordinate
     (``O(s D)`` reads); ``impl="dense"`` materializes the ``(n, D)`` mask,
@@ -553,11 +571,6 @@ def cyclic_comm_leaves(x: Leaves, h: Leaves, slot: torch.Tensor, c: int,
     if impl not in COMM_IMPLS:
         raise ValueError(f"unknown comm impl {impl!r}; want one of "
                          f"{COMM_IMPLS} (the kernel path is cyclic_comm)")
-    if robust is not None:
-        raise NotImplementedError(
-            "robust= of the plain comm implementations is not ported yet "
-            "(ROADMAP.md A2: robust_combine_stack); cyclic_comm runs the "
-            "robust combiners on the workspace")
     xs, hs = _leaf_items(x), _leaf_items(h)
     if [k for k, _ in xs] != [k for k, _ in hs]:
         raise ValueError("x and h must have the same leaves")
@@ -597,11 +610,12 @@ def cyclic_comm_leaves(x: Leaves, h: Leaves, slot: torch.Tensor, c: int,
         if impl == "ws":
             out_x[name], out_h[name] = _ws_cyclic_leaf(
                 xl, hl, slot, client_of, col_ok, c, s, scale, down,
-                survivor, quant, down_quant)
+                survivor, quant, down_quant, robust)
         else:
             out_x[name], out_h[name] = _dense_cyclic_leaf(
                 xl, hl, slot, c, s, scale, down, sanitize=faulted,
-                survivor=survivor, quant=quant, down_quant=down_quant)
+                survivor=survivor, quant=quant, down_quant=down_quant,
+                robust=robust)
     if isinstance(x, torch.Tensor):
         return out_x[None], out_h[None]
     return out_x, out_h

@@ -290,32 +290,36 @@ def adversarial_rows(ws: torch.Tensor, byz, honest, mode: str,
     negates, ``scale`` multiplies by ``byz_scale``; ``inlier`` writes
     ``mean - byz_z * std`` of the ``honest & ~byz`` rows per coordinate
     (population std; 0 when no row is honest).  Other rows are not
-    touched."""
+    touched.  Like the reference, the payloads are computed in f32 and
+    cast back to the storage type (an f64 row holds f32 values)."""
     if mode not in ADVERSARIES or mode == "none":
         raise ValueError(f"unknown adversary mode {mode!r}")
     byz = np.asarray(byz, bool)
     bad_rows = _rows(byz)
-    if mode == "sign_flip":
+    d = ws.shape[1]
+    if mode in ("sign_flip", "scale"):
         for i in bad_rows:
-            ws[i].neg_()
-        return
-    if mode == "scale":
-        for i in bad_rows:
-            ws[i].mul_(byz_scale)
+            for a in range(0, d, CHUNK):
+                f = ws[i, a:a + CHUNK]
+                if f.dtype == torch.float32:
+                    f.neg_() if mode == "sign_flip" else f.mul_(byz_scale)
+                    continue
+                f = f.to(torch.float32)  # f32 math, storage type out
+                ws[i, a:a + CHUNK] = (-f if mode == "sign_flip"
+                                      else f * byz_scale)
         return
     good = _rows(np.asarray(honest, bool) & ~byz)
     cnt = float(max(len(good), 1))
-    d = ws.shape[1]
     for a in range(0, d, CHUNK):
         cols = slice(a, min(a + CHUNK, d))
         mu = torch.zeros(cols.stop - a, dtype=torch.float32,
                          device=ws.device)
         for i in good:
-            mu = mu + ws[i, cols]
+            mu = mu + ws[i, cols].to(torch.float32)
         mu = mu / cnt
         var = torch.zeros_like(mu)
         for i in good:
-            var = var + (ws[i, cols] - mu) ** 2
+            var = var + (ws[i, cols].to(torch.float32) - mu) ** 2
         var = var / cnt
         v = mu - byz_z * torch.sqrt(var)
         for i in bad_rows:

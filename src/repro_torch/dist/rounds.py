@@ -1,5 +1,5 @@
 """The synchronous round driver (``repro.dist.rounds.run_rounds`` without
-pipelining, checkpoints or the reputation loop).
+pipelining or checkpoints).
 
 Per round ``g`` (the global round, ``state.round`` at entry plus the loop
 index): draw ``L ~ Geometric(p)`` capped at ``max_L`` from the host numpy
@@ -22,7 +22,9 @@ are injected, the Byzantine rows are injected, the payload guard demotes
 nonfinite (and, adaptive, magnitude-outlier) members and zeroes their rows,
 and the comm step aggregates the arrived rows.  The workspace is updated in
 place, so, as in the reference, a corrupted row that is neither zeroed nor
-overwritten by the DownCom stays corrupted.
+overwritten by the DownCom stays corrupted.  With a reputation the anomaly
+scores of the arrived rows are taken after the guard and before the comm
+step, and the EWMA's quarantine windows feed back into the ``CohortPlan``.
 """
 
 from __future__ import annotations
@@ -160,6 +162,7 @@ def run_rounds(
     guard: Optional[bool] = None,
     guard_max_abs: Optional[float] = None,
     guard_mode: Optional[str] = None,
+    reputation=None,
 ) -> Tuple[tamuna_dp.DistTamunaState, List[Dict[str, Any]]]:
     """Run ``rounds`` rounds on ``state`` in place.
 
@@ -187,6 +190,14 @@ def run_rounds(
     client out of the cohorts of rounds ``g + 2 .. g + 1 +
     quarantine_rounds``.  Fault rows add ``arrivals``, ``corrupted``,
     ``retries``, ``backoff_s``, ``quorum_miss`` and ``round_latency_s``.
+
+    ``reputation`` (``True`` or a ``robust.Reputation``; needs ``plan``
+    and ``faults``) turns on the anomaly feedback loop: each round's
+    ``robust.anomaly_scores`` of the arrived rows feed the EWMA over the
+    arrived, unguarded clients, and each window it emits quarantines its
+    client over rounds ``g + 2 .. g + 1 + w``; rows add ``anomaly_max``.
+    Pass a ``Reputation`` restored by ``from_state_dict`` to resume its
+    schedule.
     """
     n, c = state.x.shape[0], tcfg.c
     if policy not in ROUND_POLICIES:
@@ -221,6 +232,16 @@ def run_rounds(
     if faulted and faults.n != n:
         raise ValueError(f"fault plan covers {faults.n} clients, the state "
                          f"has n={n}")
+    rep = None
+    if reputation is not None and reputation is not False:
+        if plan is None or faults is None or not faulted:
+            raise ValueError("reputation feedback needs a CohortPlan and "
+                             "a fault plan")
+        rep = (reputation if isinstance(reputation, robust_mod.Reputation)
+               else robust_mod.Reputation(n))
+        if rep.n != n:
+            raise ValueError(f"reputation covers {rep.n} clients, the "
+                             f"state has n={n}")
     if plan is not None and getattr(plan, "weighted", False):
         # the aggregation never reweights by 1/(n p_i)
         warnings.warn(
@@ -276,6 +297,8 @@ def run_rounds(
             arr, bad = _faulty_uplink(
                 state.x, res, byz, faults.model, guard=bool(guard),
                 guard_mode=guard_mode, guard_max_abs=guard_max_abs)
+            if rep is not None:  # before the comm step's DownCom
+                anom = robust_mod.anomaly_scores(state.x, arr)
             state = comm(state, cohort, perm, nxt, arrived=arr,
                          correct=policy != "wait_all", wire_seed=wseed)
         else:
@@ -312,6 +335,17 @@ def run_rounds(
                                 g + 1 + quarantine_rounds)
                 for k in [k for k in resolve.cache if k >= g + 2]:
                     del resolve.cache[k]
+            if rep is not None:
+                row["anomaly_max"] = float(anom.max())
+                # guard-demoted rows were zeroed: their score is a
+                # meaningless 0, so they stay out of the EWMA; the windows
+                # land before round g+2's cohort is resolved
+                wins = rep.update(anom, res["arrived"] & ~bad)
+                for cid, w in wins:
+                    plan.quarantine([cid], g + 2, g + 1 + w)
+                if wins:
+                    for k in [k for k in resolve.cache if k >= g + 2]:
+                        del resolve.cache[k]
         rows.append(row)
         if logger is not None:
             logger.log(g, row)

@@ -6,7 +6,9 @@ one compressed comm step, all on ``--device`` (``cuda`` unless the CPU is
 asked for).  ``--robust-agg``/``--trim-k`` pick the combiner;
 ``--adversary``/``--f-byz`` make a seeded Byzantine fraction of the clients
 send garbage every round, which the adaptive payload guard and the robust
-combiner face (the fault-tolerant round of ``dist/rounds.py``).
+combiner face (the fault-tolerant round of ``dist/rounds.py``);
+``--reputation`` adds the anomaly-score EWMA that quarantines persistent
+offenders from a ``CohortPlan``'s cohorts.
 ``--wire-precision`` narrows the UpCom payload (DESIGN.md §13: f16/bf16
 casts, int8/int4 stochastic codes, ``auto`` per leaf size) and
 ``--wire-down`` quantizes the DownCom broadcast too.
@@ -17,6 +19,9 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --sparsity 3 --robust-agg trimmed --trim-k 1 --adversary sign_flip \\
       --f-byz 0.25 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
+      --clients 8 --cohort 4 --robust-agg median --adversary sign_flip \\
+      --f-byz 0.25 --reputation --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --wire-precision int8 --wire-down --device cpu
 """
@@ -65,7 +70,9 @@ def main(argv=None) -> int:
     ap.add_argument("--f-byz", type=float, default=0.0,
                     help="Byzantine client fraction for --adversary")
     ap.add_argument("--reputation", action="store_true",
-                    help="EWMA anomaly reputation (not ported yet)")
+                    help="EWMA anomaly reputation: quarantine clients "
+                         "whose distance to the robust aggregate stays "
+                         "high (needs --adversary and --f-byz > 0)")
     # literal list (= wire.WIRE_POLICIES)
     ap.add_argument("--wire-precision", default="f32",
                     choices=["auto", "f32", "bf16", "f16", "int8", "int4"],
@@ -77,8 +84,8 @@ def main(argv=None) -> int:
                          "non-f32 --wire-precision)")
     args = ap.parse_args(argv)
     adversarial = args.adversary != "none" and args.f_byz > 0.0
-    if args.reputation:
-        ap.error("--reputation is not ported yet")
+    if args.reputation and not adversarial:
+        ap.error("--reputation needs --adversary and --f-byz > 0")
     if args.wire_down and args.wire_precision == "f32":
         ap.error("--wire-down quantizes the DownCom broadcast; it needs a "
                  "non-f32 --wire-precision")
@@ -90,7 +97,7 @@ def main(argv=None) -> int:
     from repro_torch._device import resolve_device
     from repro_torch.configs import registry
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
-    from repro_torch.dist import faults, rounds, tamuna_dp
+    from repro_torch.dist import cohort, faults, rounds, tamuna_dp
 
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,6 +125,9 @@ def main(argv=None) -> int:
             seed=args.seed, n=n,
             model=faults.FaultModel(adversary=args.adversary,
                                     f_byz=args.f_byz))
+        if args.reputation:
+            fkw["plan"] = cohort.CohortPlan(args.seed, n, tcfg.c)
+            fkw["reputation"] = True
     logger = metrics.MetricLogger(args.log or None)
     t0 = time.time()
     state, rows = rounds.run_rounds(

@@ -19,7 +19,8 @@ numpy inputs:
   eager JAX and the port compute (ROADMAP.md C);
 * ws against dense in the port: bitwise at s = 2 but for the sign of
   zeros, within the same 2**-20 at s = 3;
-* ``robust=`` raises, pointing to ROADMAP A2;
+* an impl other than ws and dense is refused (the kernel path is
+  ``cyclic_comm``); ``robust=`` is held in ``tests/test_torch_reputation.py``;
 * the driver at ``--smoke`` size against the reference benches' smoke
   mode (``REPRO_BENCH_SMOKE=1``, run as the benches run them, jitted):
   equal rounds to target, retries and quorum misses, and the fingerprints
@@ -262,12 +263,9 @@ def test_ws_equals_dense(name):
             _assert_same(a, b, "dense", s)
 
 
-def test_robust_raises_pointing_to_a2():
+def test_the_kernel_path_is_not_an_impl_of_the_plain_step():
     x = torch.zeros(4, 8)
     slot = torch.tensor([0, 1, 2, -1])
-    with pytest.raises(NotImplementedError, match="A2"):
-        comm_ws.cyclic_comm_leaves(x, x.clone(), slot, 3, 2, 1.0,
-                                   robust=("trimmed", 1))
     with pytest.raises(ValueError, match="impl"):
         comm_ws.cyclic_comm_leaves(x, x.clone(), slot, 3, 2, 1.0,
                                    impl="pallas")

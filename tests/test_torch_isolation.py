@@ -1,6 +1,6 @@
-"""The port stands alone: no jax and no ``repro`` at run time, the GPU by
-default with no quiet fallback to the CPU, and CLIs that train and serve
-on the CPU when asked."""
+"""The port stands alone: no jax, no ``repro`` and no ``benchmarks`` at run
+time, the GPU by default with no quiet fallback to the CPU, and CLIs that
+train and serve on the CPU when asked."""
 
 import math
 import os
@@ -34,19 +34,21 @@ for name in names:
 runpy.run_path("chip_smoke.py", run_name="not_main")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
-             or m == "repro" or m.startswith("repro."))
+             or m == "repro" or m.startswith("repro.")
+             or m == "benchmarks" or m.startswith("benchmarks."))
 assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack",
         "repro_torch.core.masks", "repro_torch.core.compression",
         "repro_torch.core.problems", "repro_torch.core.tamuna",
         "repro_torch.core.theory", "repro_torch.kernels.decode_attn",
         "repro_torch.serve_utils", "repro_torch.launch.serve",
-        "repro_torch.launch.convex_bench"} <= set(names)
+        "repro_torch.launch.convex_bench", "repro_torch.core.baselines",
+        "repro_torch.launch.paper_bench"} <= set(names)
 print(len(names), bad)
 """
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.split(" ", 1)
-    assert int(count) >= 38
+    assert int(count) >= 40
     assert bad.strip() == "[]", bad
 
 
@@ -57,7 +59,7 @@ def _default_device_calls():
     from repro_torch.core import problems
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import model_api, tamuna_dp
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import convex_bench, paper_bench, serve, train
 
     cfg = gemma2_2b.REDUCED
     tcfg = tamuna_dp.DistTamunaConfig(gamma=0.05, c=3, s=2, p=0.5)
@@ -84,6 +86,10 @@ def _default_device_calls():
         "serve.main": lambda: serve.main(["--reduced", "--batch", "1",
                                           "--prompt-len", "2",
                                           "--gen-len", "1"]),
+        "convex_bench.main": lambda: convex_bench.main(
+            ["--smoke", "--only", "robust", "--out", os.devnull]),
+        "paper_bench.main": lambda: paper_bench.main(
+            ["--smoke", "--only", "table2", "--out", os.devnull]),
     }
 
 
@@ -94,7 +100,8 @@ def _default_device_calls():
                                    "make_quadratic_problem",
                                    "convex_problem_from_numpy",
                                    "tamuna_state_from_numpy", "make_cache",
-                                   "cache_from_numpy", "serve.main"])
+                                   "cache_from_numpy", "serve.main",
+                                   "convex_bench.main", "paper_bench.main"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")

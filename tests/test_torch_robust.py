@@ -23,7 +23,7 @@
   the last bits, and the h update multiplies x's differences by
   eta/gamma = 5.7; measured 3.5e-6);
 * the training CLI with a trimmed combiner and a sign-flipping adversary
-  on the CPU.
+  on the CPU, with and without the anomaly reputation.
 """
 
 import math
@@ -371,4 +371,15 @@ def test_train_cli_robust_adversary_runs_on_cpu():
         [sys.executable, "-m", "repro_torch.launch.train", *args,
          "--reputation"],
         capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
-    assert rep.returncode != 0 and "not ported yet" in rep.stderr
+    assert rep.returncode == 0, rep.stderr
+    m = re.search(r"final loss (\S+)$", rep.stdout.strip())
+    assert m and math.isfinite(float(m.group(1))), rep.stdout
+    # every round's row carries the anomaly maximum
+    anomaly = re.findall(r"anomaly_max=(\S+)", rep.stderr)
+    assert len(anomaly) == 2 and all(math.isfinite(float(a))
+                                     for a in anomaly), rep.stderr
+    no_adv = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
+         "--rounds", "1", "--reputation", "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
+    assert no_adv.returncode == 2 and "--adversary" in no_adv.stderr
