@@ -75,7 +75,14 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    each must have finite losses and launch every kernel of its path; the
    fault-free and survivor paths on the f32 wire must keep sum_i h_i = 0
    (printed, not checked, on the others: a robust combine breaks it by
-   design, a quantized numerator by its rounding);
+   design, a quantized numerator by its rounding); then ``[train]``'s
+   round on the rest of the dense family, gated as ``[train]``:
+   ``[train_stablelm]`` stablelm-3b at published widths (q/k/v biases,
+                untied head) cut to 6 layers, d_total = 733,427,200, n=4,
+                c=3, s=2;
+   ``[train_prefix]`` internvl2-26b at published widths cut to 1 layer,
+                256 prefix embeddings before 128 text tokens, d_total =
+                1,566,590,976 (row offsets past 2^31), n=3, c=2, s=2;
 6. builds the paper's Fig. 3 problem at paper scale
    (``benchmarks/paper_fig3.py --paper-scale``: real-sim-like l2-logistic
    regression, n=1000 clients, d=20958, 4 samples each, kappa=1e4, seed
@@ -128,16 +135,25 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    paths' shapes; f32 queries on f32 and bf16 caches at the reduced
    config's heads within 2e-5; the kernel untouched by NaN in every cache
    row outside the visible keys; timing the kernel, the plain version and
-   ``scaled_dot_product_attention`` (softcap off) beside the bound;
+   ``scaled_dot_product_attention`` (softcap off) beside the bound; and
+   all three at head_dim 80 (stablelm-3b's (8, 32, 80) queries over an
+   (8, 4096, 32, 80) cache: globally without softcap, where SDPA computes
+   the same function, in a window, at a tile's and a split's edge, with a
+   softcap);
 8. serves, launch counts set to 0 just before each path and read just
    after, through ``repro_torch.launch.serve.run``:
-   ``[serve_reduced]`` the reduced config (f32) past its window of 64, on
+   ``[serve_reduced]`` the reduced gemma2-2b (f32) past its window of
+                 64, stablelm-3b, deepseek-coder-33b and internvl2-26b, on
                  an f32 and a bf16 cache, card (kernel) vs CPU (plain
                  attention): last logits within 1e-4, greedy tokens equal;
    ``[serve]``   gemma2-2b at published widths and full depth (26
                  layers), batch 8, prompt 448 + 64 generated, bf16: ms per
                  step, tok/s, peak memory, a profiled step; 26 x 512
                  launches, no plain attention, finite logits;
+   ``[serve_stablelm]`` stablelm-3b at published widths and full depth
+                 (32 layers, head_dim 80), batch 8, prompt 192 + 64
+                 generated, bf16: the same measures and gates, 32 x 256
+                 launches of the bf16 kernel at head_dim 80;
    ``[serve_long]`` two full-width layers past the 4096 window, batch 4,
                  prompt 4544 + 64: the launches, and the last step rerun
                  from the same cache with plain attention.
@@ -188,11 +204,26 @@ REDUCED_CPU_THREADS = 1
 # reduced config's heads over a 4k cache for the f32 instantiations
 DECODE_FULL = dict(b=8, h=8, kvh=4, hd=256, S=32768)
 DECODE_F32 = dict(b=8, h=4, kvh=2, hd=64, S=4096)
+# head_dim 80 at stablelm-3b's serving shape: its 32 heads (group 1) over
+# a 4096-row cache, batch 8
+DECODE_HD80 = dict(b=8, h=32, kvh=32, hd=80, S=4096)
 # the serving paths: the reduced config past its window of 64; full-depth
 # gemma2-2b at 512 rows; two full-width layers past the 4096 window
 SERVE_REDUCED = dict(batch=4, prompt_len=72, gen_len=8)
 SERVE = dict(batch=8, prompt_len=448, gen_len=64)
 SERVE_LONG = dict(batch=4, prompt_len=4544, gen_len=64)
+# stablelm-3b at full depth: a shorter prompt than [serve]'s holds its 32
+# layers' 256 host-bound steps to ~15 s
+SERVE_STABLELM = dict(batch=8, prompt_len=192, gen_len=64)
+# the dense family's reduced configs served card against CPU
+SERVE_REDUCED_ARCHS = ("gemma2-2b", "stablelm-3b", "deepseek-coder-33b",
+                       "internvl2-26b")
+# the other training paths' configs at published widths, cut in depth so
+# x and h fit: stablelm-3b (untied head, q/k/v biases) 32 -> 6 layers at
+# N clients, internvl2-26b (the prefix: 256 patch embeddings + 128 text
+# tokens) 48 -> 1 layer at 3 clients (a row of 1.57e9 f32)
+TRAIN_STABLELM_LAYERS = 6
+TRAIN_PREFIX = dict(layers=1, n=3, c=2, s=2)
 
 
 def smi() -> str:
@@ -1003,6 +1034,24 @@ def check_decode_case(q, k, v, pos, window, softcap, reps, plain_reps,
     return rec
 
 
+def print_decode_case(name, c, shape, tol) -> None:
+    """One ``check_decode_case`` record as a ``[decode]`` line; ``shape``
+    is ``(b, S, h, kvh, hd)``."""
+    b, S, h, kvh, hd = shape
+    print(f"[decode] {name} {[b, h, hd]} on ({b}, {S}, {kvh}, {hd}) "
+          f"pos {c['pos']} window {c['window']} softcap "
+          f"{c['softcap']}: max abs err {c['max_abs_err']:.3e} "
+          f"({c['bf16_ulps']:.3f} bf16 ulps; tolerance "
+          f"{tol}), {c['ms']:.5f} ms vs plain {c['plain_ms']:.5f} "
+          f"ms, library {c.get('library_ms', math.nan):.5f} ms "
+          f"(softcap off, err vs plain without softcap "
+          f"{c.get('library_max_abs_err_softcap_off', math.nan):.3e}"
+          f"), bound {c['bound_ms']:.5f} ms ({c['bound_by']}; "
+          f"{c['bound_ms'] / c['ms']:.1%} of it), kernel over "
+          f"library {c['ms'] / c.get('library_ms', math.nan):.3f}"
+          f"x, {c['splits']} splits")
+
+
 def check_decode_kernels(dev):
     """``decode_attention`` against its plain version on the card: bf16
     queries and cache at gemma2-2b's attention (h 8, kvh 4, hd 256) over a
@@ -1077,18 +1126,7 @@ def check_decode_kernels(dev):
         head = cases[0]
         for c in cases + path_cases:
             cb, cs = c.get("cache", [b, S])[:2]
-            print(f"[decode] {name} {[cb, h, hd]} on ({cb}, {cs}, {kvh}, {hd}) "
-                  f"pos {c['pos']} window {c['window']} softcap "
-                  f"{c['softcap']}: max abs err {c['max_abs_err']:.3e} "
-                  f"({c['bf16_ulps']:.3f} bf16 ulps; tolerance "
-                  f"{tol}), {c['ms']:.5f} ms vs plain {c['plain_ms']:.5f} "
-                  f"ms, library {c.get('library_ms', float('nan')):.5f} ms "
-                  f"(softcap off, err vs plain without softcap "
-                  f"{c.get('library_max_abs_err_softcap_off', float('nan')):.3e}"
-                  f"), bound {c['bound_ms']:.5f} ms ({c['bound_by']}; "
-                  f"{c['bound_ms'] / c['ms']:.1%} of it), kernel over "
-                  f"library {c['ms'] / c.get('library_ms', math.nan):.3f}"
-                  f"x, {c['splits']} splits")
+            print_decode_case(name, c, (cb, cs, h, kvh, hd), tol)
         print(f"[decode] {name}: cache rows outside the visible keys "
               "poisoned with NaN: output unchanged, bitwise")
         recs.append({
@@ -1103,6 +1141,65 @@ def check_decode_kernels(dev):
                        "softcap off: no PyTorch call applies a softcap",
             "headline": f"pos {head['pos']} window {head['window']}",
             "cases": cases, "path_cases": path_cases,
+        })
+    return recs
+
+
+def check_decode_hd80(dev):
+    """``decode_attention`` at head_dim 80 (stablelm-3b) against its plain
+    version, all three instantiations, at DECODE_HD80: the headline pos
+    4095 globally without softcap (stablelm-3b's own attention, which SDPA
+    computes exactly), a 1024 window, the first tile's edge (pos 15), a
+    split's edge (pos = split_len) in a window of 41 off the tile grid, and
+    softcap 50 at pos 2047; bf16 within one bf16 ulp, f32 within 2e-5.
+    Returns one record per instantiation, its launches counted under the
+    instantiation's own name (``count``)."""
+    from repro_torch.kernels import decode_attn
+    from repro_torch.models.transformer import GLOBAL_WINDOW
+
+    g = torch.Generator(device=dev).manual_seed(80)
+    shp = DECODE_HD80
+    b, h, kvh, hd, S = (shp[x] for x in ("b", "h", "kvh", "hd", "S"))
+    recs = []
+    for count, qt, kvt in (
+            ("decode_attention", torch.bfloat16, torch.bfloat16),
+            ("decode_attention_f32", torch.float32, torch.float32),
+            ("decode_attention_f32_bf16kv", torch.float32, torch.bfloat16)):
+        q = torch.randn(b, h, hd, generator=g, device=dev).to(qt)
+        k = torch.randn(b, S, kvh, hd, generator=g, device=dev).to(kvt)
+        v = torch.randn(b, S, kvh, hd, generator=g, device=dev).to(kvt)
+        tol = dict(tol_ulps=1.0) if qt == torch.bfloat16 else dict(
+            tol_abs=2e-5)
+        _, split_len = decode_attn.split_plan(
+            b, kvh, S, tiled=qt == torch.bfloat16)
+        cases = [check_decode_case(q, k, v, pos, window, cap, reps, plain,
+                                   library=lib, **tol)
+                 for pos, window, cap, reps, plain, lib in (
+                     (S - 1, GLOBAL_WINDOW, None, 50, 5, True),
+                     (S - 1, 1024, None, 50, 5, True),
+                     (decode_attn.TILE - 1, GLOBAL_WINDOW, None, 20, 3,
+                      False),
+                     (min(split_len, S - 1), 41, None, 20, 3, False),
+                     (S // 2 - 1, GLOBAL_WINDOW, 50.0, 20, 3, False))]
+        del q, k, v
+        torch.cuda.empty_cache()
+        name = f"{count}_hd80"
+        for c in cases:
+            print_decode_case(name, c, (b, S, h, kvh, hd), tol)
+        head = cases[0]
+        recs.append({
+            "name": name, "count": count,
+            "shape": [[b, h, hd], [b, S, kvh, hd]],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            "tolerance": (f"{tol['tol_ulps']} bf16 ulp" if "tol_ulps" in tol
+                          else tol["tol_abs"]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "library": "scaled_dot_product_attention(enable_gqa=True): the "
+                       "same function at the headline (no softcap, global)",
+            "headline": f"pos {head['pos']} window {head['window']}",
+            "cases": cases,
         })
     return recs
 
@@ -1694,6 +1791,40 @@ def h_sum_ratio(h, d: int) -> float:
     return hsum / hmax if hmax > 0 else math.inf
 
 
+def run_family_paths(dev) -> dict:
+    """``[train_stablelm]`` and ``[train_prefix]``: the fault-free round
+    of ``[train]`` (3 rounds, seq 128, 2 sequences per client, max_L 4) on
+    stablelm-3b (q/k/v biases, untied head) cut to
+    TRAIN_STABLELM_LAYERS layers at N clients, and on internvl2-26b (its
+    256 prefix embeddings before the 128 text tokens, untied head) cut to
+    TRAIN_PREFIX's layer at its 3 clients: a row of 1,566,590,976 f32, so
+    every kernel's row offsets pass 2^31.  Gated as ``[train]``."""
+    from repro_torch.configs import registry
+    from repro_torch.dist import comm_ws, model_api, tamuna_dp
+
+    out = {}
+    tp = TRAIN_PREFIX
+    for tag, arch, layers, n, c, s in (
+            ("train_stablelm", "stablelm-3b", TRAIN_STABLELM_LAYERS, N, C, S),
+            ("train_prefix", "internvl2-26b", tp["layers"], tp["n"], tp["c"],
+             tp["s"])):
+        full = registry.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        d = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
+        print(f"[{tag}] {cfg.name} at published widths (d_model "
+              f"{cfg.d_model}, {cfg.n_heads}:{cfg.n_kv_heads} heads, head_dim "
+              f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, q/k/v "
+              f"biases {cfg.qkv_bias}, tied head {cfg.tie_embeddings}, prefix "
+              f"{cfg.prefix_len}); depth cut {full.n_layers} -> {layers}; "
+              f"d_total {d} f32 per client row, x and h {2 * n * d * 4} B")
+        tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P)
+        out[tag] = run_path(tag, cfg, tcfg, n, dev,
+                            need=("masked_sum", "h_update",
+                                  "fused_local_step"),
+                            check_h_sum=True)
+    return out
+
+
 def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3, **kw):
     """Drive ``run_rounds`` for ``rounds_`` rounds of ``cfg`` at ``n``
     clients with the launch counts set to 0 just before and read just
@@ -1818,26 +1949,41 @@ def rerun_last_step(params, cfg, res, prompts, device, attend_fn):
 
 
 def run_serve_reduced(dev) -> dict:
-    """``[serve_reduced]``: the reduced gemma2-2b (f32 compute) served for
-    SERVE_REDUCED on the card (through the kernel) and on the CPU (the
-    model's plain attention), with the same prompts and weights.  On an
-    f32 cache the greedy tokens must be equal and every logit of the last
-    step within 1e-4 of the largest; on a bf16 cache (the CLI's) the last
-    step is rerun on the CPU from the card's own final cache and held to
-    the same 1e-4 (run through many steps, one-ulp roundings of the cache
-    compound).  Returns the launch counts."""
-    from repro_torch.configs import gemma2_2b
+    """``[serve_reduced]``: each of SERVE_REDUCED_ARCHS' reduced configs
+    (f32 compute; gemma2-2b's window of 64, stablelm-3b's biases and
+    untied head, deepseek-coder-33b's GQA 8:2 at head_dim 32,
+    internvl2-26b's untied head) served for SERVE_REDUCED on the card
+    (through the kernel) and on the CPU (the model's plain attention),
+    with the same prompts and weights.  On an f32 cache the greedy tokens
+    must be equal and every logit of the last step within 1e-4 of the
+    largest; on a bf16 cache (the CLI's) the last step is rerun on the CPU
+    from the card's own final cache and held to the same 1e-4 (run through
+    many steps, one-ulp roundings of the cache compound).  Returns the
+    launch counts, summed over the configs."""
+    launches = None
+    for arch in SERVE_REDUCED_ARCHS:
+        got = serve_reduced_one(arch, dev)
+        launches = got if launches is None else {
+            k: launches[k] + got[k] for k in launches}
+    return launches
+
+
+def serve_reduced_one(arch: str, dev) -> dict:
+    """``[serve_reduced]`` for one architecture's reduced config."""
+    from repro_torch.configs import registry
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn import make_attend_fn
     from repro_torch.launch import serve
 
-    cfg = gemma2_2b.REDUCED
+    cfg = registry.get_reduced_config(arch)
     sr = SERVE_REDUCED
     params = serve_params_on(cfg, dev)
     params_cpu = {k: v.cpu() for k, v in params.items()}
     prompts = serve.make_prompts(sr["batch"], sr["prompt_len"], cfg.vocab,
                                  0, "cpu")
-    print(f"[serve_reduced] {cfg.name} (f32, window {cfg.sliding_window}), "
+    print(f"[serve_reduced] {cfg.name} (f32, window {cfg.sliding_window}, "
+          f"head_dim {cfg.head_dim_}, {cfg.n_heads}:{cfg.n_kv_heads} heads, "
+          f"q/k/v biases {cfg.qkv_bias}, tied head {cfg.tie_embeddings}), "
           f"batch {sr['batch']}, prompt {sr['prompt_len']}, gen "
           f"{sr['gen_len']}: card (kernel) vs CPU (plain attention)")
     launches = dict.fromkeys(_build.launch_counts, 0)
@@ -1856,7 +2002,8 @@ def run_serve_reduced(dev) -> dict:
             name = ("decode_attention_f32" if kv == torch.float32
                     else "decode_attention_f32_bf16kv")
             if got != {name: cfg.n_layers * steps} or plain.calls:
-                raise AssertionError(f"[serve_reduced] {kv} cache: launches "
+                raise AssertionError(f"[serve_reduced] {arch} {kv} cache: "
+                                     f"launches "
                                      f"{got}, plain attention calls "
                                      f"{plain.calls}")
             if kv == torch.float32:
@@ -1873,14 +2020,15 @@ def run_serve_reduced(dev) -> dict:
                            for n in ("k", "v"))
             err = float((card["logits"].cpu() - want).abs().max()
                         / want.abs().max())
-            print(f"[serve_reduced] {kv} cache: {got}; last logits card vs "
+            print(f"[serve_reduced] {arch} {kv} cache: {got}; last logits "
+                  f"card vs "
                   f"CPU {err:.3e} of the largest (tolerance 1e-4); "
                   + ("greedy tokens equal" if kv == torch.float32 else
                      "rows written at the last step within one bf16 ulp")
                   + f": {same}; continuations {card['tokens'][:2].tolist()}")
             if not (card["finite"] and err <= 1e-4 and same):
-                raise AssertionError(f"[serve_reduced] {kv} cache: err {err}"
-                                     f", match {same}")
+                raise AssertionError(f"[serve_reduced] {arch} {kv} cache: "
+                                     f"err {err}, match {same}")
     return launches
 
 
@@ -1919,30 +2067,32 @@ def profile_last_steps(tag, params, cfg, res, prompts, dev, attend_fn,
                       f" ms x{e.count // reps}" for e in top))
 
 
-def run_serve(dev) -> dict:
-    """``[serve]``: gemma2-2b at published widths and full depth through
-    ``launch.serve.run``: SERVE's batch, prompt and generation on a bf16
-    cache, the parameters cast to bf16 once.  Gates: finite logits at
-    every step, ``n_layers x (prompt + gen)`` decode-kernel launches and no
-    call of a plain attention."""
-    from repro_torch.configs import gemma2_2b
+def run_serve(dev, tag: str = "serve", arch: str = "gemma2-2b",
+              sv: dict = SERVE) -> dict:
+    """``[serve]``: gemma2-2b (``[serve_stablelm]``: stablelm-3b, head_dim
+    80) at published widths and full depth through ``launch.serve.run``:
+    ``sv``'s batch, prompt and generation on a bf16 cache, the parameters
+    cast to bf16 once.  Gates: finite logits at every step, ``n_layers x
+    (prompt + gen)`` decode-kernel launches and no call of a plain
+    attention."""
+    from repro_torch.configs import registry
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn import make_attend_fn
     from repro_torch.launch import serve
 
-    cfg = gemma2_2b.CONFIG
-    sv = SERVE
+    cfg = registry.get_config(arch)
     steps = sv["prompt_len"] + sv["gen_len"]
     params = serve_params_on(cfg, dev)
     nbytes = sum(v.numel() * v.element_size() for v in params.values())
     prompts = serve.make_prompts(sv["batch"], sv["prompt_len"], cfg.vocab, 0,
                                  dev)
-    cache_b = 2 * cfg.n_layers * sv["batch"] * steps * cfg.n_kv_heads \
-        * cfg.head_dim * 2
-    print(f"[serve] {cfg.name}, {cfg.n_layers} layers at published widths, "
-          f"parameters {nbytes} B in {cfg.dtype}; batch {sv['batch']}, "
-          f"prompt {sv['prompt_len']}, gen {sv['gen_len']}, bf16 cache "
-          f"{cache_b} B")
+    row_b = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * 2
+    cache_b = row_b * sv["batch"] * steps
+    print(f"[{tag}] {cfg.name}, {cfg.n_layers} layers at published widths "
+          f"(head_dim {cfg.head_dim_}), parameters {nbytes} B in "
+          f"{cfg.dtype}; batch {sv['batch']}, prompt {sv['prompt_len']}, "
+          f"gen {sv['gen_len']}, bf16 cache {cache_b} B ({row_b} B per "
+          f"token)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
@@ -1954,21 +2104,21 @@ def run_serve(dev) -> dict:
     launches = {k: v for k, v in counts.items() if v}
     peak = torch.cuda.max_memory_allocated()
     dt = res["prefill_s"] + res["decode_s"]
-    print(f"[serve] {steps} decode steps: prefill {res['prefill_s']:.3f} s "
+    print(f"[{tag}] {steps} decode steps: prefill {res['prefill_s']:.3f} s "
           f"({res['prefill_s'] / sv['prompt_len'] * 1e3:.3f} ms per step), "
           f"generation {res['decode_s']:.3f} s "
           f"({res['decode_s'] / sv['gen_len'] * 1e3:.3f} ms per step, "
           f"{sv['batch'] * sv['gen_len'] / res['decode_s']:.1f} tok/s); "
           f"{sv['batch'] * steps / dt:.1f} tok/s over all steps")
-    print(f"[serve] max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
-    print(f"[serve] launches {launches}, plain attention calls "
+    print(f"[{tag}] max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
+    print(f"[{tag}] launches {launches}, plain attention calls "
           f"{plain.calls}, logits finite {res['finite']}")
-    print(f"[serve] sample continuations: {res['tokens'][:2].tolist()}")
-    profile_last_steps("serve", params, cfg, res, prompts, dev,
+    print(f"[{tag}] sample continuations: {res['tokens'][:2].tolist()}")
+    profile_last_steps(tag, params, cfg, res, prompts, dev,
                        make_attend_fn(cfg))
     if not res["finite"] or plain.calls or launches != {
             "decode_attention": cfg.n_layers * steps}:
-        raise AssertionError(f"[serve] finite {res['finite']}, launches "
+        raise AssertionError(f"[{tag}] finite {res['finite']}, launches "
                              f"{launches}, plain calls {plain.calls}")
     del params, res
     torch.cuda.empty_cache()
@@ -2055,6 +2205,8 @@ def run_serve_paths(dev) -> dict:
     just after; returns them by path."""
     return {"serve_reduced": run_serve_reduced(dev),
             "serve": run_serve(dev),
+            "serve_stablelm": run_serve(dev, "serve_stablelm", "stablelm-3b",
+                                        SERVE_STABLELM),
             "serve_long": run_serve_long(dev)}
 
 
@@ -2181,6 +2333,7 @@ def main(argv=None) -> int:
         plan=cohort.CohortPlan(0, NF, CF),
         faults=faults.FaultPlan(seed=0, n=NF, p_drop=0.25),
         policy="quorum")
+    by_path.update(run_family_paths(dev))
 
     # ---- the convex core at paper scale: Fig. 3's problem, c=100, 1000 --
     from repro_torch.core import problems, tamuna
@@ -2212,6 +2365,8 @@ def main(argv=None) -> int:
 
     recs += check_decode_kernels(dev)
     torch.cuda.empty_cache()
+    recs += check_decode_hd80(dev)
+    torch.cuda.empty_cache()
     by_path.update(run_serve_paths(dev))
 
     src = "src/repro_torch/kernels/csrc/tamuna_kernels.cu"
@@ -2242,23 +2397,31 @@ def main(argv=None) -> int:
                                  "serve_reduced"),
         "decode_attention_f32_bf16kv": (
             "src/repro/kernels/decode_attn.py:33", "serve_reduced"),
+        # head_dim 80: only [serve_stablelm] serves it (bf16); no path
+        # serves an hd-80 model in f32
+        "decode_attention_hd80": ("src/repro/kernels/decode_attn.py:33",
+                                  "serve_stablelm"),
+        "decode_attention_f32_hd80": ("src/repro/kernels/decode_attn.py:33",
+                                      None),
+        "decode_attention_f32_bf16kv_hd80": (
+            "src/repro/kernels/decode_attn.py:33", None),
     }
     kernels = []
     for rec in recs:
         body, path_name = replaces[rec["name"]]
+        count = rec.get("count", rec["name"])
         kernels.append({
             "name": rec["name"], "route": "cuda", "source": src,
             "replaces": body,
             "launches": (0 if path_name is None
-                         else by_path[path_name][rec["name"]]),
+                         else by_path[path_name][count]),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec.get("bound_by", "bytes"),
             "library_ms": rec.get("library_ms"),
             "shape": rec["shape"], "tolerance": rec["tolerance"],
             "path": path_name,
-            "launches_by_path": {p: by_path[p][rec["name"]]
-                                 for p in by_path},
+            "launches_by_path": {p: by_path[p][count] for p in by_path},
             **{k: v for k, v in rec.items() if k not in (
                 "name", "shape", "max_abs_err", "tolerance", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")},

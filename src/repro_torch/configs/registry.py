@@ -7,7 +7,11 @@ import importlib
 from repro_torch.models.transformer import ModelConfig
 
 ARCHS = {
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "gemma2-9b": "repro_torch.configs.gemma2_9b",
+    "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
 }
 
 

@@ -8,6 +8,8 @@ runs on the device: the chains advance by ``torch.searchsorted`` over the
 cumulative tables, with every draw taken from one ``torch.Generator`` on
 the device seeded with ``DataConfig.seed``.  Unlike the reference's
 per-client threefry streams, the draws depend on the cohort's make-up.
+A model with a stub frontend (``prefix_len``) also gets f32 normal
+``prefix_embeds`` from the same generator, cast to its compute dtype.
 """
 
 from __future__ import annotations
@@ -51,11 +53,13 @@ def transition_tables(dcfg: DataConfig, model_cfg: ModelConfig
 
 class SyntheticTokenPipeline:
     """Batches ``{"tokens", "labels"}`` of shape ``(c, b, seq_len)`` for a
-    cohort of ``c`` clients, sampled on ``device``."""
+    cohort of ``c`` clients, sampled on ``device``, and ``prefix_embeds
+    (c, b, prefix_len, d_model)`` when the model has a prefix."""
 
     def __init__(self, dcfg: DataConfig, model_cfg: ModelConfig,
                  device: DeviceLike = "cuda"):
         self.dcfg = dcfg
+        self.model_cfg = model_cfg
         self.device = resolve_device(device)
         self.trans = transition_tables(dcfg, model_cfg)
         self.n, self.v = self.trans.shape[0], self.trans.shape[-1]
@@ -68,7 +72,8 @@ class SyntheticTokenPipeline:
     def sample_batch(self, clients: Sequence[int]) -> Dict[str, torch.Tensor]:
         """One batch for ``clients`` (row ``a`` is client ``clients[a]``'s
         chain): ``seq_len + 1`` states per sequence, tokens the first
-        ``seq_len``, labels the last ``seq_len``."""
+        ``seq_len``, labels the last ``seq_len``; then the prefix
+        embeddings, drawn after the tokens."""
         dev, g, v = self.device, self.generator, self.v
         b, T = self.dcfg.per_client_batch, self.dcfg.seq_len
         ids = torch.as_tensor(list(clients), dtype=torch.long,
@@ -83,4 +88,10 @@ class SyntheticTokenPipeline:
             state = state.clamp_(max=v - 1)
             seq.append(state)
         toks = torch.stack(seq, dim=-1)  # (c, b, T + 1)
-        return {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        batch = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+        mc = self.model_cfg
+        if mc.prefix_len:
+            pe = torch.randn((ids.shape[0], b, mc.prefix_len, mc.d_model),
+                             generator=g, dtype=torch.float32, device=dev)
+            batch["prefix_embeds"] = pe.to(mc.dtype)
+        return batch

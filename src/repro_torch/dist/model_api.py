@@ -34,17 +34,21 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 
 
 def loss(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
-         labels: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``(scalar loss, metrics)`` of one client's batch."""
-    return tr.loss_fn(params, cfg, tokens, labels)
+         labels: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``(scalar loss, metrics)`` of one client's batch; ``prefix_embeds
+    (b, P, d_model)`` go before the tokens and the loss is on the text
+    positions only."""
+    return tr.loss_fn(params, cfg, tokens, labels, prefix_embeds)
 
 
-def prefill(params: Params, cfg: ModelConfig, *,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """Full-sequence forward; the last position's logits ``(b, vocab)``,
-    the hidden state and the head in f32 (the decode loop's cache is
-    built by stepping ``decode``)."""
-    h = tr.forward(params, cfg, tokens)
+def prefill(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward (``prefix_embeds`` before the tokens); the
+    last position's logits ``(b, vocab)``, the hidden state and the head in
+    f32 (the decode loop's cache is built by stepping ``decode``, which
+    takes no prefix)."""
+    h = tr.forward(params, cfg, tokens, prefix_embeds)
     logits = torch.matmul(h[:, -1].float(),
                           tr.lm_head_weight(params, cfg).float())
     return layers.softcap(logits[:, :cfg.vocab], cfg.final_softcap)

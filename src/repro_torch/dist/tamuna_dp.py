@@ -172,10 +172,12 @@ def scatter_cohort(state: DistTamunaState,
 
 def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Build ``fn(compact, *, tokens, labels) -> {"loss": mean loss}``.
+    """Build ``fn(compact, *, tokens, labels, prefix_embeds=None) ->
+    {"loss": mean loss}``.
 
     ``tokens``/``labels`` are ``(c, b, T)``, row ``a`` the batch of cohort
-    member ``a``.  Each member's loss and gradient are taken on views of its
+    member ``a``, and ``prefix_embeds`` ``(c, b, P, d_model)`` where the
+    model has a prefix.  Each member's loss and gradient are taken on views of its
     workspace row, then ``fused_local_step`` writes ``x - gamma (g - h)``
     into the row leaf by leaf.  Members are independent, so one at a time
     is the reference's vmap over them, with one member's gradients alive
@@ -183,16 +185,19 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
     gamma = tcfg.gamma
     spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
 
-    def fn(compact: Cohort, *, tokens: torch.Tensor,
-           labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def fn(compact: Cohort, *, tokens: torch.Tensor, labels: torch.Tensor,
+           prefix_embeds: Optional[torch.Tensor] = None
+           ) -> Dict[str, torch.Tensor]:
         losses = []
         for a, (xr, hr) in enumerate(zip(compact.x, compact.h)):
             xs = comm_ws.leaf_views(xr, spec)
             hs = comm_ws.leaf_views(hr, spec)
             params = {k: v.detach().requires_grad_(True)
                       for k, v in xs.items()}
-            loss, _ = model_api.loss(params, cfg, tokens=tokens[a],
-                                     labels=labels[a])
+            loss, _ = model_api.loss(
+                params, cfg, tokens=tokens[a], labels=labels[a],
+                prefix_embeds=(None if prefix_embeds is None
+                               else prefix_embeds[a]))
             grads = torch.autograd.grad(loss, list(params.values()))
             for (name, xv), g in zip(xs.items(), grads):
                 fused_local_step(xv, g.contiguous(), hs[name], gamma, out=xv)

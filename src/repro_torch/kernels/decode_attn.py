@@ -50,7 +50,9 @@ _NAMES = {
     (torch.float32, torch.float32): "decode_attention_f32",
     (torch.float32, torch.bfloat16): "decode_attention_f32_bf16kv",
 }
-HEAD_DIMS = (32, 64, 128, 256)
+# 80: stablelm-3b (2560 / 32); the f32 kernels give it 4 entries on each
+# of 20 lanes, the bf16 kernel's tiles a padded 88-element pitch
+HEAD_DIMS = (32, 64, 80, 128, 256)
 MAX_GROUP = 8
 
 

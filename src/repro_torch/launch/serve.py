@@ -12,6 +12,8 @@ plain version on the CPU.  There is no mesh: the reference's
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --batch 2 \\
       --prompt-len 8 --gen-len 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
+      --reduced --batch 2 --prompt-len 8 --gen-len 4 --device cpu
 """
 
 from __future__ import annotations
@@ -79,7 +81,8 @@ def run(params: Dict[str, torch.Tensor], cfg, prompts: torch.Tensor,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--arch", default="gemma2-2b",
+                    help="a dense architecture of configs.registry")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--batch", type=int, default=4)

@@ -13,9 +13,15 @@ offenders from a ``CohortPlan``'s cohorts.
 casts, int8/int4 stochastic codes, ``auto`` per leaf size) and
 ``--wire-down`` quantizes the DownCom broadcast too.
 
+``--arch`` takes the dense family; internvl2-26b's batches carry its stub
+frontend's ``prefix_embeds`` (``SyntheticTokenPipeline``), and the loss
+is on the text positions.
+
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch gemma2-2b --reduced --rounds 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch internvl2-26b --reduced --rounds 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --sparsity 3 --robust-agg trimmed --trim-k 1 --adversary sign_flip \\
       --f-byz 0.25 --device cpu
@@ -35,7 +41,8 @@ import time
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-2b")
+    ap.add_argument("--arch", default="gemma2-2b",
+                    help="a dense architecture of configs.registry")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--rounds", type=int, default=20)

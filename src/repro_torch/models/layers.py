@@ -13,7 +13,7 @@ evaluation of the same model, which the reference has no counterpart of.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,14 +78,20 @@ def softcap(logits: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 
 
 def qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
-        wv: torch.Tensor, n_heads: int, n_kv_heads: int, head_dim: int):
+        wv: torch.Tensor, n_heads: int, n_kv_heads: int, head_dim: int,
+        biases: Optional[Tuple[torch.Tensor, ...]] = None):
     """The query, key and value projections of ``x (b, t, d)`` as
-    ``(b, t, heads, head_dim)`` (the reference's ``_qkv`` without
-    biases)."""
+    ``(b, t, heads, head_dim)`` (the reference's ``_qkv``): each product
+    in ``x``'s dtype, then its bias ``(bq, bk, bv)``, cast to that dtype,
+    added in it."""
     b, t, _ = x.shape
-    return (matmul(x, wq).view(b, t, n_heads, head_dim),
-            matmul(x, wk).view(b, t, n_kv_heads, head_dim),
-            matmul(x, wv).view(b, t, n_kv_heads, head_dim))
+    q, k, v = matmul(x, wq), matmul(x, wk), matmul(x, wv)
+    if biases is not None:
+        bq, bk, bv = biases
+        q, k, v = q + bq.to(q.dtype), k + bk.to(k.dtype), v + bv.to(v.dtype)
+    return (q.view(b, t, n_heads, head_dim),
+            k.view(b, t, n_kv_heads, head_dim),
+            v.view(b, t, n_kv_heads, head_dim))
 
 
 # sequence length at and above which ``attention`` takes the blockwise
@@ -139,15 +145,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
               wv: torch.Tensor, wo: torch.Tensor, *, n_heads: int,
               n_kv_heads: int, head_dim: int, rope_theta: Optional[float],
-              window: int, attn_softcap: Optional[float]) -> torch.Tensor:
+              window: int, attn_softcap: Optional[float],
+              biases: Optional[Tuple[torch.Tensor, ...]] = None
+              ) -> torch.Tensor:
     """Causal GQA self-attention over ``x (b, t, d)`` with a sliding
     window: key ``kp`` is visible from query ``qp`` iff
     ``qp - window < kp <= qp``.  From ``t >= FLASH_THRESHOLD`` on the
     blockwise ``flash_attention``, as the reference's forward; below it
     the dense form, whose probabilities are rounded to the compute dtype
-    before the product with ``v``."""
+    before the product with ``v``.  ``biases`` are ``qkv``'s."""
     b, t, _ = x.shape
-    q, k, v = qkv(x, wq, wk, wv, n_heads, n_kv_heads, head_dim)
+    q, k, v = qkv(x, wq, wk, wv, n_heads, n_kv_heads, head_dim, biases)
     if rope_theta is not None:
         pos = torch.arange(t, device=x.device)
         q = apply_rope(q, pos, rope_theta)
@@ -171,14 +179,32 @@ def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     return matmul(out.reshape(b, t, n_heads * head_dim), wo)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA evaluates it: ``x * (1 / (1 + exp(-x)))``,
+    every operation rounded to ``x``'s dtype (in bf16 a fused
+    ``F.silu`` rounds once and differs on ~40% of the elements)."""
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)`` as XLA evaluates it: ``x * (0.5
+    (1 + tanh(c (x + k x x x))))`` with the constants and every operation
+    rounded to ``x``'s dtype (``F.gelu`` differs on ~43% of bf16
+    elements)."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype,
+                     device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 def mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         w_down: torch.Tensor, act: str) -> torch.Tensor:
     """Gated MLP ``act(x W_gate) * (x W_up) W_down``; ``gelu`` is the tanh
     approximation (``jax.nn.gelu``'s default)."""
     if act == "gelu":
-        a = F.gelu(matmul(x, w_gate), approximate="tanh")
+        a = gelu_tanh(matmul(x, w_gate))
     elif act == "silu":
-        a = F.silu(matmul(x, w_gate))
+        a = silu(matmul(x, w_gate))
     elif act == "relu":
         a = F.relu(matmul(x, w_gate))
     else:

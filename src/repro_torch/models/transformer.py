@@ -44,6 +44,7 @@ class ModelConfig:
     vocab: int = 1024
     head_dim: Optional[int] = None  # default d_model // n_heads
     rope_theta: Optional[float] = 10000.0
+    qkv_bias: bool = False
     attn_softcap: Optional[float] = None
     final_softcap: Optional[float] = None
     sliding_window: Optional[int] = None  # window of the "local" layers
@@ -52,6 +53,7 @@ class ModelConfig:
     post_norm: bool = False  # gemma2 sandwich norms
     act: str = "silu"
     tie_embeddings: bool = True
+    prefix_len: int = 0  # stub frontend: embeddings prepended to the text
     scale_embed: bool = False  # gemma multiplies embed by sqrt(d_model)
     dtype: torch.dtype = torch.bfloat16
     xent_chunk: int = 512
@@ -61,8 +63,6 @@ class ModelConfig:
         if self.family != "dense":
             raise ValueError(
                 f"family {self.family!r} is not ported; only 'dense' is")
-        if not self.tie_embeddings:
-            raise ValueError("untied embeddings (lm_head) are not ported")
 
     @property
     def head_dim_(self) -> int:
@@ -91,12 +91,17 @@ class ModelConfig:
 
 def param_specs(cfg: ModelConfig) -> List[Tuple[str, Tuple[int, ...]]]:
     """``[(name, shape)]`` of every parameter leaf, in the reference's
-    ``jax.tree.leaves`` order (dict keys sorted at every level)."""
+    ``jax.tree.leaves`` order (dict keys sorted at every level): the
+    biases before the attention matrices, and ``lm_head`` and
+    ``prefix_proj`` after ``final_norm`` where the config has them."""
     L, d, F = cfg.n_layers, cfg.d_model, cfg.d_ff
     q, kv = cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
     norms = ["ln_attn", "ln_attn_post", "ln_ff", "ln_ff_post"] \
         if cfg.post_norm else ["ln_attn", "ln_ff"]
+    biases = [("blocks/attn/bk", (L, kv)), ("blocks/attn/bq", (L, q)),
+              ("blocks/attn/bv", (L, kv))] if cfg.qkv_bias else []
     return [
+        *biases,
         ("blocks/attn/wk", (L, d, kv)),
         ("blocks/attn/wo", (L, q, d)),
         ("blocks/attn/wq", (L, d, q)),
@@ -107,13 +112,17 @@ def param_specs(cfg: ModelConfig) -> List[Tuple[str, Tuple[int, ...]]]:
         ("blocks/mlp/w_up", (L, d, F)),
         ("embed", (cfg.padded_vocab, d)),
         ("final_norm/scale", (d,)),
+        *([] if cfg.tie_embeddings
+          else [("lm_head", (d, cfg.padded_vocab))]),
+        *([("prefix_proj", (d, d))] if cfg.prefix_len else []),
     ]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device: DeviceLike = "cuda") -> Params:
     """Random f32 parameters with the reference's init scales: matrices
-    ``N(0, 1/in_dim)``, the embedding ``N(0, 0.02^2)``, norm scales ones.
+    (``lm_head`` and ``prefix_proj`` included) ``N(0, 1/in_dim)``, the
+    embedding ``N(0, 0.02^2)``, norm scales ones, q/k/v biases zeros.
     ``generator`` must live on ``device``; the draws are the port's own
     (a reference init is carried over with ``repro_torch.convert``)."""
     dev = resolve_device(device)
@@ -121,6 +130,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     for name, shape in param_specs(cfg):
         if name.endswith("/scale"):
             params[name] = torch.ones(shape, dtype=torch.float32, device=dev)
+            continue
+        if name.startswith("blocks/attn/b"):
+            params[name] = torch.zeros(shape, dtype=torch.float32,
+                                       device=dev)
             continue
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
@@ -141,6 +154,7 @@ def _block(p: Params, l: int, x: torch.Tensor, cfg: ModelConfig,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta,
         window=eff_window, attn_softcap=cfg.attn_softcap,
+        biases=_biases(p, l, cfg),
     )
     if cfg.post_norm:
         h = layers.rmsnorm(p["blocks/ln_attn_post/scale"][l], h)
@@ -151,6 +165,14 @@ def _block(p: Params, l: int, x: torch.Tensor, cfg: ModelConfig,
     if cfg.post_norm:
         h = layers.rmsnorm(p["blocks/ln_ff_post/scale"][l], h)
     return x + h
+
+
+def _biases(p: Params, l: int, cfg: ModelConfig
+            ) -> Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Layer ``l``'s ``(bq, bk, bv)``, or ``None`` without biases."""
+    if not cfg.qkv_bias:
+        return None
+    return tuple(p[f"blocks/attn/{nm}"][l] for nm in ("bq", "bk", "bv"))
 
 
 def _embed(params: Params, cfg: ModelConfig,
@@ -164,20 +186,32 @@ def _embed(params: Params, cfg: ModelConfig,
     return x
 
 
-def forward(params: Params, cfg: ModelConfig,
-            tokens: torch.Tensor) -> torch.Tensor:
-    """``tokens (b, t)`` -> final hidden states ``(b, t, d_model)``."""
+def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``tokens (b, t)`` -> final hidden states ``(b, P + t, d_model)``.
+    ``prefix_embeds (b, P, d_model)`` (a stub frontend's patch
+    embeddings), in the compute dtype and through ``prefix_proj`` where
+    the model has it, go before the token embeddings."""
     x = _embed(params, cfg, tokens)
+    if prefix_embeds is not None:
+        pe = prefix_embeds.to(cfg.dtype)
+        if "prefix_proj" in params:
+            pe = layers.matmul(pe, params["prefix_proj"])
+        x = torch.cat([pe, x], dim=1)
     for l, w in enumerate(cfg.layer_windows()):
         x = _block(params, l, x, cfg, w)
     return layers.rmsnorm(params["final_norm/scale"], x)
 
 
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor
+            labels: torch.Tensor,
+            prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy; the tied embedding is the head."""
-    h = forward(params, cfg, tokens)
+    """Mean next-token cross-entropy over the text positions (the prefix's
+    are dropped) through ``lm_head_weight``."""
+    h = forward(params, cfg, tokens, prefix_embeds)
+    if prefix_embeds is not None:
+        h = h[:, prefix_embeds.shape[1]:]
     xent = layers.chunked_softmax_xent(
         h, lm_head_weight(params, cfg), labels, chunk=cfg.xent_chunk,
         logit_softcap=cfg.final_softcap, valid_vocab=cfg.vocab,
@@ -187,8 +221,10 @@ def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def lm_head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
     """The vocab projection ``(d_model, padded_vocab)``: the tied
-    embedding, transposed (a view)."""
-    return params["embed"].T
+    embedding, transposed (a view), or the untied ``lm_head``."""
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
 
 
 # --------------------------------------------------------------------------
@@ -255,7 +291,7 @@ def _attention_decode_dyn(p: Params, l: int, x: torch.Tensor, cache: Params,
     b = x.shape[0]
     q, k, v = layers.qkv(x, p["blocks/attn/wq"][l], p["blocks/attn/wk"][l],
                          p["blocks/attn/wv"][l], cfg.n_heads, cfg.n_kv_heads,
-                         cfg.head_dim_)
+                         cfg.head_dim_, _biases(p, l, cfg))
     if cfg.rope_theta is not None:
         q = layers.rope_at(q, pos, cfg.rope_theta)
         k = layers.rope_at(k, pos, cfg.rope_theta)

@@ -656,6 +656,7 @@ def _bf16_ulps(a, b):
 @pytest.mark.parametrize("b,h,kvh,hd,S", [
     (2, 8, 4, 256, 1500), (3, 6, 6, 32, 300), (1, 8, 1, 64, 700),
     (2, 7, 1, 128, 520), (2, 8, 2, 64, 4097),
+    (2, 32, 32, 80, 600), (2, 8, 2, 80, 1100),  # hd 80: stablelm-3b
 ])
 def test_decode_attention_kernel_matches_plain(dev, qt, kvt, name, b, h, kvh,
                                                hd, S):
@@ -684,7 +685,7 @@ def test_decode_attention_kernel_matches_plain(dev, qt, kvt, name, b, h, kvh,
                 assert float((got - want).abs().max()) < 2e-5, (pos, window)
 
 
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
 def test_decode_attention_bf16_kernel_at_tile_and_split_edges(dev, group,
                                                               hd):
@@ -718,8 +719,8 @@ def test_decode_attention_bf16_kernel_at_tile_and_split_edges(dev, group,
 def test_decode_attention_kernel_rejects_what_it_does_not_take(dev):
     from repro_torch.kernels import decode_attn
 
-    q = torch.zeros(1, 4, 80, device=dev)
-    k = torch.zeros(1, 8, 2, 80, device=dev)
+    q = torch.zeros(1, 4, 96, device=dev)  # no config has head_dim 96
+    k = torch.zeros(1, 8, 2, 96, device=dev)
     with pytest.raises(ValueError, match="head_dim"):
         decode_attn.decode_attention(q, k, k, 3)
     q = torch.zeros(1, 4, 64, device=dev, dtype=torch.bfloat16)

@@ -42,7 +42,14 @@ assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack",
         "repro_torch.core.theory", "repro_torch.kernels.decode_attn",
         "repro_torch.serve_utils", "repro_torch.launch.serve",
         "repro_torch.launch.convex_bench", "repro_torch.core.baselines",
-        "repro_torch.launch.paper_bench"} <= set(names)
+        "repro_torch.launch.paper_bench", "repro_torch.launch.train",
+        "repro_torch.configs.gemma2_9b", "repro_torch.configs.stablelm_3b",
+        "repro_torch.configs.deepseek_coder_33b",
+        "repro_torch.configs.internvl2_26b"} <= set(names)
+from repro_torch.configs import registry
+assert len(registry.list_archs()) == 5
+for arch in registry.list_archs():
+    registry.get_config(arch), registry.get_reduced_config(arch)
 print(len(names), bad)
 """
     proc = _run(["-c", code])

@@ -19,6 +19,7 @@ import torch
 
 from repro import checkpoint
 from repro.configs import gemma2_2b as jgemma
+from repro.configs import registry as jregistry
 from repro.dist import model_api as japi
 from repro_torch import convert
 from repro_torch.configs import gemma2_2b, registry
@@ -34,18 +35,33 @@ def _reference_params(cfg, seed=0):
     return params, {n: np.asarray(a) for n, a in zip(names, leaves)}
 
 
-@pytest.mark.parametrize("layers", [2, 26])
-def test_leaf_names_order_and_shapes_match_reference(layers):
-    jcfg = dataclasses.replace(jgemma.CONFIG, n_layers=layers)
-    cfg = dataclasses.replace(gemma2_2b.CONFIG, n_layers=layers)
+# the full-width rows the card's training paths pack: (arch, layers) ->
+# d_total f32 per client row
+FULL_WIDTH_ROWS = {("gemma2-2b", 2): 745_558_272,
+                   ("stablelm-3b", 6): 733_427_200,
+                   ("internvl2-26b", 1): 1_566_590_976}
+
+
+@pytest.mark.parametrize("arch,layers", [
+    ("gemma2-2b", 2), ("gemma2-2b", 26), ("gemma2-9b", 2), ("gemma2-9b", 42),
+    ("stablelm-3b", 2), ("stablelm-3b", 6), ("stablelm-3b", 32),
+    ("deepseek-coder-33b", 2), ("deepseek-coder-33b", 62),
+    ("internvl2-26b", 1), ("internvl2-26b", 2), ("internvl2-26b", 48)])
+def test_leaf_names_order_and_shapes_match_reference(arch, layers):
+    """Every dense architecture at its published widths, cut to 2 layers
+    (and to the card's training depths) and at full depth: the names
+    (q/k/v biases, ``lm_head``, ``prefix_proj`` included), order and
+    shapes of ``jax.eval_shape`` of the reference's init."""
+    jcfg = dataclasses.replace(jregistry.get_config(arch), n_layers=layers)
+    cfg = dataclasses.replace(registry.get_config(arch), n_layers=layers)
     struct = jax.eval_shape(lambda: japi.init(jax.random.key(0), jcfg))
     flat, _ = jax.tree_util.tree_flatten_with_path(struct)
     want = [("/".join(str(e.key) for e in path), tuple(a.shape))
             for path, a in flat]
     assert model_api.param_specs(cfg) == want
     spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
-    if layers == 2:  # the full-width slice: one client row
-        assert spec.d_total == 745_558_272
+    if (arch, layers) in FULL_WIDTH_ROWS:  # one client row on the card
+        assert spec.d_total == FULL_WIDTH_ROWS[arch, layers]
     assert spec.d_total == sum(int(np.prod(s)) for _, s in want)
 
 
