@@ -48,7 +48,16 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    the fault-free round, a round with a dropped member and the trimmed
    mean, and an int8 ``wire_down`` round with a dropped member and the
    trimmed mean whose comm step runs on both devices from the same
-   trained state and must agree bitwise;
+   trained state and must agree bitwise; the same three on the blocked
+   template (``uplink="block_rs"``: the fault-free round, a drop with the
+   trimmed mean, int8 ``wire_down`` with a drop, its comm step bitwise);
+   an AdamW round with ``microbatches=2`` (one local step; the columns
+   where ``g - h`` lies within 1e-5 of 0, where AdamW's near-sign step
+   turns the two devices' gradient roundings into up to ``2 gamma``, are
+   counted and held to that bound); and a tall-and-thin round of a dense
+   model of one layer and width 16 at n = c = 40, s = 2, whose norm
+   leaves take the dense fallback (laid after the others; the kernels run
+   over the columns before them with the workspace's row pitch);
 5. drives six paths of ``repro_torch.dist.rounds.run_rounds``, each for
    3 rounds (4 on ``[reputation]``) of 2-layer full-width gemma2-2b (seq
    128, 2 sequences per client, max_L 4) with the launch counts set to 0
@@ -83,6 +92,21 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    ``[train_prefix]`` internvl2-26b at published widths cut to 1 layer,
                 256 prefix embeddings before 128 text tokens, d_total =
                 1,566,590,976 (row offsets past 2^31), n=3, c=2, s=2;
+   then the round's options on 2-layer gemma2-2b, n=4, c=3, s=2:
+   ``[train_adamw]`` ``local_opt="adamw"``, ``microbatches=2`` (x, h and
+                the two moments: 16 rows of 2.98 GB), gated as ``[train]``
+                and launching no ``fused_local_step``;
+   ``[train_blocked]`` ``uplink="block_rs"`` on the kernel path, gated as
+                ``[train]``, then one comm step each of ``comm_impl``
+                ``"ws"`` and ``"dense"`` from the trained state against
+                the kernel path's (a host copy restores the state between
+                impls; 2**-20 of the largest value, bitwise reported);
+   ``[train_all_rows]`` ``elastic=False``: every row trains and receives
+                the DownCom, ``fused_local_step`` launched n L leaves times
+                per round;
+   ``[checkpoint]`` the reduced config with AdamW: 4 rounds against 2 +
+                ``save_state`` + ``restore_state`` + 2, bitwise, with the
+                save and restore times (under ``_smoke/``, removed);
 6. builds the paper's Fig. 3 problem at paper scale
    (``benchmarks/paper_fig3.py --paper-scale``: real-sim-like l2-logistic
    regression, n=1000 clients, d=20958, 4 samples each, kappa=1e4, seed
@@ -224,6 +248,15 @@ SERVE_REDUCED_ARCHS = ("gemma2-2b", "stablelm-3b", "deepseek-coder-33b",
 # tokens) 48 -> 1 layer at 3 clients (a row of 1.57e9 f32)
 TRAIN_STABLELM_LAYERS = 6
 TRAIN_PREFIX = dict(layers=1, n=3, c=2, s=2)
+# the tall-and-thin round: a dense model of one layer and width 16 at
+# n = c = 40, s = 2, whose norm leaves (D = 16, D s = 32 < c) take the
+# dense fallback while its other leaves stay on the kernels
+TINY_TALL = dict(n_layers=1, d_model=16, n_heads=2, n_kv_heads=1,
+                 head_dim=8, d_ff=32, vocab=64)
+TALL = dict(n=40, c=40, s=2)
+# AdamW's reduced round runs one local step (see check_reduced_adamw_round)
+# and gates columns whose g - h lies within ADAM_NEAR0 of 0 at 2 gamma
+ADAM_NEAR0 = 1e-5
 
 
 def smi() -> str:
@@ -792,21 +825,25 @@ def check_wire_kernels(spec, dev):
     return recs
 
 
-def check_reduced_wire_round(dev):
+def check_reduced_wire_round(dev, uplink="masked_psum"):
     """One reduced-config round on the int8 wire with the DownCom
-    quantized, a dropped member and the trimmed mean: the local steps on
-    the card against the CPU (1e-5), then the comm step on both devices
-    from the CPU's trained state, which must agree bitwise (a last-bit
-    difference in a trained coordinate may move its stochastic rounding
-    by a level, so the two steps are held apart)."""
+    quantized, a dropped member and (cyclic template) the trimmed mean:
+    the local steps on the card against the CPU (1e-5), then the comm step
+    on both devices from the CPU's trained state, which must agree bitwise
+    (a last-bit difference in a trained coordinate may move its stochastic
+    rounding by a level, so the two steps are held apart).  ``uplink=
+    "block_rs"`` runs the blocked template's step with the mean."""
     from repro_torch.configs import gemma2_2b
     from repro_torch.dist import comm_ws, model_api, tamuna_dp
 
     cfg = gemma2_2b.REDUCED
-    n, cohort, perm = NF, [0, 1, 3, 4], [3, 0, 2, 1]
+    n, cohort = NF, [0, 1, 3, 4]
+    blocked = uplink == "block_rs"
+    tmpl = dict(off=1) if blocked else dict(perm=[3, 0, 2, 1])
     tcfg = tamuna_dp.DistTamunaConfig(
         gamma=GAMMA, c=CF, s=SF, p=P, wire_precision="int8", wire_down=True,
-        robust_agg="trimmed", trim_k=1)
+        uplink=uplink, robust_agg="mean" if blocked else "trimmed",
+        trim_k=0 if blocked else 1)
     rng = np.random.default_rng(6)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, CF, 2, 97)))
     d_total = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
@@ -830,14 +867,15 @@ def check_reduced_wire_round(dev):
         state = trained[str(device)]
         state.x = x_cpu.clone().to(device)  # the step works in place
         comm = tamuna_dp.make_comm_step(cfg, tcfg, n, device=device)
-        state = comm(state, cohort, perm, [True, True, True, False, True],
+        state = comm(state, cohort, down=[True, True, True, False, True],
                      arrived=np.array([True, False, False, True, True]),
-                     wire_seed=0xC0FFEE)
+                     wire_seed=0xC0FFEE, **tmpl)
         out[str(device)] = (state.x.cpu(), state.h.cpu())
     (xc, hc), (xg, hg) = out["cpu"], out[str(dev)]
     err_comm = max(max_abs_err(xc, xg), max_abs_err(hc, hg))
     print(f"[reduced] one int8 wire_down round of {cfg.name} (n={n} c={CF} "
-          f"s={SF} trimmed k=1, member 1 dropped): local steps card vs CPU "
+          f"s={SF} {uplink} {tcfg.robust_agg}, member 1 dropped): local "
+          f"steps card vs CPU "
           f"max abs err {err_local:.3e} (tolerance 1e-5), comm step from the "
           f"same trained state {err_comm} (tolerance 0)")
     if not err_local <= 1e-5 or err_comm != 0.0:
@@ -869,6 +907,9 @@ def reduced_local(device, cfg, tcfg, n, cohort, toks, noise):
     state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device="cpu")
     state.x[1:] += noise
     state.x, state.h = state.x.to(device), state.h.to(device)
+    if tcfg.local_opt == "adamw":
+        state.opt = state.opt._replace(mu=state.opt.mu.to(device),
+                                       nu=state.opt.nu.to(device))
     local = tamuna_dp.make_local_step(cfg, tcfg)
     compact = tamuna_dp.gather_cohort(state, cohort)
     for t in range(toks.shape[0]):
@@ -898,13 +939,16 @@ def reduced_round_err(dev, n, c, s, cohort, perm, down, arrived=None,
     """One reduced-config round on the card and on the CPU (plain
     versions) with the same schedule, batches and (if given) arrived rows
     injected: ``(max abs err over x and h, where the worst coordinate
-    lies)``."""
+    lies)``.  Under ``uplink="block_rs"`` ``perm`` is the round's shift
+    ``off``."""
     from repro_torch.dist import comm_ws, model_api, tamuna_dp
 
     tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P, **robust)
     cfg, toks, noise = reduced_round_inputs(n, c)
     down = torch.tensor(down)
     kw = {} if arrived is None else {"arrived": np.asarray(arrived)}
+    if tcfg.uplink == "block_rs":
+        kw["off"], perm = perm, None
     out = {}
     for device in ("cpu", dev):
         state, compact = reduced_local(device, cfg, tcfg, n, cohort, toks,
@@ -933,11 +977,103 @@ def check_reduced_round(dev, n, c, s, cohort, perm, down, arrived=None,
     err, where = reduced_round_err(dev, n, c, s, cohort, perm, down,
                                    arrived, **robust)
     print(f"[reduced] one round of gemma2-2b-reduced (n={n} c={c} s={s} "
+          f"{robust.get('uplink', 'masked_psum')} "
           f"{robust.get('robust_agg', 'mean')}, arrived {arrived}) on the "
           f"card vs the CPU: max abs err {err:.3e} (tolerance 1e-5)")
     if not err <= 1e-5:
         raise AssertionError(f"reduced round: card vs CPU err {err}; "
                              + where)
+
+
+def check_reduced_adamw_round(dev):
+    """One reduced-config AdamW round with microbatches=2 on the card
+    against the CPU: one local step (each member's batch of 2 in two
+    microbatches), then the comm step.  AdamW's first step is ``(g - h) /
+    (|g - h| + eps)``: where ``g - h`` lies within ADAM_NEAR0 of 0 in a
+    cohort row (from the CPU's first moment) the card's and the CPU's
+    gradient roundings may step x apart by up to 2 gamma, and x_bar and the
+    owners' h carry that on; those columns are held to that bound and
+    counted, every other coordinate (x, h, mu, nu) to 1e-5."""
+    from repro_torch.dist import tamuna_dp
+
+    n, c, s = N, C, S
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P,
+                                      local_opt="adamw", microbatches=2)
+    scale = tcfg.eta_(n) / GAMMA
+    cfg, toks, noise = reduced_round_inputs(n, c)
+    cohort, perm, down = [0, 2, 3], [2, 0, 1], torch.tensor(
+        [True, True, False, True])
+    out = {}
+    for device in ("cpu", dev):
+        state, compact = reduced_local(device, cfg, tcfg, n, cohort,
+                                       toks[:1], noise)
+        comm = tamuna_dp.make_comm_step(cfg, tcfg, n, device=device)
+        state = comm(tamuna_dp.scatter_cohort(state, compact), cohort, perm,
+                     down)
+        out[str(device)] = [t.cpu() for t in (state.x, state.h, state.opt.mu,
+                                              state.opt.nu)]
+        assert state.opt.count == 1
+    cpu, card = out["cpu"], out[str(dev)]
+    # |g - h| = |mu| / (1 - b1) after one step, per column over the cohort
+    near = (cpu[2][cohort].abs() <= 0.1 * ADAM_NEAR0).any(dim=0)
+    errs, near_errs = [], []
+    for a, b in zip(cpu, card):
+        diff = (a - b).abs()
+        errs.append(float(diff[:, ~near].max()))
+        near_errs.append(float(diff[:, near].max()) if near.any() else 0.0)
+    # an AdamW step moves x by at most gamma (1 + a few ulp); 1e-5 covers
+    # those ulp and x's own rounding
+    bounds = (2 * GAMMA + 1e-5, 4 * GAMMA * scale + 1e-5, 1e-5, 1e-5)
+    print(f"[reduced] one AdamW round (microbatches=2, one local step) of "
+          f"{cfg.name} (n={n} c={c} s={s}) on the card vs the CPU: max abs "
+          f"err x {errs[0]:.3e} h {errs[1]:.3e} mu {errs[2]:.3e} nu "
+          f"{errs[3]:.3e} (tolerance 1e-5) off the {int(near.sum())} of "
+          f"{near.numel()} columns where |g - h| <= {ADAM_NEAR0} in a cohort "
+          f"row; there x {near_errs[0]:.3e} h {near_errs[1]:.3e} (bounds "
+          f"{bounds[0]:.3g}, {bounds[1]:.3g})")
+    if not (max(errs) <= 1e-5 and all(e <= b for e, b in
+                                      zip(near_errs, bounds))):
+        raise AssertionError(f"reduced AdamW round: {errs} {near_errs}")
+
+
+def check_tall_round(dev):
+    """One round of a dense model of one layer and width 16 at n = c = 40,
+    s = 2 on the card against the CPU (1e-5): its norm leaves (D = 16, D s
+    = 32 < c) are laid last and take the dense per-leaf fallback, the other
+    leaves stay on the kernels (which run over the columns before them
+    with the workspace's row pitch)."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.dist import comm_ws, tamuna_dp
+
+    cfg = dataclasses.replace(gemma2_2b.REDUCED, name="dense-1x16",
+                              **TINY_TALL)
+    n, c, s = TALL["n"], TALL["c"], TALL["s"]
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P)
+    spec = tamuna_dp.state_spec(cfg, tcfg)
+    tall = spec.names[spec.n_main:]
+    rng = np.random.default_rng(8)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, n, 2, 33)))
+    noise = torch.from_numpy(
+        0.01 * rng.normal(size=(n - 1, spec.d_total)).astype(np.float32))
+    perm = rng.permutation(c).tolist()
+    down = torch.from_numpy(rng.random(n) < 0.7)
+    out = {}
+    for device in ("cpu", dev):
+        state, compact = reduced_local(device, cfg, tcfg, n, list(range(n)),
+                                       toks, noise)
+        comm = tamuna_dp.make_comm_step(cfg, tcfg, n, device=device)
+        state = comm(tamuna_dp.scatter_cohort(state, compact),
+                     list(range(n)), perm, down)
+        out[str(device)] = (state.x.cpu(), state.h.cpu())
+    (xc, hc), (xg, hg) = out["cpu"], out[str(dev)]
+    err = max(max_abs_err(xc, xg), max_abs_err(hc, hg))
+    print(f"[reduced] one round of {cfg.name} (n={n} c={c} s={s}; "
+          f"{len(tall)} tall leaves {list(tall)} of {len(spec.names)} laid "
+          f"last, the kernels over {spec.d_main} of {spec.d_total} columns) "
+          f"on the card vs the CPU: max abs err {err:.3e} (tolerance 1e-5)")
+    if not tall or not err <= 1e-5:
+        raise AssertionError(f"tall round: {len(tall)} tall leaves, err "
+                             f"{err}")
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1825,12 +1961,231 @@ def run_family_paths(dev) -> dict:
     return out
 
 
-def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3, **kw):
+def compare_on_card(ws: torch.Tensor, host: torch.Tensor,
+                    chunk: int = 1 << 26):
+    """``(max |ws - host| over the top of |host|, bitwise equal?)`` for an
+    ``(n, d)`` workspace on the card against a host copy, a column chunk
+    at a time."""
+    err, top, same = 0.0, 0.0, True
+    for a in range(0, ws.shape[1], chunk):
+        g = ws[:, a:a + chunk]
+        w = host[:, a:a + chunk].to(ws.device)
+        err = max(err, float((g - w).abs().max()))
+        top = max(top, float(w.abs().max()))
+        same = same and torch.equal(g.view(torch.int32), w.view(torch.int32))
+        del w
+    return err / top if top else err, same
+
+
+def time_adamw_step(cfg, dev, reps: int = 5) -> None:
+    """AdamW's update of one client row at full width (``adamw_leaf`` over
+    every leaf, as the local step runs it) beside one client's forward and
+    backward on a batch of 2 x 128 tokens, CUDA events, means over ``reps``
+    calls after a warm-up.  The update's bound: it must read x, the
+    gradient and both moments and write x and the moments, 28 B per
+    coordinate."""
+    from repro_torch.dist import comm_ws, model_api, tamuna_dp
+    from repro_torch.optim import optimizers
+
+    spec = comm_ws.workspace_spec(model_api.param_specs(cfg))
+    d = spec.d_total
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(d, generator=gen, device=dev).mul_(0.01)
+    grad = torch.randn(d, generator=gen, device=dev).mul_(0.01)
+    mu, nu = torch.zeros(d, device=dev), torch.zeros(d, device=dev)
+    views = [comm_ws.leaf_views(t, spec) for t in (x, grad, mu, nu)]
+    mu_hat, nu_hat = optimizers.adamw_bias_scales(1, tamuna_dp.ADAM_B1,
+                                                  tamuna_dp.ADAM_B2)
+
+    def adam():
+        for k in spec.names:
+            optimizers.adamw_leaf(
+                *(v[k] for v in views), lr=GAMMA, b1=tamuna_dp.ADAM_B1,
+                b2=tamuna_dp.ADAM_B2, eps=tamuna_dp.ADAM_EPS,
+                weight_decay=0.0, mu_hat=mu_hat, nu_hat=nu_hat)
+
+    adam_ms = cuda_ms(adam, reps)
+    params = {k: v.detach().requires_grad_(True) for k, v in views[0].items()}
+    toks = torch.randint(0, 512, (2, 129), generator=gen, device=dev)
+
+    def fwd_bwd():
+        loss, _ = model_api.loss(params, cfg, tokens=toks[:, :-1],
+                                 labels=toks[:, 1:])
+        torch.autograd.grad(loss, list(params.values()))
+
+    fb_ms = cuda_ms(fwd_bwd, reps)
+    bound = 28.0 * d / HBM_BYTES_PER_S * 1e3
+    print(f"[train_adamw] AdamW update of one client row (d_total {d}, "
+          f"{len(spec.names)} leaves in chunks of {optimizers.CHUNK}): "
+          f"{adam_ms:.3f} ms, bound {bound:.3f} ms ({bound / adam_ms:.1%} of "
+          f"it); one client's forward and backward (2 x 128 tokens) "
+          f"{fb_ms:.3f} ms; AdamW over it {adam_ms / fb_ms:.3f}x")
+    del x, grad, mu, nu, views, params
+    torch.cuda.empty_cache()
+
+
+def run_train_options(cfg, dev) -> dict:
+    """The round's options at gemma2-2b's published widths (2 layers),
+    n=4, c=3, s=2, 3 rounds each, launch counts set to 0 per path:
+    ``[train_adamw]`` (``local_opt="adamw"``, ``microbatches=2``: launches
+    the UpCom and h_update, never ``fused_local_step``; then AdamW's own
+    time, ``time_adamw_step``), ``[train_blocked]``
+    (``uplink="block_rs"`` on the kernel path, then one comm step each of
+    ``comm_impl`` ``"ws"`` and ``"dense"`` from the trained state, held
+    against the kernel path's comm step from the same state, which a host
+    copy restores between impls), ``[train_all_rows]`` (``elastic=False``:
+    every row trains and downloads; ``fused_local_step`` launches ``n L
+    leaves`` per round)."""
+    from repro_torch.dist import tamuna_dp
+
+    out = {}
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P,
+                                      local_opt="adamw", microbatches=2)
+    out["train_adamw"] = run_path(
+        "train_adamw", cfg, tcfg, N, dev, need=("masked_sum", "h_update"),
+        check_h_sum=True, forbid=("fused_local_step",))
+    time_adamw_step(cfg, dev)
+
+    tcfg_b = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P,
+                                        uplink="block_rs")
+    launches, state, _ = run_path(
+        "train_blocked", cfg, tcfg_b, N, dev,
+        need=("masked_sum", "h_update", "fused_local_step"),
+        check_h_sum=True, keep=True)
+    out["train_blocked"] = launches
+    cohort, off, down = [0, 2, 3], 2, torch.tensor([True, True, False, True])
+    t0 = time.perf_counter()
+    x0, h0 = state.x.cpu(), state.h.cpu()
+    t_copy = time.perf_counter() - t0
+    kernel = None
+    for impl in ("pallas", "ws", "dense"):
+        if impl != "pallas":
+            state.x.copy_(x0)
+            state.h.copy_(h0)
+        comm = tamuna_dp.make_comm_step(cfg, tcfg_b, N, device=dev,
+                                        impl=impl)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        comm(state, cohort, down=down, off=off)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if impl == "pallas":
+            kernel = (state.x.cpu(), state.h.cpu())
+            print(f"[train_blocked] comm step (cohort {cohort}, off {off}) "
+                  f"from the trained state: kernel path {ms:.3f} ms, peak "
+                  f"{peak:.2f} GiB; host copies of x and h {t_copy:.1f} s")
+            continue
+        (ex, bx), (eh, bh) = (compare_on_card(state.x, kernel[0]),
+                              compare_on_card(state.h, kernel[1]))
+        print(f"[train_blocked] comm_impl={impl}: {ms:.3f} ms, peak "
+              f"{peak:.2f} GiB; against the kernel path x {ex:.3e} h "
+              f"{eh:.3e} of their largest values (tolerance 2**-20), "
+              f"bitwise x {bx} h {bh} (s = 2 adds each coordinate's two "
+              f"owners, so the order of adds does not enter)")
+        if not (ex <= 2.0 ** -20 and eh <= 2.0 ** -20):
+            raise AssertionError(f"[train_blocked] {impl} vs the kernel "
+                                 f"path: x {ex} h {eh}")
+    del state, x0, h0, kernel
+    torch.cuda.empty_cache()
+
+    tcfg_a = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
+    launches, state, rows = run_path(
+        "train_all_rows", cfg, tcfg_a, N, dev,
+        need=("masked_sum", "h_update", "fused_local_step"),
+        check_h_sum=True, keep=True, elastic=False)
+    leaves = len(state.spec.names)
+    want = sum(N * r["L"] * leaves for r in rows)
+    synced = all(torch.equal(state.x[i], state.x[0]) for i in range(1, N))
+    print(f"[train_all_rows] fused_local_step launches "
+          f"{launches['fused_local_step']} (n L leaves summed over the "
+          f"rounds: {want}); every row holds x_bar after the last DownCom: "
+          f"{synced}")
+    if launches["fused_local_step"] != want or not synced:
+        raise AssertionError("[train_all_rows] launches or DownCom")
+    out["train_all_rows"] = launches
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_checkpoint(dev, root: str) -> dict:
+    """``[checkpoint]``: the reduced gemma2-2b with AdamW (n=4, c=3, s=2,
+    microbatches=2) on the card, 4 rounds against 2 rounds, ``save_state``,
+    ``restore_state`` into a fresh state and 2 more rounds (the host
+    streams carried across), bitwise; prints the save and restore times.
+    Writes under ``root`` and removes it."""
+    import shutil
+
+    from repro_torch import checkpoint
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import rounds, tamuna_dp
+    from repro_torch.kernels import _build
+
+    cfg = gemma2_2b.REDUCED
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P,
+                                      local_opt="adamw", microbatches=2)
+
+    def pipe():
+        return SyntheticTokenPipeline(
+            DataConfig(seq_len=64, per_client_batch=2, vocab=512, seed=0,
+                       n_clients=N), cfg, dev)
+
+    def run(state, p, rng, gen, k):
+        return rounds.run_rounds(state, cfg=cfg, tcfg=tcfg, pipe=p,
+                                 rounds=k, rng=rng, generator=gen,
+                                 max_L=4)[0]
+
+    _build.reset_launch_counts()
+    whole = run(tamuna_dp.init_state(cfg, tcfg, N, seed=0, device=dev),
+                pipe(), np.random.default_rng(0),
+                torch.Generator().manual_seed(1), 4)
+    p, rng, gen = pipe(), np.random.default_rng(0), \
+        torch.Generator().manual_seed(1)
+    part = run(tamuna_dp.init_state(cfg, tcfg, N, seed=0, device=dev), p,
+               rng, gen, 2)
+    path = os.path.join(root, "step_2")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_state(path, part, part.round)
+    t_save = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    fresh = tamuna_dp.init_state(cfg, tcfg, N, seed=3, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore_state(path, fresh)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    resumed = run(fresh, p, rng, gen, 2)
+    launches = dict(_build.launch_counts)
+    same = all(torch.equal(a, b) for a, b in (
+        (resumed.x, whole.x), (resumed.h, whole.h),
+        (resumed.opt.mu, whole.opt.mu), (resumed.opt.nu, whole.opt.nu)))
+    same = same and all(getattr(resumed, k) == getattr(whole, k) for k in (
+        "round", "up_floats", "down_floats", "up_bytes", "down_bytes")) \
+        and resumed.opt.count == whole.opt.count
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[checkpoint] {cfg.name} AdamW (n={N} c={C} s={S} microbatches="
+          f"2): 4 rounds against 2 + save_state + restore_state + 2 on the "
+          f"card: bitwise {same} (count {resumed.opt.count}); save "
+          f"{t_save:.3f} s and restore {t_restore:.3f} s of {nbytes} B "
+          f"(x, h, mu, nu of {N} rows and the scalars)")
+    if not same:
+        raise AssertionError("[checkpoint] the resumed run differs")
+    return launches
+
+
+def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3,
+             forbid=(), keep=False, **kw):
     """Drive ``run_rounds`` for ``rounds_`` rounds of ``cfg`` at ``n``
     clients with the launch counts set to 0 just before and read just
-    after; check finite losses, a launch of every kernel in ``need`` and,
-    if asked, sum_i h_i = 0 (printed in any case).  Returns the launch
-    counts."""
+    after; check finite losses, a launch of every kernel in ``need`` and
+    none of ``forbid`` and, if asked, sum_i h_i = 0 (printed in any case).
+    Returns the launch counts, and with ``keep`` also the state and the
+    rows."""
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import comm_ws, model_api, rounds, tamuna_dp
     from repro_torch.kernels import _build
@@ -1838,7 +2193,9 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3, **kw):
     d = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
     desc = [f"n={n} c={tcfg.c} s={tcfg.s} robust_agg={tcfg.robust_agg} "
             f"trim_k={tcfg.trim_k} wire_precision={tcfg.wire_precision} "
-            f"wire_down={tcfg.wire_down}"]
+            f"wire_down={tcfg.wire_down} uplink={tcfg.uplink} local_opt="
+            f"{tcfg.local_opt} microbatches={tcfg.microbatches} comm_impl="
+            f"{tcfg.comm_impl}"]
     if "faults" in kw:
         fp = kw["faults"]
         desc.append(f"{fp.model} byzantine clients "
@@ -1881,6 +2238,9 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3, **kw):
     if not all(launches[k] > 0 for k in need):
         raise AssertionError(f"[{tag}] a kernel of {need} was not "
                              f"launched: {launches}")
+    if any(launches[k] for k in forbid):
+        raise AssertionError(f"[{tag}] a kernel of {forbid} was launched: "
+                             f"{launches}")
     ratio = h_sum_ratio(state.h, d)
     print(f"[{tag}] |sum_i h_i| / max|h| = {ratio:.3e}"
           + (" (limit 1e-4)" if check_h_sum else " (not gated)"))
@@ -1888,7 +2248,10 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3, **kw):
         if not ratio <= 1e-4:
             raise AssertionError(f"[{tag}] sum_i h_i = 0 violated: ratio "
                                  f"{ratio}")
-    del state, pipe
+    del pipe
+    if keep:
+        return launches, state, rows
+    del state
     torch.cuda.empty_cache()
     return launches
 
@@ -2279,6 +2642,18 @@ def main(argv=None) -> int:
                             arrived=[True, False, False, True, True],
                             robust_agg="trimmed", trim_k=1)
         check_reduced_wire_round(dev)
+        # the blocked template: fault-free, a drop with the trimmed mean,
+        # and int8 wire_down with a drop (its comm step bitwise)
+        check_reduced_round(dev, N, C, S, [0, 2, 3], 1,
+                            [True, True, False, True], uplink="block_rs")
+        check_reduced_round(dev, NF, CF, SF, [0, 1, 3, 4], 2,
+                            [True, True, True, False, True],
+                            arrived=[True, False, False, True, True],
+                            uplink="block_rs", robust_agg="trimmed",
+                            trim_k=1)
+        check_reduced_wire_round(dev, uplink="block_rs")
+        check_reduced_adamw_round(dev)
+        check_tall_round(dev)
     torch.cuda.empty_cache()
 
     # ---- the paths: 3 rounds of full-width 2-layer gemma2-2b each --------
@@ -2334,6 +2709,9 @@ def main(argv=None) -> int:
         faults=faults.FaultPlan(seed=0, n=NF, p_drop=0.25),
         policy="quorum")
     by_path.update(run_family_paths(dev))
+    by_path.update(run_train_options(cfg, dev))
+    by_path["checkpoint"] = run_checkpoint(
+        dev, os.path.join(here, "_smoke"))
 
     # ---- the convex core at paper scale: Fig. 3's problem, c=100, 1000 --
     from repro_torch.core import problems, tamuna

@@ -22,13 +22,26 @@ DownCom never read wire values.
 
 The cyclic band ``(-s k_leaf) mod c`` restarts at every leaf, so the leaf
 order and the stacked ``(n_layers, ...)`` block leaves decide which client
-owns which coordinate.
+owns which coordinate.  The blocked template (``uplink="block_rs"``) has
+the block band ``k_leaf // ceil(D / c)`` (``block_band``): each leaf
+chunks into ``c`` contiguous blocks, the last one ragged, and the round's
+shift ``off`` moves cohort slot ``j`` to the kernel slot ``(-(j + off))
+mod c`` (``blocked_slot``), so the same kernels with the same predicate
+``(slot + band) mod c < s`` run both templates (``blocked_comm``).
 
-``cyclic_comm_leaves`` is the reference's two plain implementations,
-``impl="ws"`` (the sparse UpCom: ``s`` owner-row gathers per leaf, then one
-fused h update and DownCom) and ``impl="dense"`` (the materialized
-``(n, D)`` ownership mask, the reference's ground truth), over
-client-stacked leaves in any float storage type, with the mean, survivor
+A leaf with ``D s < c`` is tall and thin: the cyclic template then owns
+coordinate ``k`` by the columns ``k + t D`` (paper Fig. 1, right), which no
+band expresses.  ``workspace_spec(..., last=)`` lays such leaves after all
+the others, the kernels run over the columns before them (a row pitch of
+``d_total``), and ``cyclic_comm(tall=)`` takes each of them through the
+dense per-leaf closed form, as the reference's kernel branch does.
+
+``cyclic_comm_leaves`` and ``blocked_comm_leaves`` are the reference's
+two plain implementations of each template, ``impl="ws"`` (the sparse
+UpCom: ``s`` owner-row gathers per leaf, or ``s`` contiguous chunk gathers
+per block, then one fused h update and DownCom) and ``impl="dense"`` (the
+materialized ``(n, D)`` ownership mask, the reference's ground truth),
+over client-stacked leaves in any float storage type, with the mean, survivor
 and robust rebuilds (``robust.robust_combine_stack`` over the ``(s, D)``
 owner stack or the masked ``(n, D)`` stack).  Like the reference they
 compute the comm step in f32 whatever the storage type and return new
@@ -41,7 +54,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
+from typing import (Collection, Dict, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -61,19 +75,44 @@ class WorkspaceSpec:
     dims: Tuple[int, ...]  # flattened leaf sizes D
     offsets: Tuple[int, ...]  # leaf start offsets in the row
     d_total: int
+    ids: Tuple[int, ...] = ()  # each leaf's index in the reference's order
+    n_main: int = -1  # the leaves before the ones laid last (-1: all)
+
+    @property
+    def d_main(self) -> int:
+        """The columns of the leaves before those laid last."""
+        k = self.main_leaves
+        return self.offsets[k] if k < len(self.dims) else self.d_total
+
+    @property
+    def main_leaves(self) -> int:
+        return len(self.dims) if self.n_main < 0 else self.n_main
 
 
-def workspace_spec(specs: Sequence[Tuple[str, Tuple[int, ...]]]
-                   ) -> WorkspaceSpec:
-    """The offset table of ``[(name, shape)]`` leaves, in that order."""
-    names = tuple(name for name, _ in specs)
-    shapes = tuple(tuple(shape) for _, shape in specs)
+def workspace_spec(specs: Sequence[Tuple[str, Tuple[int, ...]]],
+                   last: Collection[str] = ()) -> WorkspaceSpec:
+    """The offset table of ``[(name, shape)]`` leaves, in that order, but
+    for the leaves named in ``last``, which go after all the others (in
+    their order).  ``ids`` keeps each leaf's index in ``specs``, the
+    reference's leaf index that keys the wire's draws."""
+    order = ([i for i, (nm, _) in enumerate(specs) if nm not in last]
+             + [i for i, (nm, _) in enumerate(specs) if nm in last])
+    names = tuple(specs[i][0] for i in order)
+    shapes = tuple(tuple(specs[i][1]) for i in order)
     dims = tuple(int(torch.Size(shape).numel()) for shape in shapes)
     offsets, o = [], 0
     for D in dims:
         offsets.append(o)
         o += D
-    return WorkspaceSpec(names, shapes, dims, tuple(offsets), o)
+    n_main = len(specs) - sum(1 for nm, _ in specs if nm in last)
+    return WorkspaceSpec(names, shapes, dims, tuple(offsets), o,
+                         tuple(order), n_main)
+
+
+def tall_leaves(dims: Sequence[int], c: int, s: int) -> List[int]:
+    """The positions of the tall-and-thin leaves (``D s < c``) of
+    ``dims``."""
+    return [i for i, D in enumerate(dims) if D * s < c]
 
 
 def leaf_views(row: torch.Tensor, spec: WorkspaceSpec
@@ -124,6 +163,34 @@ def cyclic_band(dims: Sequence[int], c: int, s: int,
     return out
 
 
+def block_band(dims: Sequence[int], c: int, device) -> torch.Tensor:
+    """``(d_total,)`` int32 band of the blocked template: each leaf's
+    coordinates ``k`` get their block ``k // ceil(D / c)`` (the last block
+    ragged), restarting at every leaf (``comm_ws._block_band_np``); every
+    value lies in ``[0, c)``.  Built on ``device`` in chunks."""
+    out = torch.empty(sum(dims), dtype=torch.int32, device=device)
+    o = 0
+    for D in dims:
+        chunk = -(-D // c)
+        for cols in ref.column_chunks(D):
+            out[o + cols.start:o + cols.stop] = torch.div(
+                torch.arange(cols.start, cols.stop, dtype=torch.int64,
+                             device=device), chunk,
+                rounding_mode="floor").to(torch.int32)
+        o += D
+    return out
+
+
+def blocked_slot(slot_of: torch.Tensor, off: int, c: int) -> torch.Tensor:
+    """The kernel slots of the blocked template: cohort slot ``j`` (``(n,)``
+    int, -1 idle) owns the blocks ``(j + off) .. (j + off + s - 1) mod c``,
+    which is the kernels' ``(slot + band) mod c < s`` at ``slot = (-(j +
+    off)) mod c`` with a floor modulo; idle rows stay -1.  int32."""
+    sl = slot_of.to(torch.int64)
+    return torch.where(sl >= 0, torch.remainder(-(sl + int(off)), c),
+                       -1).to(torch.int32)
+
+
 @dataclasses.dataclass(frozen=True)
 class WireGroup:
     """The leaves of one wire kind: ``leaves`` are ``(leaf index, offset
@@ -141,14 +208,21 @@ class WireGroup:
 
 
 def wire_plan(dims: Sequence[int], policy: Optional[str], c: int, s: int,
-              band: torch.Tensor) -> Optional[Tuple[WireGroup, ...]]:
+              band: torch.Tensor, *, template: str = "cyclic",
+              ids: Optional[Sequence[int]] = None
+              ) -> Optional[Tuple[WireGroup, ...]]:
     """The kind groups of a row of leaves ``dims`` under the wire
     ``policy``, in kind order; ``None`` for the f32 wire (``None`` or
     ``"f32"``).
-    ``band`` is the row's cyclic band; a group that is the whole row
-    reuses it, any other gets its own (the same values at its columns)."""
+    ``band`` is the row's band of the ``template`` (``"cyclic"`` or
+    ``"blocked"``); a group that is the whole row reuses it, any other gets
+    its own (the same values at its columns).  ``ids`` are the leaves'
+    reference indices (default ``0, 1, ...``), which key their draws."""
     if not wire_mod.is_wire(policy):
         return None
+    if template not in ("cyclic", "blocked"):
+        raise ValueError(f"unknown template {template!r}")
+    ids = list(range(len(dims))) if ids is None else list(ids)
     kinds = tuple(wire_mod.resolve_kind(D, policy) for D in dims)
     offsets = [sum(dims[:i]) for i in range(len(dims))]
     groups = []
@@ -159,12 +233,16 @@ def wire_plan(dims: Sequence[int], policy: Optional[str], c: int, s: int,
         for D in gdims:
             lo.append(lo[-1] + D)
         whole = len(idx) == len(dims)
+        if whole:
+            gband = band
+        elif template == "cyclic":
+            gband = cyclic_band(gdims, c, s, band.device)
+        else:
+            gband = block_band(gdims, c, band.device)
         groups.append(WireGroup(
             kind=kind,
-            leaves=tuple((i, offsets[i], dims[i]) for i in idx),
-            leaf_lo=tuple(lo),
-            band=band if whole else cyclic_band(gdims, c, s, band.device),
-            whole=whole))
+            leaves=tuple((ids[i], offsets[i], dims[i]) for i in idx),
+            leaf_lo=tuple(lo), band=gband, whole=whole))
     return tuple(groups)
 
 
@@ -245,6 +323,64 @@ def _wire_downcom(x_bar: torch.Tensor, groups: Tuple[WireGroup, ...],
             seg.copy_(wire_mod.quantize(seg[None], grp.kind)[0])
 
 
+def _kernel_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
+                 band: torch.Tensor, m: int, s: int, scale: float,
+                 down: Optional[torch.Tensor], survivor: bool,
+                 robust: Optional[Tuple[str, int]],
+                 wire: Optional[Tuple[WireGroup, ...]], seed: int,
+                 wire_down: bool) -> torch.Tensor:
+    """The kernel path over the first ``d = band.numel()`` columns of the
+    workspaces (``comm_ws._pallas_comm``), in place; ``slot`` is already
+    demoted where rows did not arrive.  Returns ``x_bar`` ``(d,)``."""
+    d = band.numel()
+    xm, hm = xw[:, :d], hw[:, :d]
+    covered = None
+    if wire is not None:
+        parts = [(grp, *_wire_upcom(xw, slot, m, s, grp, seed, survivor,
+                                    robust)) for grp in wire]
+        if len(parts) == 1 and parts[0][0].whole:
+            _, x_bar, covered = parts[0]
+        else:
+            x_bar = torch.empty(d, dtype=torch.float32, device=xw.device)
+            if survivor:
+                covered = torch.empty(d, dtype=torch.bool, device=xw.device)
+            for grp, bar_g, cov_g in parts:
+                g0 = 0
+                for _, o, D in grp.leaves:
+                    x_bar[o:o + D] = bar_g[g0:g0 + D]
+                    if survivor:
+                        covered[o:o + D] = cov_g[g0:g0 + D]
+                    g0 += D
+        del parts
+        if wire_down:
+            _wire_downcom(x_bar, wire, seed)
+    elif robust is not None:
+        x_bar, cnt = uplink.robust_sum(xm, slot, band, m, s, kind=robust[0],
+                                       k=robust[1])
+        if survivor:
+            covered = cnt > 0
+        del cnt
+    elif survivor:
+        # comm_ws._survivor_bar, in place on the sum
+        x_bar, cnt = uplink.masked_sum(xm, slot, band, m, s, counts=True)
+        covered = cnt > 0
+        x_bar.div_(cnt.clamp_(min=1.0))
+        del cnt
+    else:
+        x_bar = uplink.masked_sum(xm, slot, band, m, s)
+    uplink.h_update(xm, hm, x_bar, slot, band, m, s, scale, down=down,
+                    covered=covered)
+    return x_bar
+
+
+def _demote(slot: torch.Tensor, arrived: Optional[torch.Tensor]
+            ) -> torch.Tensor:
+    """``slot`` with the rows that did not arrive set to -1."""
+    if arrived is None:
+        return slot
+    return torch.where(arrived.to(slot.device), slot, -1).to(torch.int32)
+
+
 def cyclic_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
                 band: torch.Tensor, c: int, s: int, scale: float,
                 down: Optional[torch.Tensor] = None,
@@ -253,12 +389,17 @@ def cyclic_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
                 robust: Optional[Tuple[str, int]] = None,
                 wire: Optional[Tuple[WireGroup, ...]] = None,
                 wire_seed: int = 0,
-                wire_down: bool = False) -> torch.Tensor:
+                wire_down: bool = False,
+                tall: Sequence[Tuple[int, int, int, str]] = ()
+                ) -> torch.Tensor:
     """UpCom + control-variate update + DownCom of the cyclic template, in
-    place on the workspaces; returns the rebuilt server model ``x_bar``.
+    place on the workspaces; returns the rebuilt server model ``x_bar``
+    over the kernels' columns.
 
     ``slot`` ``(n,)`` int32 is each client's template column (-1 when idle),
     ``down`` ``(n,)`` int32 the DownCom rows (``None``: every row).
+    ``band`` covers the first ``d = band.numel()`` columns, which the
+    kernels take (all of them unless tall leaves lie after them).
 
     ``arrived`` ``(n,)`` bool (the fault-tolerant round) demotes the rows
     that did not arrive to ``slot = -1``; with ``correct`` the rebuild is
@@ -272,52 +413,58 @@ def cyclic_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
     from the raw rows (idle rows included: ownership selects) and the
     survivor rebuild and the robust combine run after dequantization.
     ``wire_down`` also quantizes ``x_bar`` before the DownCom.  ``wire=None``
-    is the f32 path.  The reference's ``cyclic_comm(impl="pallas")``, its
-    kernel path ``comm_ws._pallas_comm``; ``cyclic_comm_leaves`` is its
-    ``impl="ws"`` and ``impl="dense"``."""
+    is the f32 path.
+
+    ``tall`` lists the tall-and-thin leaves laid after the kernels'
+    columns, as ``(reference leaf index, offset, D, wire kind)``: each
+    takes the dense closed form (``_dense_cyclic_leaf``) with its own wire
+    draws, and the kernels never touch its columns.  The reference's
+    ``cyclic_comm(impl="pallas")``, its kernel path ``comm_ws._pallas_comm``
+    beside the fallback list; ``cyclic_comm_leaves`` is its ``impl="ws"``
+    and ``impl="dense"``."""
     survivor = arrived is not None and correct
-    if arrived is not None:
-        slot = torch.where(arrived.to(slot.device), slot, -1).to(torch.int32)
-    covered = None
-    if wire is not None:
-        seed = int(wire_seed) & 0xFFFFFFFF
-        parts = [(grp, *_wire_upcom(xw, slot, c, s, grp, seed, survivor,
-                                    robust)) for grp in wire]
-        if len(parts) == 1 and parts[0][0].whole:
-            _, x_bar, covered = parts[0]
-        else:
-            x_bar = torch.empty(xw.shape[1], dtype=torch.float32,
-                                device=xw.device)
-            if survivor:
-                covered = torch.empty(xw.shape[1], dtype=torch.bool,
-                                      device=xw.device)
-            for grp, bar_g, cov_g in parts:
-                g0 = 0
-                for _, o, D in grp.leaves:
-                    x_bar[o:o + D] = bar_g[g0:g0 + D]
-                    if survivor:
-                        covered[o:o + D] = cov_g[g0:g0 + D]
-                    g0 += D
-        del parts
-        if wire_down:
-            _wire_downcom(x_bar, wire, seed)
-    elif robust is not None:
-        x_bar, cnt = uplink.robust_sum(xw, slot, band, c, s, kind=robust[0],
-                                       k=robust[1])
-        if survivor:
-            covered = cnt > 0
-        del cnt
-    elif survivor:
-        # comm_ws._survivor_bar, in place on the sum
-        x_bar, cnt = uplink.masked_sum(xw, slot, band, c, s, counts=True)
-        covered = cnt > 0
-        x_bar.div_(cnt.clamp_(min=1.0))
-        del cnt
-    else:
-        x_bar = uplink.masked_sum(xw, slot, band, c, s)
-    uplink.h_update(xw, hw, x_bar, slot, band, c, s, scale, down=down,
-                    covered=covered)
+    slot = _demote(slot, arrived)
+    seed = int(wire_seed) & 0xFFFFFFFF
+    x_bar = _kernel_comm(xw, hw, slot, band, c, s, scale, down, survivor,
+                         robust, wire, seed, wire_down)
+    if tall:
+        sl = slot.to(torch.int64)
+        dn = None if down is None else down.to(torch.bool)
+        for li, o, D, kind in tall:
+            xl, hl = xw[:, o:o + D], hw[:, o:o + D]
+            xn, hn = _dense_cyclic_leaf(
+                xl, hl, sl, c, s, scale, dn, sanitize=arrived is not None,
+                survivor=survivor, quant=_leaf_quant(kind, seed, li, D),
+                down_quant=(_down_quant(kind, seed, li, D) if wire_down
+                            else None), robust=robust)
+            xl.copy_(xn)
+            hl.copy_(hn)
     return x_bar
+
+
+def blocked_comm(xw: torch.Tensor, hw: torch.Tensor, off: int,
+                 slot_of: torch.Tensor, band: torch.Tensor, c: int, s: int,
+                 scale: float, down: Optional[torch.Tensor] = None,
+                 arrived: Optional[torch.Tensor] = None,
+                 correct: bool = True,
+                 robust: Optional[Tuple[str, int]] = None,
+                 wire: Optional[Tuple[WireGroup, ...]] = None,
+                 wire_seed: int = 0,
+                 wire_down: bool = False) -> torch.Tensor:
+    """UpCom + control-variate update + DownCom of the blocked template
+    (``uplink="block_rs"``), in place on the workspaces; returns
+    ``x_bar``.  ``slot_of`` ``(n,)`` int is each client's cohort slot in
+    ``[0, c)`` (-1 idle), ``off`` the round's shift in ``[0, c)`` and
+    ``band`` the block band (``block_band``).  Ownership is ``(block(k) -
+    slot_of - off) mod c < s``: every coordinate has exactly ``s`` owners,
+    all of them cohort members, at any leaf size.  ``down``, ``arrived``,
+    ``correct``, ``robust`` and the wire are ``cyclic_comm``'s.  The
+    reference's ``blocked_comm(impl="pallas")``; ``blocked_comm_leaves`` is
+    its ``impl="ws"`` and ``impl="dense"``."""
+    slot = _demote(blocked_slot(slot_of.to(xw.device), off, c), arrived)
+    return _kernel_comm(xw, hw, slot, band, c, s, scale, down,
+                        arrived is not None and correct, robust, wire,
+                        int(wire_seed) & 0xFFFFFFFF, wire_down)
 
 
 # --------------------------------------------------------------------------
@@ -388,12 +535,26 @@ def _finish_leaf(xl, hl, xf, x_bar, owned, scale, down=None, covered=None):
     f32 where ``owned``, cast back to h's storage dtype; ``covered`` gates
     the DownCom per coordinate (the h update needs no gate: an uncovered
     coordinate has no arrived owner, so ``owned`` is false there)."""
-    n, D = xf.shape
-    zero = torch.zeros((), dtype=torch.float32, device=xf.device)
-    h_new = hl.reshape(n, D).to(torch.float32) + scale * torch.where(
-        owned, x_bar[None] - xf, zero)
     return (_downcom(xl, x_bar, down, covered),
-            h_new.to(hl.dtype).reshape(hl.shape))
+            _h_new(hl, xf, x_bar, owned, scale))
+
+
+def _h_new(hl, xf, x_bar, owned, scale):
+    """``h + scale * sel(x_bar - x)`` in f32, cast to h's storage type,
+    where ``sel`` is ``owned``'s select (bool) or product (f32 0/1 mask):
+    one ``(n, D)`` temporary, updated in place.  The product commutes with
+    ``scale`` here: ``(scale * q) * t`` and ``(q * t) * scale`` are the same
+    f32 value for ``q`` in {0, 1} and ``scale > 0``, signed zeros and NaN
+    included, and so are ``h + t`` and ``t + h``."""
+    n, D = xf.shape
+    t = x_bar[None] - xf
+    if owned.dtype == torch.bool:
+        t.masked_fill_(~owned, 0.0)
+    else:
+        t.mul_(owned)
+    t.mul_(scale)
+    t.add_(hl.reshape(n, D).to(torch.float32))
+    return t.to(hl.dtype).reshape(hl.shape)
 
 
 def _survivor_bar(num: torch.Tensor, cnt: torch.Tensor):
@@ -468,10 +629,45 @@ def _dense_cyclic_leaf(xl, hl, slot, c: int, s: int, scale, down=None,
         x_bar, covered = ref._div((xq * qf).sum(dim=0), s), None
     if down_quant is not None:
         x_bar = down_quant(x_bar)
-    h_new = hl.reshape(n, D).to(torch.float32) + scale * qf * (
-        x_bar[None] - xf)
     return (_downcom(xl, x_bar, down, covered),
-            h_new.to(hl.dtype).reshape(hl.shape))
+            _h_new(hl, xf, x_bar, qf, scale))
+
+
+def _dense_blocked_leaf(xl, hl, slot, m: int, s: int, scale, down=None,
+                        sanitize=False, survivor=False, quant=None,
+                        down_quant=None, robust=None):
+    """One leaf of the reference's dense blocked comm step
+    (``comm_ws._dense_blocked_leaf``): the materialized ``(n, D)``
+    ownership ``(slot + block(k)) mod m < s`` (evaluated per block, then
+    repeated over the block's coordinates), the masked sum over every row,
+    the ``1/s`` (or survivor) rebuild, the masked h update and the
+    DownCom; ``sanitize``, ``quant``, ``down_quant`` and ``robust`` as in
+    ``_dense_cyclic_leaf``."""
+    n = xl.shape[0]
+    D = xl[0].numel()
+    chunk = -(-D // m)
+    nb = -(-D // chunk)
+    sl = slot[:, None]
+    jb = torch.arange(nb, dtype=torch.int64, device=xl.device)[None, :]
+    own_nb = (sl >= 0) & (torch.remainder(sl + jb, m) < s)
+    qf = own_nb.repeat_interleave(chunk, dim=1)[:, :D].to(torch.float32)
+    del own_nb
+    xf = xl.reshape(n, D).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=xl.device)
+    if sanitize:
+        xf = torch.where(sl >= 0, xf, zero)
+    xq = xf if quant is None else quant(xf)
+    if robust is not None:
+        x_bar, rcnt = robust_mod.robust_combine_stack(xq, qf > 0, *robust)
+        covered = (rcnt > 0) if survivor else None
+    elif survivor:
+        x_bar, covered = _survivor_bar((xq * qf).sum(dim=0), qf.sum(dim=0))
+    else:
+        x_bar, covered = ref._div((xq * qf).sum(dim=0), s), None
+    if down_quant is not None:
+        x_bar = down_quant(x_bar)
+    return (_downcom(xl, x_bar, down, covered),
+            _h_new(hl, xf, x_bar, qf, scale))
 
 
 def _ws_cyclic_leaf(xl, hl, slot, client_of, col_ok, c: int, s: int,
@@ -522,6 +718,93 @@ def _ws_cyclic_leaf(xl, hl, slot, client_of, col_ok, c: int, s: int,
     return _finish_leaf(xl, hl, xf, x_bar, owned, scale, down, cov)
 
 
+def _ws_blocked_leaf(xl, hl, slot, client_of, col_ok, m: int, s: int,
+                     scale, down=None, survivor=False, quant=None,
+                     down_quant=None, robust=None):
+    """One leaf of the reference's sparse blocked comm step (``blocked_comm
+    (impl="ws", meshed=False)``): block ``j``'s owner at shift ``t`` is the
+    client in slot ``(t - j) mod m``, so the UpCom is ``s`` contiguous
+    chunk gathers added from +0 in shift order (the full blocks, then the
+    ragged tail), the ``1/s`` (or survivor) rebuild, then ``_finish_leaf``
+    with the block-granular ownership repeated over each block.  ``robust``
+    stacks the ``s`` gathers with ``col_ok`` (all true on fault-free
+    rounds) as their validity."""
+    n = xl.shape[0]
+    D = xl[0].numel()
+    dev = xl.device
+    chunk = -(-D // m)
+    nf, tail = divmod(D, chunk)
+    nb = nf + (1 if tail else 0)
+    xf = xl.reshape(n, D).to(torch.float32)
+    xq = xf if quant is None else quant(xf)
+    sl = slot[:, None]
+    jb = torch.arange(nb, dtype=torch.int64, device=dev)[None, :]
+    owned = _wrapped_owned(sl, jb, m, s).repeat_interleave(
+        chunk, dim=1)[:, :D]
+    jf = torch.arange(nf, dtype=torch.int64, device=dev)
+    xm = xq[:, :nf * chunk].reshape(n, nf, chunk)
+    faulted = col_ok is not None
+    cov = None
+    if robust is not None:
+        vals_l, ok_l = [], []
+        for t in range(s):
+            cf = torch.remainder(t - jf, m)
+            v = xm[client_of[cf], jf].reshape(-1)
+            okv = (col_ok[cf] if faulted
+                   else torch.ones(nf, dtype=torch.bool, device=dev))
+            okv = okv.repeat_interleave(chunk)
+            if tail:
+                ct = (t - nf) % m
+                v = torch.cat([v, xq[client_of[ct], nf * chunk:]])
+                okt = (col_ok[ct] if faulted
+                       else torch.ones((), dtype=torch.bool, device=dev))
+                okv = torch.cat([okv, okt.expand(tail)])
+            vals_l.append(v)
+            ok_l.append(okv)
+        x_bar, rcnt = robust_mod.robust_combine_stack(
+            torch.stack(vals_l), torch.stack(ok_l), *robust)
+        del vals_l, ok_l
+        if survivor:
+            cov = rcnt > 0
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        acc = torch.zeros(nf, chunk, dtype=torch.float32, device=dev)
+        acc_t = torch.zeros(tail, dtype=torch.float32, device=dev)
+        cnt_f = torch.zeros(nf, dtype=torch.float32, device=dev)
+        cnt_t = torch.zeros((), dtype=torch.float32, device=dev)
+        for t in range(s):
+            cf = torch.remainder(t - jf, m)
+            rows = xm[client_of[cf], jf]
+            if faulted:
+                ok = col_ok[cf]
+                acc = acc + torch.where(ok[:, None], rows, zero)
+                cnt_f = cnt_f + ok.to(torch.float32)
+            else:
+                acc = acc + rows
+            del rows
+            if tail:
+                ct = (t - nf) % m
+                row_t = xq[client_of[ct], nf * chunk:]
+                if faulted:
+                    ok_t = col_ok[ct]
+                    acc_t = acc_t + torch.where(ok_t, row_t, zero)
+                    cnt_t = cnt_t + ok_t.to(torch.float32)
+                else:
+                    acc_t = acc_t + row_t
+        num = torch.cat([acc.reshape(-1), acc_t]) if tail else acc.reshape(-1)
+        del acc
+        if survivor:
+            cnt = cnt_f.repeat_interleave(chunk)
+            if tail:
+                cnt = torch.cat([cnt, cnt_t.expand(tail)])
+            x_bar, cov = _survivor_bar(num, cnt)
+        else:
+            x_bar = ref._div(num, s)
+    if down_quant is not None:
+        x_bar = down_quant(x_bar)
+    return _finish_leaf(xl, hl, xf, x_bar, owned, scale, down, cov)
+
+
 def _leaf_items(leaves: Leaves):
     """``[(name, tensor)]`` in the reference's leaf order: a tensor is one
     leaf; a dict's leaves go in sorted key order, as ``jax.tree`` flattens
@@ -529,6 +812,87 @@ def _leaf_items(leaves: Leaves):
     if isinstance(leaves, torch.Tensor):
         return [(None, leaves)]
     return [(k, leaves[k]) for k in sorted(leaves)]
+
+
+def iter_comm_leaves(template: str, xs, hs, slot: torch.Tensor, c: int,
+                     s: int, scale: float, impl: str = "ws", *,
+                     down: Optional[torch.Tensor] = None,
+                     arrived: Optional[torch.Tensor] = None,
+                     correct: bool = True,
+                     wire: Optional[str] = None,
+                     wire_seed: int = 0,
+                     wire_down: bool = False,
+                     robust=None):
+    """The plain comm step leaf by leaf: yields ``(name, x_new, h_new)``
+    for each of the ``[(name, x leaf)]``/``[(name, h leaf)]`` pairs ``xs``
+    and ``hs``, taken in the reference's leaf order (the i-th pair is leaf
+    i, whose index keys its wire draws).  ``template`` is ``"cyclic"``
+    (``slot`` the template columns) or ``"blocked"`` (``slot`` the kernel
+    slots of ``blocked_slot``); the rest is ``cyclic_comm_leaves``'.  A
+    caller that writes each leaf back before taking the next holds one
+    leaf's results at a time."""
+    if impl not in COMM_IMPLS:
+        raise ValueError(f"unknown comm impl {impl!r}; want one of "
+                         f"{COMM_IMPLS} (the kernel path is cyclic_comm)")
+    if template not in ("cyclic", "blocked"):
+        raise ValueError(f"unknown template {template!r}")
+    if [k for k, _ in xs] != [k for k, _ in hs]:
+        raise ValueError("x and h must have the same leaves")
+    n = xs[0][1].shape[0]
+    dev = xs[0][1].device
+    slot = slot.to(device=dev, dtype=torch.int64)
+    faulted = arrived is not None
+    survivor = faulted and correct
+    if faulted:
+        slot = torch.where(arrived.to(device=dev, dtype=torch.bool), slot,
+                           -1)
+    if down is not None:
+        down = down.to(device=dev, dtype=torch.bool)
+    policy = wire if wire_mod.is_wire(wire) else None
+    seed = int(wire_seed) & 0xFFFFFFFF
+    wdown = bool(wire_down) and policy is not None
+    client_of = col_ok = None
+    if impl == "ws":
+        # column (blocked: slot) -> client row of this round; idle rows
+        # write to the dropped overflow cell, and a column nobody holds
+        # reads row 0 (col_ok gates those on faulted rounds)
+        valid = (slot >= 0) & (slot < c)
+        cell = torch.where(valid, slot, c)
+        client_of = torch.zeros(c + 1, dtype=torch.int64, device=dev)
+        client_of[cell] = torch.arange(n, dtype=torch.int64, device=dev)
+        client_of = client_of[:c]
+        if faulted:
+            col_ok = torch.zeros(c + 1, dtype=torch.bool, device=dev)
+            col_ok[cell] = True
+            col_ok = col_ok[:c]
+    for i, ((name, xl), (_, hl)) in enumerate(zip(xs, hs)):
+        D = xl[0].numel()
+        kind = wire_mod.resolve_kind(D, policy)
+        quant = _leaf_quant(kind, seed, i, D)
+        down_quant = _down_quant(kind, seed, i, D) if wdown else None
+        if impl == "ws":
+            leaf = _ws_cyclic_leaf if template == "cyclic" else \
+                _ws_blocked_leaf
+            xn, hn = leaf(xl, hl, slot, client_of, col_ok, c, s, scale,
+                          down, survivor, quant, down_quant, robust)
+        else:
+            leaf = _dense_cyclic_leaf if template == "cyclic" else \
+                _dense_blocked_leaf
+            xn, hn = leaf(xl, hl, slot, c, s, scale, down, sanitize=faulted,
+                          survivor=survivor, quant=quant,
+                          down_quant=down_quant, robust=robust)
+        yield name, xn, hn
+
+
+def _collect(template, x, h, slot, c, s, scale, impl, **kw):
+    out_x, out_h = {}, {}
+    for name, xn, hn in iter_comm_leaves(template, _leaf_items(x),
+                                         _leaf_items(h), slot, c, s, scale,
+                                         impl, **kw):
+        out_x[name], out_h[name] = xn, hn
+    if isinstance(x, torch.Tensor):
+        return out_x[None], out_h[None]
+    return out_x, out_h
 
 
 def cyclic_comm_leaves(x: Leaves, h: Leaves, slot: torch.Tensor, c: int,
@@ -567,55 +931,44 @@ def cyclic_comm_leaves(x: Leaves, h: Leaves, slot: torch.Tensor, c: int,
     ``impl="ws"`` gathers the ``s`` owner rows of every coordinate
     (``O(s D)`` reads); ``impl="dense"`` materializes the ``(n, D)`` mask,
     the reference's ground truth.  The two agree bitwise at ``s = 2`` but
-    for the sign of zeros, and to f32 reassociation at ``s >= 3``."""
-    if impl not in COMM_IMPLS:
-        raise ValueError(f"unknown comm impl {impl!r}; want one of "
-                         f"{COMM_IMPLS} (the kernel path is cyclic_comm)")
-    xs, hs = _leaf_items(x), _leaf_items(h)
-    if [k for k, _ in xs] != [k for k, _ in hs]:
-        raise ValueError("x and h must have the same leaves")
-    n = xs[0][1].shape[0]
-    dev = xs[0][1].device
-    slot = slot.to(device=dev, dtype=torch.int64)
-    faulted = arrived is not None
-    survivor = faulted and correct
-    if faulted:
-        slot = torch.where(arrived.to(device=dev, dtype=torch.bool), slot,
-                           -1)
-    if down is not None:
-        down = down.to(device=dev, dtype=torch.bool)
-    policy = wire if wire_mod.is_wire(wire) else None
-    seed = int(wire_seed) & 0xFFFFFFFF
-    wdown = bool(wire_down) and policy is not None
-    client_of = col_ok = None
-    if impl == "ws":
-        # column -> client row of this round; idle rows write to the
-        # dropped overflow cell, and a column nobody holds reads row 0
-        # (col_ok gates those on faulted rounds)
-        valid = (slot >= 0) & (slot < c)
-        cell = torch.where(valid, slot, c)
-        client_of = torch.zeros(c + 1, dtype=torch.int64, device=dev)
-        client_of[cell] = torch.arange(n, dtype=torch.int64, device=dev)
-        client_of = client_of[:c]
-        if faulted:
-            col_ok = torch.zeros(c + 1, dtype=torch.bool, device=dev)
-            col_ok[cell] = True
-            col_ok = col_ok[:c]
-    out_x, out_h = {}, {}
-    for i, ((name, xl), (_, hl)) in enumerate(zip(xs, hs)):
-        D = xl[0].numel()
-        kind = wire_mod.resolve_kind(D, policy)
-        quant = _leaf_quant(kind, seed, i, D)
-        down_quant = _down_quant(kind, seed, i, D) if wdown else None
-        if impl == "ws":
-            out_x[name], out_h[name] = _ws_cyclic_leaf(
-                xl, hl, slot, client_of, col_ok, c, s, scale, down,
-                survivor, quant, down_quant, robust)
-        else:
-            out_x[name], out_h[name] = _dense_cyclic_leaf(
-                xl, hl, slot, c, s, scale, down, sanitize=faulted,
-                survivor=survivor, quant=quant, down_quant=down_quant,
-                robust=robust)
-    if isinstance(x, torch.Tensor):
-        return out_x[None], out_h[None]
-    return out_x, out_h
+    for the sign of zeros, and to f32 reassociation at ``s >= 3``.  Both
+    take a tall-and-thin leaf (``D s < c``) by its own columns."""
+    return _collect("cyclic", x, h, slot, c, s, scale, impl, down=down,
+                    arrived=arrived, correct=correct, wire=wire,
+                    wire_seed=wire_seed, wire_down=wire_down, robust=robust)
+
+
+def blocked_comm_leaves(x: Leaves, h: Leaves, off: int, n: int, s: int,
+                        scale: float, impl: str = "ws", *,
+                        c: Optional[int] = None,
+                        slot_of: Optional[torch.Tensor] = None,
+                        down: Optional[torch.Tensor] = None,
+                        arrived: Optional[torch.Tensor] = None,
+                        correct: bool = True,
+                        wire: Optional[str] = None,
+                        wire_seed: int = 0,
+                        wire_down: bool = False,
+                        robust=None) -> Tuple[Leaves, Leaves]:
+    """The reference's ``comm_ws.blocked_comm(impl="ws"|"dense",
+    meshed=False)`` over client-stacked leaves: the blocked template's
+    UpCom, control-variate update and DownCom; returns new ``(x, h)`` as
+    ``cyclic_comm_leaves`` does.
+
+    Each leaf chunks into ``m = c`` blocks of ``ceil(D / m)`` (the last
+    ragged); client ``i`` in cohort slot ``slot_of[i]`` (-1 idle) owns the
+    blocks ``(slot_of[i] + off) .. (slot_of[i] + off + s - 1) mod m``, the
+    round's shift ``off`` in ``[0, m)``.  ``c=None`` is full
+    participation (``m = n``, slot ``i`` for client ``i``); ``c < n``
+    needs ``slot_of``.  ``impl="ws"`` reads ``s`` contiguous chunks per
+    block; ``impl="dense"`` materializes the ``(n, D)`` mask.  The rest is
+    ``cyclic_comm_leaves``'."""
+    m = n if c is None else int(c)
+    if slot_of is None:
+        if m != n:
+            raise ValueError(f"blocked_comm_leaves with c={m} < n={n} needs "
+                             "slot_of (the per-client cohort slots)")
+        slot_of = torch.arange(n, dtype=torch.int64)
+    slot = blocked_slot(torch.as_tensor(slot_of), off, m)
+    return _collect("blocked", x, h, slot, m, s, scale, impl, down=down,
+                    arrived=arrived, correct=correct, wire=wire,
+                    wire_seed=wire_seed, wire_down=wire_down, robust=robust)

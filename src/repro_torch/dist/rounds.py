@@ -1,11 +1,18 @@
 """The synchronous round driver (``repro.dist.rounds.run_rounds`` without
-pipelining or checkpoints).
+pipelining).
 
 Per round ``g`` (the global round, ``state.round`` at entry plus the loop
 index): draw ``L ~ Geometric(p)`` capped at ``max_L`` from the host numpy
-RNG and the template permutation from a ``torch.Generator``; take the
-round's cohort and the next round's (the DownCom targets only joining
-clients); run L local steps on the cohort's rows, then the comm step.
+RNG and the template permutation (``uplink="masked_psum"``) or the shift
+``off`` (``"block_rs"``) from a ``torch.Generator``; take the round's
+cohort and the next round's (the DownCom targets only joining clients);
+run L local steps on the cohort's rows, then the comm step.  With
+``elastic=False`` (the all-rows round) every row trains L steps on its own
+batch, the cohort still sets the template's ownership, and the DownCom
+goes to every row.  ``checkpoint_dir``/``checkpoint_every`` save the state
+as ``step_<g + 1>`` after every ``checkpoint_every``-th round
+(``checkpoint.save_state``, the reference's format); the host streams are
+not saved, as in the reference.
 
 Cohorts come from a ``cohort.CohortPlan`` when one is given, else from a
 port-owned numpy stream that is a pure function of ``(seed, g, attempt)``
@@ -29,6 +36,7 @@ step, and the EWMA's quarantine windows feed back into the ``CohortPlan``.
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
@@ -46,6 +54,13 @@ from repro_torch.models.transformer import ModelConfig
 ROUND_POLICIES = ("wait_all", "quorum", "deadline")
 
 _TAG_COHORT = 223  # SeedSequence tag of the uniform cohort stream
+
+
+def default_elastic(n: int, c: int) -> bool:
+    """Whether the round gathers the cohort by default: the reference's
+    ``rounds.default_elastic`` on one device (``dp_total = 1``), which is
+    exactly ``c < n``."""
+    return c < n
 
 
 def uniform_cohort(seed: int, n: int, c: int, rnd: int,
@@ -163,16 +178,25 @@ def run_rounds(
     guard_max_abs: Optional[float] = None,
     guard_mode: Optional[str] = None,
     reputation=None,
+    elastic: Optional[bool] = None,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
 ) -> Tuple[tamuna_dp.DistTamunaState, List[Dict[str, Any]]]:
     """Run ``rounds`` rounds on ``state`` in place.
 
     ``rng`` draws the round lengths, ``generator`` (a CPU
-    ``torch.Generator``) the permutations and, through its seed, the
-    uniform cohorts and the wire seeds; ``plan`` (a
+    ``torch.Generator``) the permutations or shifts and, through its seed,
+    the uniform cohorts and the wire seeds; ``plan`` (a
     ``cohort.CohortPlan``) replaces the uniform cohorts; ``pipe`` draws
-    the batches.  Returns the state and
+    the batches.  ``tcfg`` carries the local optimizer, the microbatches,
+    the uplink and the comm impl.  Returns the state and
     one metrics row per round; a row's ``seconds`` is the round's wall
     time up to a device synchronisation.
+
+    ``elastic`` (default ``default_elastic(n, c)``: gather when ``c <
+    n``) ``False`` runs the all-rows round: every row trains on its own
+    batch and every row receives the DownCom.  ``checkpoint_every > 0``
+    saves ``checkpoint_dir/step_<g + 1>`` after each such round.
 
     ``faults`` (a ``faults.FaultPlan``) turns on the fault-tolerant round,
     with the reference's policies: ``wait_all`` aggregates whatever
@@ -251,6 +275,11 @@ def run_rounds(
             UserWarning, stacklevel=2,
         )
 
+    if elastic is None:
+        elastic = default_elastic(n, c)
+    if checkpoint_every and not checkpoint_dir:
+        raise ValueError("checkpoint_every needs a checkpoint_dir")
+    blocked = tcfg.uplink == "block_rs"
     dev = state.x.device
     local = tamuna_dp.make_local_step(cfg, tcfg)
     comm = tamuna_dp.make_comm_step(cfg, tcfg, n, device=dev)
@@ -278,17 +307,25 @@ def run_rounds(
         t0 = time.perf_counter()
         g = start + r
         L = tamuna_dp.sample_round_length(rng, tcfg.p, max_L=max_L)
-        perm = torch.randperm(c, generator=generator).tolist()
+        if blocked:
+            tmpl = dict(perm=None, off=int(torch.randint(
+                0, c, (1,), generator=generator)))
+        else:
+            tmpl = dict(perm=torch.randperm(c, generator=generator).tolist())
         if faulted:
             res = resolve(g)
             cohort, nxt = res["cohort"], resolve(g + 1)["member"]
         else:
             cohort = host_cohort(g)
             nxt = tamuna_dp.member_mask(host_cohort(g + 1), n)
-        compact = tamuna_dp.gather_cohort(state, cohort)
+        # the all-rows round trains every row, so every row must re-sync
+        trained = cohort if elastic else np.arange(n)
+        if not elastic:
+            nxt = None
+        compact = tamuna_dp.gather_cohort(state, trained)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for _ in range(L):
-            batch = pipe.sample_batch(cohort)
+            batch = pipe.sample_batch(trained)
             loss_sum = loss_sum + local(compact, **batch)["loss"]
         state = tamuna_dp.scatter_cohort(state, compact)
         wseed = (wire_seed(seed, g, res["retries"] if faulted else 0)
@@ -299,10 +336,11 @@ def run_rounds(
                 guard_mode=guard_mode, guard_max_abs=guard_max_abs)
             if rep is not None:  # before the comm step's DownCom
                 anom = robust_mod.anomaly_scores(state.x, arr)
-            state = comm(state, cohort, perm, nxt, arrived=arr,
-                         correct=policy != "wait_all", wire_seed=wseed)
+            state = comm(state, cohort, down=nxt, arrived=arr,
+                         correct=policy != "wait_all", wire_seed=wseed,
+                         **tmpl)
         else:
-            state = comm(state, cohort, perm, nxt, wire_seed=wseed)
+            state = comm(state, cohort, down=nxt, wire_seed=wseed, **tmpl)
         loss = float(loss_sum) / L  # waits for the device
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -349,4 +387,9 @@ def run_rounds(
         rows.append(row)
         if logger is not None:
             logger.log(g, row)
+        if checkpoint_every and (r + 1) % checkpoint_every == 0:
+            from repro_torch import checkpoint
+
+            checkpoint.save_state(
+                os.path.join(checkpoint_dir, f"step_{g + 1}"), state, g + 1)
     return state, rows

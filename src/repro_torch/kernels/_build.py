@@ -102,21 +102,21 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, \
         ctypes.c_float
-    lib.tamuna_masked_sum.argtypes = [p, i32, p, p, p, i64, i64, i32, i32,
-                                      p]
+    lib.tamuna_masked_sum.argtypes = [p, i32, p, p, p, i64, i64, i64, i32,
+                                      i32, p]
     lib.tamuna_masked_sum_counts.argtypes = [p, i32, p, p, p, p, i64, i64,
-                                             i32, i32, p]
+                                             i64, i32, i32, p]
     lib.tamuna_masked_sum_dequant.argtypes = [p, p, i64, p, p, i32, p, p, p,
                                               p, i64, i64, i32, i32, i32, p]
     lib.tamuna_wire_quantize.argtypes = [p, i64, i64, p, p, i32, i64,
                                          ctypes.c_uint32, f32, p, i64, p, i64,
                                          p, i32, p]
-    lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i32, i32,
-                                      i32, i32, p]
-    lib.tamuna_h_update.argtypes = [p, p, p, p, p, p, i64, i64, i32, i32,
-                                    f32, p]
+    lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
+                                      i32, i32, i32, p]
+    lib.tamuna_h_update.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32,
+                                    i32, f32, p]
     lib.tamuna_h_update_covered.argtypes = [p, p, p, p, p, p, p, i64, i64,
-                                            i32, i32, f32, p]
+                                            i64, i32, i32, f32, p]
     lib.tamuna_local_step.argtypes = [p, p, p, p, i64, f32, p]
     lib.tamuna_compress.argtypes = [p, i32, p, p, i64, i64, i32, i32, p]
     lib.tamuna_decode_attention.argtypes = [p, i32, p, p, i32, p, p, p, i32,

@@ -49,7 +49,11 @@ then every row that owns or downloads any of the 4; at most
 
 All evaluate ownership in the kernel from the per-coordinate ``band``
 table and the per-client ``slot`` vector (``compress.owned_from_band``);
-no ``(n, d)`` mask exists.  A CPU tensor runs the plain version in
+no ``(n, d)`` mask exists.  The f32 workspace of ``masked_sum``,
+``robust_sum`` and ``h_update`` may be the first ``d`` columns of a wider
+one (``ws[:, :d]``: rows contiguous, a row pitch ``stride(0) >= d``), as
+the comm step passes it when tall-and-thin leaves lie after those columns;
+``h`` then has the same pitch.  A CPU tensor runs the plain version in
 ``ref.py``; a CUDA tensor launches the kernel or raises.
 """
 
@@ -71,17 +75,21 @@ _LANE_NAME = {torch.float32: "", torch.float16: "_f16",
 
 def _check(x: torch.Tensor, m: int, s: int,
            lanes: Tuple[torch.dtype, ...] = (torch.float32,),
-           **others: torch.Tensor) -> None:
+           pitched: bool = True, **others: torch.Tensor) -> None:
     """Checks shared by the wrappers: ``1 <= s <= m``; the workspace ``x``
-    is ``(n, d)`` of a type in ``lanes``; ``h`` is ``(n, d)`` f32,
-    ``x_bar`` ``(d,)`` f32, ``band`` ``(d,)`` int32, ``covered`` ``(d,)``
-    bool, ``slot`` and ``down`` ``(n,)`` int32, all contiguous and on the
-    workspace's device."""
+    is ``(n, d)`` of a type in ``lanes`` with contiguous rows (a row pitch
+    ``stride(0) >= d`` when ``pitched``, else contiguous); ``h`` is ``(n,
+    d)`` f32 with x's strides, ``x_bar`` ``(d,)`` f32, ``band`` ``(d,)``
+    int32, ``covered`` ``(d,)`` bool, ``slot`` and ``down`` ``(n,)`` int32,
+    contiguous, all on the workspace's device."""
     if not 1 <= s <= m:
         raise ValueError(f"need 1 <= s <= m, got s={s} m={m}")
-    if x.dim() != 2 or x.dtype not in lanes or not x.is_contiguous():
+    if x.dim() != 2 or x.dtype not in lanes or not (
+            x.is_contiguous() or (pitched and x.stride(1) == 1
+                                  and x.stride(0) >= x.shape[1])):
         raise ValueError(f"workspace must be a contiguous (n, d) tensor of "
-                         f"{lanes}, got {tuple(x.shape)} {x.dtype}")
+                         f"{lanes}, got {tuple(x.shape)} {x.dtype} strides "
+                         f"{x.stride()}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     n, d = x.shape
@@ -90,8 +98,10 @@ def _check(x: torch.Tensor, m: int, s: int,
             "down": ((n,), torch.int32), "covered": ((d,), torch.bool)}
     for name, t in others.items():
         shape, dtype = want[name]
+        layout_ok = (t.stride() == x.stride() if name == "h"
+                     else t.is_contiguous())
         if (tuple(t.shape) != shape or t.dtype != dtype
-                or not t.is_contiguous() or t.device != x.device):
+                or not layout_ok or t.device != x.device):
             raise ValueError(f"{name}: want a contiguous {dtype} tensor of "
                              f"shape {shape} on {x.device}, got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
@@ -120,12 +130,13 @@ def masked_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
         cnt = torch.empty(d, dtype=torch.float32, device=x.device)
         rc = lib.tamuna_masked_sum_counts(
             x.data_ptr(), lane, slot.data_ptr(), band.data_ptr(),
-            out.data_ptr(), cnt.data_ptr(), n, d, m, s, _build.stream_of(x))
+            out.data_ptr(), cnt.data_ptr(), n, d, x.stride(0), m, s,
+            _build.stream_of(x))
         _build.check_launch(name, rc)
         return out, cnt
     rc = lib.tamuna_masked_sum(
         x.data_ptr(), lane, slot.data_ptr(), band.data_ptr(), out.data_ptr(),
-        n, d, m, s, _build.stream_of(x))
+        n, d, x.stride(0), m, s, _build.stream_of(x))
     _build.check_launch(name, rc)
     return out
 
@@ -153,7 +164,8 @@ def masked_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
     in f32; ``counts=True`` returns ``(num, cnt)`` as ``masked_sum``
     does.  On the card the leaf tables are copied once per group
     (``_build.device_table``) and nothing is read back."""
-    _check(codes, m, s, lanes=(torch.int8,), slot=slot, band=band)
+    _check(codes, m, s, lanes=(torch.int8,), pitched=False, slot=slot,
+           band=band)
     n, d = codes.shape
     lo = _leaf_starts(leaf_lo)
     coff = tuple(compress.chunk_offsets(lo))
@@ -207,8 +219,8 @@ def robust_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
     cnt = torch.empty(d, dtype=torch.float32, device=x.device)
     rc = _build.load().tamuna_robust_sum(
         x.data_ptr(), slot.data_ptr(), band.data_ptr(), bar.data_ptr(),
-        cnt.data_ptr(), n, d, m, s, int(k), int(kind == "median"),
-        _build.stream_of(x))
+        cnt.data_ptr(), n, d, x.stride(0), m, s, int(k),
+        int(kind == "median"), _build.stream_of(x))
     _build.check_launch("robust_sum", rc)
     return bar, cnt
 
@@ -238,7 +250,7 @@ def h_update(x: torch.Tensor, h: torch.Tensor, x_bar: torch.Tensor,
     lib = _build.load()
     args = (x.data_ptr(), h.data_ptr(), x_bar.data_ptr(), slot.data_ptr(),
             down.data_ptr(), band.data_ptr())
-    tail = (n, d, m, s, float(scale), _build.stream_of(x))
+    tail = (n, d, x.stride(0), m, s, float(scale), _build.stream_of(x))
     if covered is None:
         _build.check_launch("h_update", lib.tamuna_h_update(*args, *tail))
     else:

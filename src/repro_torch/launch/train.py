@@ -11,7 +11,11 @@ combiner face (the fault-tolerant round of ``dist/rounds.py``);
 offenders from a ``CohortPlan``'s cohorts.
 ``--wire-precision`` narrows the UpCom payload (DESIGN.md §13: f16/bf16
 casts, int8/int4 stochastic codes, ``auto`` per leaf size) and
-``--wire-down`` quantizes the DownCom broadcast too.
+``--wire-down`` quantizes the DownCom broadcast too.  ``--uplink block_rs``
+takes the blocked template, ``--comm-impl`` the comm step's path (the CUDA
+kernels, or the reference's plain ``ws``/``dense``), and
+``--checkpoint-dir``/``--checkpoint-every`` save the state in the
+reference's checkpoint format every that many rounds.
 
 ``--arch`` takes the dense family; internvl2-26b's batches carry its stub
 frontend's ``prefix_embeds`` (``SyntheticTokenPipeline``), and the loss
@@ -30,6 +34,9 @@ Example:
       --f-byz 0.25 --reputation --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --wire-precision int8 --wire-down --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
+      --uplink block_rs --comm-impl ws --checkpoint-dir /tmp/ckpt \\
+      --checkpoint-every 1 --device cpu
 """
 
 from __future__ import annotations
@@ -54,9 +61,19 @@ def main(argv=None) -> int:
     ap.add_argument("--clients", type=int, default=4, help="population n")
     ap.add_argument("--sparsity", type=int, default=2)
     ap.add_argument("--uplink", default="masked_psum",
-                    choices=["masked_psum"])
+                    choices=["masked_psum", "block_rs"])
+    # literal list (= tamuna_dp.COMM_IMPLS)
+    ap.add_argument("--comm-impl", default="auto",
+                    choices=["auto", "dense", "ws", "pallas"],
+                    help="comm-step path: the CUDA kernels over the "
+                         "workspace (pallas; auto on the card, the "
+                         "kernels' plain versions on the CPU), or the "
+                         "reference's plain sparse (ws) and dense-mask "
+                         "(dense) steps over the leaves")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log", default="")
+    ap.add_argument("--checkpoint-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--max-L", type=int, default=16,
                     help="cap on the geometric round length")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
@@ -90,6 +107,8 @@ def main(argv=None) -> int:
                     help="also quantize the DownCom broadcast (needs a "
                          "non-f32 --wire-precision)")
     args = ap.parse_args(argv)
+    if args.checkpoint_every and not args.checkpoint_dir:
+        ap.error("--checkpoint-every needs --checkpoint-dir")
     adversarial = args.adversary != "none" and args.f_byz > 0.0
     if args.reputation and not adversarial:
         ap.error("--reputation needs --adversary and --f-byz > 0")
@@ -115,7 +134,8 @@ def main(argv=None) -> int:
     c = args.cohort or max(2, (3 * n) // 4)
     tcfg = tamuna_dp.DistTamunaConfig(
         gamma=args.gamma, c=c, s=min(args.sparsity, c), p=args.p,
-        uplink=args.uplink, robust_agg=args.robust_agg, trim_k=args.trim_k,
+        uplink=args.uplink, comm_impl=args.comm_impl,
+        robust_agg=args.robust_agg, trim_k=args.trim_k,
         wire_precision=args.wire_precision, wire_down=args.wire_down,
     )
     state = tamuna_dp.init_state(cfg, tcfg, n, seed=args.seed,
@@ -141,7 +161,9 @@ def main(argv=None) -> int:
         state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=args.rounds,
         rng=np.random.default_rng(args.seed),
         generator=torch.Generator().manual_seed(args.seed + 1),
-        max_L=args.max_L, logger=logger, **fkw,
+        max_L=args.max_L, logger=logger,
+        checkpoint_dir=args.checkpoint_dir or None,
+        checkpoint_every=args.checkpoint_every, **fkw,
     )
     logger.close()
     dt = time.time() - t0

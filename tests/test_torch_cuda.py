@@ -755,3 +755,165 @@ def test_decode_step_through_the_kernel_matches_plain(dev):
             assert float((lk - lp).abs().max()) <= 1e-5 * float(
                 lp.abs().max()), i
     assert _build.launch_counts["decode_attention_f32"] == 70 * cfg.n_layers
+
+
+# --------------------------------------------------------------------------
+# the blocked template, the row pitch and AdamW on the card
+# --------------------------------------------------------------------------
+
+_BLOCK_DIMS = (300, 70001, 50, 3, 4097)  # ragged last blocks; 3 < c
+
+
+@pytest.mark.parametrize("step", ["f32", "survivor", "trimmed", "median",
+                                  "int8", "auto_survivor"])
+def test_blocked_comm_step_card_matches_cpu_bitwise(dev, step):
+    """The blocked template's kernel path (``comm_ws.blocked_comm``: the
+    block band ``k // ceil(D / c)`` with band values up to ``c - 1`` and a
+    ragged last block per leaf) on the card against the CPU: every kernel
+    of the path with that band, bitwise, each launched."""
+    from repro_torch.dist import comm_ws
+
+    rng = np.random.default_rng(21)
+    dims = _BLOCK_DIMS
+    n, c, s = 6, 5, 3
+    x = rng.normal(size=(n, sum(dims))).astype(np.float32)
+    h = 0.01 * rng.normal(size=(n, sum(dims))).astype(np.float32)
+    x[5] = np.nan  # idle
+    slot_of = np.array([3, 0, 4, 1, 2, -1], np.int32)
+    down = np.array([1, 1, 0, 1, 1, 1], np.int32)
+    survivor = step in ("survivor", "trimmed", "int8", "auto_survivor")
+    arrived = (np.array([True, True, False, True, True, True])
+               if survivor else None)
+    if survivor:
+        x[2] = np.nan  # the dropped row
+    robust = {"trimmed": ("trimmed", 1), "median": ("median", 0)}.get(step)
+    policy = {"int8": "int8", "auto_survivor": "auto"}.get(step)
+    need = {"f32": "h_update", "survivor": "masked_sum_counts",
+            "trimmed": "robust_sum", "median": "robust_sum",
+            "int8": "masked_sum_dequant_counts",
+            "auto_survivor": "masked_sum_counts_f16"}[step]
+    out = {}
+    for d in ("cpu", dev):
+        band = comm_ws.block_band(dims, c, d)
+        assert int(band.max()) == c - 1
+        plan = comm_ws.wire_plan(dims, policy, c, s, band,
+                                 template="blocked")
+        xw, hw = torch.tensor(x, device=d), torch.tensor(h, device=d)
+        before = _build.launch_counts[need]
+        x_bar = comm_ws.blocked_comm(
+            xw, hw, 3, torch.from_numpy(slot_of).to(d), band, c, s, 0.37,
+            down=torch.from_numpy(down).to(d),
+            arrived=None if arrived is None else torch.from_numpy(
+                arrived).to(d),
+            robust=robust, wire=plan, wire_seed=99, wire_down=bool(policy))
+        if d == dev:
+            assert _build.launch_counts[need] > before
+        out[str(d)] = (x_bar.cpu(), xw.cpu(), hw.cpu())
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("extra", [4, 7])
+@pytest.mark.parametrize("kernel", ["masked_sum", "masked_sum_counts",
+                                    "masked_sum_f16", "robust_sum",
+                                    "h_update", "h_update_covered"])
+def test_workspace_kernels_take_a_row_pitch(dev, kernel, extra):
+    """The workspace kernels over the first d columns of an (n, d + extra)
+    workspace (the tall-and-thin layout): bitwise with the plain version on
+    the same view, on the 16-byte vector path (pitch a multiple of 4) and
+    off it, and the columns past d untouched."""
+    n, d = 5, 3 * 4096 + 77
+    rng = np.random.default_rng(31 + extra)
+    wide = rng.normal(size=(n, d + extra)).astype(np.float32)
+    wide[1] = np.nan
+    slot = torch.tensor([2, -1, 0, 3, 1], dtype=torch.int32, device=dev)
+    band = torch.from_numpy(rng.integers(0, M, size=d).astype(
+        np.int32)).to(dev)
+    lane = torch.float16 if kernel == "masked_sum_f16" else torch.float32
+    ws = torch.from_numpy(wide).to(dev).to(lane)
+    hs = torch.from_numpy(rng.normal(size=(n, d + extra)).astype(
+        np.float32)).to(dev)
+    x, h = ws[:, :d], hs[:, :d]
+    assert not x.is_contiguous() and x.stride(0) == d + extra
+    before = _build.launch_counts[kernel]
+    if kernel.startswith("masked_sum"):
+        counts = kernel == "masked_sum_counts"
+        got = uplink.masked_sum(x, slot, band, M, S, counts=counts)
+        want = (ref.masked_sum_counts(x, slot, band, M, S) if counts
+                else ref.masked_sum(x, slot, band, M, S))
+        pairs = list(zip(got, want)) if counts else [(got, want)]
+    elif kernel == "robust_sum":
+        pairs = list(zip(uplink.robust_sum(x, slot, band, M, 3,
+                                           kind="trimmed", k=1),
+                         ref.robust_sum(x, slot, band, M, 3, "trimmed", 1)))
+    else:
+        cov = (torch.from_numpy(rng.random(d) < 0.7).to(dev)
+               if kernel == "h_update_covered" else None)
+        x_bar = torch.from_numpy(rng.normal(size=d).astype(np.float32)
+                                 ).to(dev)
+        down = torch.tensor([1, 0, 1, 1, 0], dtype=torch.int32, device=dev)
+        ws2, hs2 = ws.clone(), hs.clone()
+        uplink.h_update(x, h, x_bar, slot, band, M, S, 0.37, down=down,
+                        covered=cov)
+        ref.h_update(ws2[:, :d], hs2[:, :d], x_bar, slot, band, M, S, 0.37,
+                     down=down, covered=cov)
+        pairs = [(ws, ws2), (hs, hs2)]
+    torch.cuda.synchronize()
+    assert _build.launch_counts[kernel] == before + 1
+    for g, w in pairs:
+        assert _same(g.float(), w.float())
+    assert _same(ws[:, d:].float(), torch.from_numpy(wide[:, d:]).to(
+        dev).to(lane).float())
+
+
+def test_tall_leaves_comm_step_card_matches_cpu_bitwise(dev):
+    """A workspace with two wide leaves (the kernels) and two tall leaves
+    laid after them (the dense fallback), int8 wire, a drop: the card
+    against the CPU, bitwise; the kernels take only the wide columns."""
+    from repro_torch.dist import comm_ws
+
+    rng = np.random.default_rng(41)
+    n = c = 40
+    s = 2
+    dims = (4096 + 3, 777, 16, 16)  # the last two: D s = 32 < c
+    x = rng.normal(size=(n, sum(dims))).astype(np.float32)
+    h = 0.01 * rng.normal(size=(n, sum(dims))).astype(np.float32)
+    slot = rng.permutation(c).astype(np.int32)
+    down = (rng.random(n) < 0.7).astype(np.int32)
+    arrived = rng.random(n) < 0.9
+    d_main = dims[0] + dims[1]
+    tall = ((2, d_main, 16, "f16"), (3, d_main + 16, 16, "f16"))
+    out = {}
+    for d in ("cpu", dev):
+        band = comm_ws.cyclic_band(dims[:2], c, s, d)
+        plan = comm_ws.wire_plan(dims[:2], "auto", c, s, band)
+        xw, hw = torch.tensor(x, device=d), torch.tensor(h, device=d)
+        comm_ws.cyclic_comm(
+            xw, hw, torch.from_numpy(slot).to(d), band, c, s, 0.37,
+            down=torch.from_numpy(down).to(d),
+            arrived=torch.from_numpy(arrived).to(d), wire=plan,
+            wire_seed=5, wire_down=True, tall=tall)
+        out[str(d)] = (xw.cpu(), hw.cpu())
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert _same(a, b)
+
+
+def test_adamw_leaf_on_the_card_matches_cpu_bitwise(dev):
+    """The AdamW update (plain torch, in chunks) on the card against the
+    CPU: CUDA's f32 sqrt and division are correctly rounded, as the CPU's
+    f64 square root rounded once is."""
+    from repro_torch.optim import optimizers
+
+    rng = np.random.default_rng(51)
+    arrs = [rng.normal(size=(3, 70001)).astype(np.float32) for _ in range(2)]
+    out = {}
+    for d in ("cpu", dev):
+        p = torch.tensor(arrs[0], device=d)  # a copy: updated in place
+        state = optimizers.adamw(0.05, weight_decay=0.01).init(p)
+        opt = optimizers.adamw(0.05, weight_decay=0.01)
+        for t in range(3):
+            g = torch.from_numpy(arrs[1] * (t + 0.5)).to(d)
+            p, state = opt.update(g, state, p)
+        out[str(d)] = (p.cpu(), state.mu.cpu(), state.nu.cpu())
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(a, b)

@@ -45,7 +45,8 @@ assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack",
         "repro_torch.launch.paper_bench", "repro_torch.launch.train",
         "repro_torch.configs.gemma2_9b", "repro_torch.configs.stablelm_3b",
         "repro_torch.configs.deepseek_coder_33b",
-        "repro_torch.configs.internvl2_26b"} <= set(names)
+        "repro_torch.configs.internvl2_26b", "repro_torch.optim.optimizers",
+        "repro_torch.checkpoint", "repro_torch.dist.block_uplink"} <= set(names)
 from repro_torch.configs import registry
 assert len(registry.list_archs()) == 5
 for arch in registry.list_archs():

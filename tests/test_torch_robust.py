@@ -22,15 +22,9 @@
   ``tests/test_torch_round.py``: the two frameworks' gradients differ in
   the last bits, and the h update multiplies x's differences by
   eta/gamma = 5.7; measured 3.5e-6);
-* the training CLI with a trimmed combiner and a sign-flipping adversary
-  on the CPU, with and without the anomaly reputation.
+* the training CLI lives in ``tests/test_torch_robust_cli.py``, a file of
+  its own so that ``--dist loadfile`` runs it beside this one.
 """
-
-import math
-import os
-import re
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -49,8 +43,6 @@ from repro.kernels import uplink as juplink
 from repro_torch.configs import gemma2_2b
 from repro_torch.dist import comm_ws, faults, model_api, robust, tamuna_dp
 from repro_torch.kernels import uplink
-
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.mark.parametrize("kind,k,s", [
@@ -351,35 +343,3 @@ def test_faulted_round_matches_reference_per_step_composition(
         assert abs(getattr(got, k) - w) <= 1e-5 * w, k
     # three of the four members arrived
     assert got.up_floats < float(want.down_floats)
-
-
-def test_train_cli_robust_adversary_runs_on_cpu():
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + env.get(
-        "PYTHONPATH", "")
-    args = ["--reduced", "--rounds", "2", "--sparsity", "3",
-            "--robust-agg", "trimmed", "--trim-k", "1",
-            "--adversary", "sign_flip", "--f-byz", "0.25", "--device", "cpu"]
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *args],
-        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
-    assert proc.returncode == 0, proc.stderr
-    m = re.search(r"final loss (\S+)$", proc.stdout.strip())
-    assert m and math.isfinite(float(m.group(1))), proc.stdout
-    assert "arrivals=" in proc.stderr
-    rep = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", *args,
-         "--reputation"],
-        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
-    assert rep.returncode == 0, rep.stderr
-    m = re.search(r"final loss (\S+)$", rep.stdout.strip())
-    assert m and math.isfinite(float(m.group(1))), rep.stdout
-    # every round's row carries the anomaly maximum
-    anomaly = re.findall(r"anomaly_max=(\S+)", rep.stderr)
-    assert len(anomaly) == 2 and all(math.isfinite(float(a))
-                                     for a in anomaly), rep.stderr
-    no_adv = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--reduced",
-         "--rounds", "1", "--reputation", "--device", "cpu"],
-        capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
-    assert no_adv.returncode == 2 and "--adversary" in no_adv.stderr
