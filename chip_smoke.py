@@ -107,6 +107,31 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    ``[checkpoint]`` the reduced config with AdamW: 4 rounds against 2 +
                 ``save_state`` + ``restore_state`` + 2, bitwise, with the
                 save and restore times (under ``_smoke/``, removed);
+   then the pipelined rounds (``run_rounds_pipelined``), launch counts set
+   to 0 before each run and read after:
+   ``[pipeline]`` 2-layer gemma2-2b at n=6, c=3, s=2, 6 rounds each, the
+                clock priced by ``benchmarks/artifacts/latency_dist.json``:
+                ``run_rounds`` (``[pipeline_sync]``) against staleness 0
+                (``[pipeline_tau0]``: x and h bitwise by row digests, every
+                row's counters equal), staleness 1 ``wait_all``
+                (``[pipeline_wait_all]``), staleness 1 quorum q=1
+                (``[pipeline_quorum]``, the survivor kernels; uncovered
+                coordinates printed per round, > 0 in some round; h left
+                at zero, one owner admitted) and q=2
+                (``[pipeline_quorum2]``, h moves); each gated as
+                ``[train]`` and printing its simulated clock, real seconds
+                per round and peak memory;
+   three staleness-1 quorum-2 rounds of the reduced config on the card
+                against the CPU (same state, batches and schedule; 1e-5);
+   ``[pipeline_ckpt]`` the reduced config with AdamW at staleness 1: 6
+                rounds against the same run resumed from its mid-flight
+                ``pipe_step_3`` for the last 3, bitwise (clock, local steps
+                and count included; under ``_smoke/``, removed);
+   ``[pipeline_bench]`` ``repro_torch.launch.pipeline_bench``'s sweep
+                (the reference's tiny model, n=8, c=2, 40 rounds, tau 0 at
+                three seeds, tau 1 and 2 under ``wait_all`` and quorum 1)
+                beside BENCH_pipeline.json's rows, gated on finite losses,
+                its admissions and BENCH's local steps;
 6. builds the paper's Fig. 3 problem at paper scale
    (``benchmarks/paper_fig3.py --paper-scale``: real-sim-like l2-logistic
    regression, n=1000 clients, d=20958, 4 samples each, kappa=1e4, seed
@@ -254,6 +279,12 @@ TRAIN_PREFIX = dict(layers=1, n=3, c=2, s=2)
 TINY_TALL = dict(n_layers=1, d_model=16, n_heads=2, n_kv_heads=1,
                  head_dim=8, d_ff=32, vocab=64)
 TALL = dict(n=40, c=40, s=2)
+# the pipelined paths: full-width 2-layer gemma2-2b at n=6, c=3, s=2 (two
+# disjoint cohorts in flight at staleness 1), their rounds per run, and the
+# measured per-step latency export that prices their simulated clock
+PIPE = dict(n=6, c=3, s=2)
+PIPE_ROUNDS = 6
+PIPE_LATENCY = "benchmarks/artifacts/latency_dist.json"
 # AdamW's reduced round runs one local step (see check_reduced_adamw_round)
 # and gates columns whose g - h lies within ADAM_NEAR0 of 0 at 2 gamma
 ADAM_NEAR0 = 1e-5
@@ -2178,6 +2209,322 @@ def run_checkpoint(dev, root: str) -> dict:
     return launches
 
 
+def row_digests(ws: torch.Tensor, chunk: int = 1 << 25) -> np.ndarray:
+    """``(n, 2)`` int64 digest of each row's bits: two sums, wrapping mod
+    2**64, of the row's int32 bit patterns times fixed random odd int64
+    weights.  Wrapping addition does not depend on the order of the adds,
+    so equal rows give equal digests on any run; two rows that differ in
+    any bit give equal digests with probability about 2**-128."""
+    n, d = ws.shape
+    g = torch.Generator(device=ws.device).manual_seed(2024)
+    w = torch.randint(-(1 << 62), 1 << 62, (2, chunk), generator=g,
+                      dtype=torch.int64, device=ws.device) | 1
+    out = torch.zeros(n, 2, dtype=torch.int64, device=ws.device)
+    for a in range(0, d, chunk):
+        b = min(a + chunk, d)
+        v = ws[:, a:b].view(torch.int32).to(torch.int64)
+        out[:, 0] += (v * w[0, :b - a]).sum(1)
+        out[:, 1] += (v * w[1, :b - a]).sum(1)
+        del v
+    return out.cpu().numpy()
+
+
+class ScriptedPipe:
+    """Batches in call order from fixed tokens, moved to ``dev`` (the same
+    batches on the card and on the CPU), with the generator a pipe
+    checkpoint saves."""
+
+    def __init__(self, toks: np.ndarray, dev):
+        self.toks, self.dev, self.used = toks, dev, 0
+        self.generator = torch.Generator()
+
+    def sample_batch(self, clients):
+        tk = torch.from_numpy(self.toks[self.used]).to(self.dev)
+        self.used += 1
+        return {"tokens": tk[..., :-1], "labels": tk[..., 1:]}
+
+
+def run_pipeline(cfg, dev, here: str) -> dict:
+    """``[pipeline]``: the pipelined rounds (``run_rounds_pipelined``) of
+    2-layer full-width gemma2-2b at n=6, c=3, s=2 (seq 128, 2 sequences
+    per client, max_L 4, PIPE_ROUNDS rounds, the clock priced by
+    ``benchmarks/artifacts/latency_dist.json``): tau = 0 ``wait_all``
+    against ``run_rounds`` on the same seeds (x and h bitwise by
+    ``row_digests``, every row's counters equal), tau = 1 ``wait_all``
+    and tau = 1 ``quorum`` at q=1 (the survivor UpCom; uncovered > 0 in
+    some round) and q=2 (two owners arrive on a third of the
+    coordinates, so the survivor h update moves h).  Each run's launch
+    counts are set to 0 before it and read after; gated on finite losses,
+    every kernel of its path and ``|sum_i h_i| / max|h|``, except the q=1
+    run whose every round admits one member: one owner's rebuild is its
+    own x, so its h must stay bitwise its initial zeros; prints the clock,
+    seconds per round and peak memory."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import comm_ws, faults, model_api, rounds, tamuna_dp
+    from repro_torch.kernels import _build
+
+    n, c, s = PIPE["n"], PIPE["c"], PIPE["s"]
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P)
+    d = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
+    lat = faults.EmpiricalDelays.from_json(
+        os.path.join(here, PIPE_LATENCY), n=n, seed=0)
+    print(f"[pipeline] {cfg.name} 2 layers, n={n} c={c} s={s}, "
+          f"{PIPE_ROUNDS} rounds per run, max_L 4, latency "
+          f"{PIPE_LATENCY} (p50 {lat.quantile(0.5):.3f} s, p90 "
+          f"{lat.quantile(0.9):.3f} s per step)")
+    out, digests = {}, {}
+    runs = [("pipeline_sync", None, "wait_all", None),
+            ("pipeline_tau0", 0, "wait_all", None),
+            ("pipeline_wait_all", 1, "wait_all", None),
+            ("pipeline_quorum", 1, "quorum", 1),
+            ("pipeline_quorum2", 1, "quorum", 2)]
+    need = {"wait_all": ("masked_sum", "h_update", "fused_local_step"),
+            "quorum": ("masked_sum_counts", "h_update_covered",
+                       "fused_local_step")}
+    rows_by = {}
+    for tag, tau, policy, q in runs:
+        state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device=dev)
+        pipe = SyntheticTokenPipeline(
+            DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=0,
+                       n_clients=n), cfg, dev)
+        kw = dict(rng=np.random.default_rng(0),
+                  generator=torch.Generator().manual_seed(1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        if tau is None:
+            state, rows = rounds.run_rounds(
+                state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=PIPE_ROUNDS,
+                max_L=4, **kw)
+        else:
+            engine = rounds.make_pipelined_round_fn(
+                cfg, tcfg, n, pipe=pipe, max_L=4, device=dev)
+            state, rows = rounds.run_rounds_pipelined(
+                state, round_fn=engine, rounds=PIPE_ROUNDS, p=P,
+                staleness=tau, latency=lat, policy=policy, quorum=q, **kw)
+            del engine
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        for r in rows:
+            extra = " ".join(f"{k} {r[k]:.6g}" for k in (
+                "dispatch_s", "commit_s", "admitted", "late_dropped",
+                "uncovered") if k in r)
+            print(f"[{tag}] round {r['round']}: L={r['L']} loss "
+                  f"{r['loss']:.6f} wall {r['seconds']:.3f} s"
+                  + (f" {extra}" if extra else ""))
+        clock = rows[-1].get("commit_s")
+        print(f"[{tag}] tau={tau} {policy} q={q}: "
+              f"{'' if clock is None else f'simulated clock {clock:.3f} s, '}"
+              f"real {secs:.3f} s = {secs / len(rows):.3f} s per round, "
+              f"{rows[-1]['local_steps']} local steps; peak "
+              f"{peak / 2**30:.2f} GiB; launches {launches}")
+        if not all(math.isfinite(r["loss"]) for r in rows):
+            raise AssertionError(f"[{tag}] non-finite loss: {rows}")
+        if not all(launches[k] > 0 for k in need[policy]):
+            raise AssertionError(f"[{tag}] a kernel of {need[policy]} was "
+                                 f"not launched: {launches}")
+        if q == 1 and all(r["admitted"] == 1 for r in rows):
+            moved = bool(state.h.any())
+            print(f"[{tag}] one member admitted per round: h left at its "
+                  f"initial zeros {not moved}")
+            if moved:
+                raise AssertionError(f"[{tag}] h moved with one owner "
+                                     "admitted per round")
+        else:
+            ratio = h_sum_ratio(state.h, d)
+            print(f"[{tag}] |sum_i h_i| / max|h| = {ratio:.3e} "
+                  "(limit 1e-4)")
+            if not ratio <= 1e-4:
+                raise AssertionError(f"[{tag}] sum_i h_i = 0 violated: "
+                                     f"{ratio}")
+        if tau in (None, 0):
+            digests[tag] = (row_digests(state.x), row_digests(state.h))
+        rows_by[tag] = rows
+        out[tag] = launches
+        del state, pipe
+        torch.cuda.empty_cache()
+    keys = ("round", "L", "loss", "local_steps", "up_floats", "down_floats",
+            "up_bytes", "down_bytes")
+    same_rows = ([[r[k] for k in keys] for r in rows_by["pipeline_sync"]]
+                 == [[r[k] for k in keys] for r in rows_by["pipeline_tau0"]])
+    same_state = all(np.array_equal(a, b) for a, b in zip(
+        digests["pipeline_sync"], digests["pipeline_tau0"]))
+    print(f"[pipeline] tau=0 against run_rounds: x and h bitwise "
+          f"{same_state} (row digests), every row's counters equal "
+          f"{same_rows}")
+    if not (same_rows and same_state):
+        raise AssertionError("[pipeline] tau=0 differs from run_rounds")
+    unc = [r["uncovered"] for r in rows_by["pipeline_quorum"]]
+    print(f"[pipeline_quorum] uncovered per round {unc}")
+    if not any(u > 0 for u in unc):
+        raise AssertionError("[pipeline_quorum] no round left a "
+                             "coordinate uncovered")
+    return out
+
+
+def check_reduced_pipelined(dev) -> None:
+    """Three staleness-1 rounds of the reduced gemma2-2b under ``quorum``
+    q=2 (so the survivor h update moves h) with the latency model (n=6, c=3, s=2, max_L 2) on the card
+    against the CPU (one intra-op thread), from the same state, batches,
+    cohorts and permutations: the same schedule, and x and h within 1e-5
+    (C3's gate)."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.dist import faults, rounds, tamuna_dp
+
+    cfg = gemma2_2b.REDUCED
+    n, c, s = PIPE["n"], PIPE["c"], PIPE["s"]
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=0.5)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab, size=(6, c, 2, 65))
+    lat = faults.EmpiricalDelays([0.05, 0.1, 3.0], n=n, seed=5)
+    out = {}
+    for device in ("cpu", dev):
+        state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device="cpu")
+        state.x[1:] += torch.from_numpy(0.01 * np.random.default_rng(
+            5).normal(size=(n - 1, state.x.shape[1])).astype(np.float32))
+        state.x, state.h = state.x.to(device), state.h.to(device)
+        engine = rounds.make_pipelined_round_fn(
+            cfg, tcfg, n, pipe=ScriptedPipe(toks, device), max_L=2,
+            device=device)
+        state, rows = rounds.run_rounds_pipelined(
+            state, round_fn=engine, rounds=3, rng=np.random.default_rng(3),
+            generator=torch.Generator().manual_seed(1), p=0.5, staleness=1,
+            latency=lat, policy="quorum", quorum=2)
+        out[str(device)] = (state.x.cpu(), state.h.cpu(), rows)
+    (xc, hc, rc), (xg, hg, rg) = out["cpu"], out[str(dev)]
+    keys = ("L", "admitted", "late_dropped", "uncovered", "commit_s")
+    same = ([[r[k] for k in keys] for r in rc]
+            == [[r[k] for k in keys] for r in rg])
+    err = max(max_abs_err(xc, xg), max_abs_err(hc, hg))
+    hmax = float(hc.abs().max())
+    print(f"[reduced] 3 pipelined rounds of gemma2-2b-reduced (tau=1, "
+          f"quorum 2, n={n} c={c} s={s}) on the card vs the CPU: schedule "
+          f"equal {same}, max abs err {err:.3e} (tolerance 1e-5), max|h| "
+          f"{hmax:.3e}")
+    if not (same and err <= 1e-5 and hmax > 0):
+        raise AssertionError(f"reduced pipelined rounds: schedule {same}, "
+                             f"err {err}, max|h| {hmax}")
+
+
+def run_pipeline_ckpt(dev, root: str) -> dict:
+    """``[pipeline_ckpt]``: the reduced gemma2-2b with AdamW (n=6, c=3,
+    s=2, tau=1, quorum 2 under the latency model) on the card: 6 rounds
+    against the same run resumed from its ``pipe_step_3`` (saved with
+    round 3 in flight) for its last 3, bitwise in x, h, the moments, the
+    count, the counters and every row (clock and local steps included).
+    Writes under ``root`` and removes it."""
+    import shutil
+
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import faults, rounds, tamuna_dp
+    from repro_torch.kernels import _build
+
+    cfg = gemma2_2b.REDUCED
+    n, c, s = PIPE["n"], PIPE["c"], PIPE["s"]
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P,
+                                      local_opt="adamw")
+    lat = faults.EmpiricalDelays([0.05, 0.1, 3.0], n=n, seed=5)
+
+    def run(ck, resume):
+        pipe = SyntheticTokenPipeline(
+            DataConfig(seq_len=64, per_client_batch=2, vocab=512, seed=0,
+                       n_clients=n), cfg, dev)
+        engine = rounds.make_pipelined_round_fn(cfg, tcfg, n, pipe=pipe,
+                                                max_L=3, device=dev)
+        state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device=dev)
+        return rounds.run_rounds_pipelined(
+            state, round_fn=engine, rounds=6, rng=np.random.default_rng(0),
+            generator=torch.Generator().manual_seed(1), p=P, staleness=1,
+            flush_every=3, checkpoint_dir=ck, checkpoint_every=3,
+            latency=lat, policy="quorum", quorum=2, resume=resume)
+
+    whole_dir = os.path.join(root, "pipe_whole")
+    part_dir = os.path.join(root, "pipe_part")
+    shutil.rmtree(root, ignore_errors=True)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    whole, rows = run(whole_dir, False)
+    os.makedirs(part_dir)
+    os.rename(os.path.join(whole_dir, "pipe_step_3"),
+              os.path.join(part_dir, "pipe_step_3"))
+    nbytes = sum(os.path.getsize(os.path.join(part_dir, "pipe_step_3", f))
+                 for f in os.listdir(os.path.join(part_dir, "pipe_step_3")))
+    resumed, tail = run(part_dir, True)
+    launches = dict(_build.launch_counts)
+    secs = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in (
+        (whole.x, resumed.x), (whole.h, resumed.h),
+        (whole.opt.mu, resumed.opt.mu), (whole.opt.nu, resumed.opt.nu)))
+    same = same and all(getattr(whole, k) == getattr(resumed, k) for k in (
+        "round", "up_floats", "down_floats", "up_bytes", "down_bytes")) \
+        and whole.opt.count == resumed.opt.count
+    strip = lambda rs: [{k: v for k, v in r.items() if k != "seconds"}
+                        for r in rs]
+    same_rows = strip(rows[3:]) == strip(tail)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"[pipeline_ckpt] {cfg.name} AdamW tau=1 quorum 2 (n={n} c={c} "
+          f"s={s}): 6 rounds against 3 + pipe_step_3 ({nbytes} B, round 3 "
+          f"in flight) + resume + 3 on the card: state bitwise {same}, "
+          f"rows (clock {tail[-1]['commit_s']:.6f} s, local_steps "
+          f"{tail[-1]['local_steps']}, count {resumed.opt.count}) equal "
+          f"{same_rows}; {secs:.3f} s")
+    if not (same and same_rows):
+        raise AssertionError("[pipeline_ckpt] the resumed run differs")
+    return launches
+
+
+def run_pipeline_bench(dev, here: str) -> dict:
+    """``[pipeline_bench]``: ``launch/pipeline_bench.py``'s sweep on the
+    card (the port's own cohorts), each run beside BENCH_pipeline.json's;
+    gated on finite losses, ``admitted + late_dropped = c x rounds`` and
+    the local steps of each seed (the round lengths are the same numpy
+    draws as the reference's)."""
+    from repro_torch.dist import faults
+    from repro_torch.kernels import _build
+    from repro_torch.launch import pipeline_bench
+
+    with open(os.path.join(here, "BENCH_pipeline.json")) as f:
+        bench = json.load(f)
+    lat = faults.EmpiricalDelays.from_json(
+        os.path.join(here, PIPE_LATENCY), n=pipeline_bench.N, seed=0)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = pipeline_bench.sweep(False, dev, lat)
+    secs = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)
+    key = lambda r: (r["tau"], r["policy"], r["seed"])
+    want = {key(r): r for r in bench["rows"] + bench["sync_seeds"]}
+    ok = True
+    for r in out["rows"] + out["sync_seeds"][1:]:
+        w = want[key(r)]
+        print(f"[pipeline_bench] tau={r['tau']} {r['policy']} q="
+              f"{r['quorum']} seed {r['seed']}: clock {r['clock_s']:.3f} s "
+              f"(BENCH {w['clock_s']:.3f}), loss {r['loss']:.6f} "
+              f"({w['loss']:.6f}), admitted {r['admitted_total']} "
+              f"({w['admitted_total']}), late_dropped "
+              f"{r['late_dropped_total']} ({w['late_dropped_total']}), "
+              f"uncovered {r['uncovered_total']} ({w['uncovered_total']}), "
+              f"local_steps {r['local_steps']} ({w['local_steps']}); real "
+              f"{r['seconds_per_round']:.4f} s per round")
+        rounds_ = out["config"]["rounds"]
+        ok &= (r["finite"] and r["local_steps"] == w["local_steps"]
+               and r["admitted_total"] + r["late_dropped_total"]
+               == pipeline_bench.C * rounds_)
+    print(f"[pipeline_bench] speedup_at_tail {out['speedup_at_tail']:.6f} at "
+          f"tau {out['speedup_tau']} (BENCH {bench['speedup_at_tail']:.6f} "
+          f"at tau {bench['speedup_tau']}); tail_loss_within_sync_band "
+          f"{out['tail_loss_within_sync_band']} (BENCH "
+          f"{bench['tail_loss_within_sync_band']}); {secs:.3f} s; launches "
+          f"{launches}")
+    if not ok:
+        raise AssertionError("[pipeline_bench] a run broke a gate")
+    return launches
+
+
 def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3,
              forbid=(), keep=False, **kw):
     """Drive ``run_rounds`` for ``rounds_`` rounds of ``cfg`` at ``n``
@@ -2712,6 +3059,23 @@ def main(argv=None) -> int:
     by_path.update(run_train_options(cfg, dev))
     by_path["checkpoint"] = run_checkpoint(
         dev, os.path.join(here, "_smoke"))
+
+    # ---- the pipelined rounds (tau 0 and 1) ------------------------------
+    t0 = time.perf_counter()
+    by_path.update(run_pipeline(cfg, dev, here))
+    print(f"[pipeline] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with intra_op_threads(REDUCED_CPU_THREADS):
+        check_reduced_pipelined(dev)
+    print(f"[reduced] pipelined phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["pipeline_ckpt"] = run_pipeline_ckpt(
+        dev, os.path.join(here, "_smoke"))
+    print(f"[pipeline_ckpt] phase {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_path["pipeline_bench"] = run_pipeline_bench(dev, here)
+    print(f"[pipeline_bench] phase {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
     # ---- the convex core at paper scale: Fig. 3's problem, c=100, 1000 --
     from repro_torch.core import problems, tamuna

@@ -29,13 +29,13 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["save", "restore", "latest_step", "state_tree", "save_state",
-           "restore_state"]
+__all__ = ["save", "restore", "latest_step", "load_named", "state_tree",
+           "save_state", "restore_state", "fill_state", "fill_rows"]
 
 
 def _is_namedtuple(x) -> bool:
@@ -206,6 +206,19 @@ def restore(path: str, like):
                              for _, arr, dt, ref in _read(path, like)])
 
 
+def load_named(path: str) -> Dict[str, Tuple[np.ndarray, Optional[str]]]:
+    """Every leaf of the checkpoint at ``path`` by its name: ``{name:
+    (stored array, stored dtype name)}``."""
+    meta = _load_meta(path)
+    if meta is None or "names" not in meta:
+        raise ValueError(f"no checkpoint meta.json with leaf names at "
+                         f"{path!r}")
+    dtypes = meta.get("dtypes") or [None] * len(meta["names"])
+    with np.load(os.path.join(path, "arrays.npz")) as z:
+        return {name: (z[f"leaf_{i}"], dt)
+                for i, (name, dt) in enumerate(zip(meta["names"], dtypes))}
+
+
 def latest_step(root: str) -> Optional[int]:
     """The largest ``k`` of the ``step_<k>`` directories under ``root``."""
     if not os.path.isdir(root):
@@ -282,10 +295,66 @@ def restore_state(path: str, state):
     into ``state`` in place (its workspaces leaf by leaf, AdamW's moments
     and count, the round and the counters); returns ``state``.  Leaf
     names, count and shapes must be those ``state_tree(state)`` gives."""
+    return _fill(state, [(arr, dt, ref) for _, arr, dt, ref
+                         in _read(path, state_tree(state))])
+
+
+def fill_state(state, named: Dict[str, Tuple[np.ndarray, Optional[str]]],
+               prefix: str = ""):
+    """``restore_state`` from ``load_named``'s leaves whose names are
+    ``state_tree(state)``'s under ``prefix``; other leaves are ignored."""
+    items = []
+    for name, ref in _flatten_with_names(state_tree(state)):
+        key = prefix + name
+        if key not in named:
+            raise ValueError(f"checkpoint has no leaf {key!r}")
+        arr, dt = named[key]
+        shape = tuple(ref.shape) if hasattr(ref, "shape") else ()
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"shape mismatch at leaf {key!r}: "
+                             f"{tuple(arr.shape)} vs {shape}")
+        items.append((arr, dt, ref))
+    return _fill(state, items)
+
+
+def fill_rows(state, named: Dict[str, Tuple[np.ndarray, Optional[str]]],
+              rows: Sequence[int], prefix: str) -> Optional[int]:
+    """Write a compact state of ``len(rows)`` clients (the reference's
+    ``gather_cohort`` tree: ``.x/<leaf>``, ``.h/<leaf>`` and AdamW's
+    ``.opt/.mu/<leaf>``, ``.opt/.nu/<leaf>`` of shape ``(len(rows),
+    *leaf)``, under ``prefix``) into the workspace rows ``rows`` of
+    ``state``.  Returns the compact AdamW count, or None under sgd."""
+    from repro_torch.optim import optimizers
+
+    spec = state.spec
+    wss = [(".x/", state.x), (".h/", state.h)]
+    adam = isinstance(state.opt, optimizers.AdamState)
+    if adam:
+        wss += [(".opt/.mu/", state.opt.mu), (".opt/.nu/", state.opt.nu)]
+    f32 = torch.empty((), dtype=torch.float32)
+    for tag, ws in wss:
+        for name, shape, D, o in zip(spec.names, spec.shapes, spec.dims,
+                                     spec.offsets):
+            key = prefix + tag + name
+            arr, dt = named[key]
+            if tuple(arr.shape) != (len(rows),) + tuple(shape):
+                raise ValueError(f"shape mismatch at leaf {key!r}: "
+                                 f"{tuple(arr.shape)}")
+            vals = _from_numpy(arr, dt, f32).reshape(len(rows), D)
+            for a, i in enumerate(rows):
+                ws[int(i), o:o + D].copy_(vals[a])
+    if not adam:
+        return None
+    return int(named[prefix + ".opt/.count"][0])
+
+
+def _fill(state, items):
+    """Copy ``[(stored array, dtype name, leaf of state_tree(state))]`` into
+    ``state``: the workspace leaves in place, then the scalars."""
     from repro_torch.optim import optimizers
 
     leaves = []
-    for name, arr, dt, ref in _read(path, state_tree(state)):
+    for arr, dt, ref in items:
         if isinstance(ref, torch.Tensor):
             ref.copy_(_from_numpy(arr, dt, torch.empty(
                 (), dtype=ref.dtype)).view(ref.shape))

@@ -139,6 +139,31 @@ class CohortPlan:
         mask[self.cohort(rnd, attempt)] = True
         return mask
 
+    def cohort_excluding(self, rnd: int, busy, attempt: int = 0
+                         ) -> np.ndarray:
+        """The round's cohort with the ``busy`` clients (an ``(n,)`` bool
+        mask) barred outright: the pipelined driver keeps rounds in
+        flight, and a client mid-round cannot join a new cohort.  The
+        Gumbel stream is ``cohort``'s, with a hard ``-inf`` on the busy
+        clients (the availability gate's floor is soft); with no busy
+        client it is ``cohort``.  Raises when fewer than ``c`` clients are
+        free.  Not cached: the busy set is a function of the schedule."""
+        busy = np.asarray(busy, bool)
+        if busy.shape != (self.n,):
+            raise ValueError(f"busy mask shape {busy.shape} != ({self.n},)")
+        if not busy.any():
+            return self.cohort(rnd, attempt)
+        if int((~busy).sum()) < self.c:
+            raise ValueError(
+                f"only {int((~busy).sum())} free clients for c={self.c} "
+                f"at round {rnd}: staleness too deep for this fleet "
+                f"(need c * (tau + 1) <= n)"
+            )
+        g = self._gumbel(int(rnd), int(attempt))
+        g = np.where(busy, -np.inf, g)
+        top = np.argpartition(-g, self.c - 1)[:self.c]
+        return np.sort(top).astype(np.int32)
+
     def quarantine(self, clients, first_round: int,
                    last_round: int) -> None:
         """Penalize ``clients`` by the unavailability weight floor for

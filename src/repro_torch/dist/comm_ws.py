@@ -496,6 +496,65 @@ def _cyclic_leaf_tables_np(D: int, c: int, s: int):
     return cols.astype(np.int32), band, tall
 
 
+@functools.lru_cache(maxsize=None)
+def _cyclic_band_counts_np(D: int, c: int, s: int) -> np.ndarray:
+    """(c,) int64: the coordinates of a leaf of ``D`` per cyclic band
+    value ``(s k) mod c`` (``comm_ws._cyclic_band_counts_np``, not tall),
+    in closed form: ``k`` and ``k mod c`` have the same band."""
+    r = np.arange(c, dtype=np.int64)
+    per = D // c + (r < D % c)
+    return np.bincount((s * r) % c, weights=per, minlength=c).astype(
+        np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_band_counts_np(D: int, m: int) -> np.ndarray:
+    """(m,) int64: the coordinates of a leaf of ``D`` per block ``k //
+    ceil(D / m)`` (``comm_ws._block_band_counts_np``), the last ragged."""
+    chunk = -(-D // m)
+    return np.clip(D - chunk * np.arange(m, dtype=np.int64), 0, chunk)
+
+
+def uncovered_coords(template: str, dims: Sequence[int], m: int, s: int,
+                     slot) -> int:
+    """The coordinates with no surviving owner this round
+    (``comm_ws.uncovered_coords``), on the host.
+
+    ``slot`` ``(n,)`` int is each client's final slot in the comm step
+    (-1 idle or not arrived): the template column under ``"cyclic"``, the
+    folded ``(-(slot_of + off)) mod c`` under ``"blocked"``.  Under the
+    survivor rebuild exactly these coordinates keep x and h bitwise.  The
+    count takes the ``(m,)`` occupancy of the slot values and each leaf's
+    band counts; a tall-and-thin cyclic leaf (``D s < m``) its owner-column
+    table (``_cyclic_leaf_tables_np``)."""
+    if template not in ("cyclic", "blocked"):
+        raise ValueError(f"unknown template {template!r}")
+    slot = np.asarray(slot, np.int64)
+    pres = np.zeros(m + 1, bool)
+    pres[np.where(slot >= 0, slot, m)] = True
+    pres = pres[:m]
+    cov_band = np.zeros(m, bool)
+    if template == "cyclic":
+        # band b is covered iff a column (b + t) mod m, t < s, arrived
+        for t in range(s):
+            cov_band |= np.roll(pres, -t)
+    else:
+        # block b is covered iff a slot (t - b) mod m, t < s, arrived
+        pres_rev = np.roll(pres[::-1], 1)  # pres_rev[b] = pres[(-b) % m]
+        for t in range(s):
+            cov_band |= np.roll(pres_rev, t)
+    total = 0
+    for D in dims:
+        if template == "cyclic" and D * s < m:
+            cols, _, _ = _cyclic_leaf_tables_np(D, m, s)
+            total += D - int(pres[cols].any(axis=0).sum())
+        else:
+            cnt = (_cyclic_band_counts_np(D, m, s) if template == "cyclic"
+                   else _block_band_counts_np(D, m))
+            total += int(cnt[~cov_band].sum())
+    return total
+
+
 def _wrapped_lt(diff: torch.Tensor, m: int, s: int) -> torch.Tensor:
     """``diff mod m < s`` for ``diff in (-m, m)`` as two compares."""
     return ((diff >= 0) & (diff < s)) | (diff < s - m)

@@ -365,10 +365,14 @@ def _impl(impl: str) -> str:
 
 
 def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
-                   device="cuda", impl: Optional[str] = None):
+                   device="cuda", impl: Optional[str] = None,
+                   with_stats: bool = False):
     """Build ``fn(state, cohort, perm=None, down=None, arrived=None,
     correct=True, wire_seed=None, *, off=None) -> state``: UpCom +
-    control-variate update + DownCom of one round, in place.
+    control-variate update + DownCom of one round, in place.  With
+    ``with_stats`` it returns ``(state, {"uncovered": int})``, the
+    coordinates no arrived member owns (``comm_ws.uncovered_coords``,
+    counted on the host from the slots).
 
     ``cohort`` is the round's ``c`` clients.  Under ``masked_psum`` ``perm``
     is a permutation of the ``c`` template columns (cohort member ``a``
@@ -479,7 +483,16 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
                 del xn, hn
         state.round += 1
         add_counters(state, totals, c, survivors)
-        return state
+        if not with_stats:
+            return state
+        # the slot each client aggregates with: the template column, or
+        # the folded blocked slot; -1 idle or not arrived
+        sslot = (np.where(slot >= 0, (-(slot + int(off))) % c, -1)
+                 if blocked else slot)
+        if arrived is not None:
+            sslot = np.where(arrived, sslot, -1)
+        return state, {"uncovered": comm_ws.uncovered_coords(
+            template, spec.dims, c, s, sslot)}
 
     fn.wire_kinds = kinds
     return fn

@@ -17,6 +17,11 @@ kernels, or the reference's plain ``ws``/``dense``), and
 ``--checkpoint-dir``/``--checkpoint-every`` save the state in the
 reference's checkpoint format every that many rounds.
 
+``--pipeline`` runs the pipelined rounds (``run_rounds_pipelined``):
+``--staleness`` rounds in flight, the simulated clock priced by
+``--latency-dist``, and ``--round-policy``/``--quorum`` admission at the
+deferred commit; it prints the simulated clock.
+
 ``--arch`` takes the dense family; internvl2-26b's batches carry its stub
 frontend's ``prefix_embeds`` (``SyntheticTokenPipeline``), and the loss
 is on the text positions.
@@ -37,6 +42,10 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --uplink block_rs --comm-impl ws --checkpoint-dir /tmp/ckpt \\
       --checkpoint-every 1 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 4 \\
+      --clients 8 --cohort 2 --pipeline --staleness 1 --latency-dist \\
+      benchmarks/artifacts/latency_dist.json --round-policy quorum \\
+      --quorum 1 --device cpu
 """
 
 from __future__ import annotations
@@ -77,6 +86,26 @@ def main(argv=None) -> int:
     ap.add_argument("--max-L", type=int, default=16,
                     help="cap on the geometric round length")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--pipeline", action="store_true",
+                    help="pipelined rounds under bounded staleness: a "
+                         "round's commit may lag its local steps by "
+                         "--staleness rounds")
+    ap.add_argument("--staleness", type=int, default=1,
+                    help="pipeline depth tau (0 = the synchronous "
+                         "schedule through the split-phase engine)")
+    ap.add_argument("--latency-dist", default="",
+                    help="a per-step latency export (JSON key "
+                         "per_step_latency_s, e.g. benchmarks/artifacts/"
+                         "latency_dist.json) that drives the pipelined "
+                         "driver's simulated clock")
+    ap.add_argument("--round-policy", default="wait_all",
+                    choices=["wait_all", "quorum", "deadline"],
+                    help="pipelined admission at the deferred commit "
+                         "(uplinks past the cutoff are dropped, their "
+                         "coordinates untouched)")
+    ap.add_argument("--quorum", type=int, default=0,
+                    help="quorum size for --round-policy quorum "
+                         "(0 = c//2 + 1)")
     ap.add_argument("--robust-agg", default="mean",
                     choices=["mean", "trimmed", "median"],
                     help="per-coordinate combiner over the arrived owner "
@@ -112,6 +141,9 @@ def main(argv=None) -> int:
     adversarial = args.adversary != "none" and args.f_byz > 0.0
     if args.reputation and not adversarial:
         ap.error("--reputation needs --adversary and --f-byz > 0")
+    if adversarial and args.pipeline:
+        ap.error("--adversary runs on the synchronous driver (drop "
+                 "--pipeline)")
     if args.wire_down and args.wire_precision == "f32":
         ap.error("--wire-down quantizes the DownCom broadcast; it needs a "
                  "non-f32 --wire-precision")
@@ -157,14 +189,31 @@ def main(argv=None) -> int:
             fkw["reputation"] = True
     logger = metrics.MetricLogger(args.log or None)
     t0 = time.time()
-    state, rows = rounds.run_rounds(
-        state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=args.rounds,
-        rng=np.random.default_rng(args.seed),
-        generator=torch.Generator().manual_seed(args.seed + 1),
-        max_L=args.max_L, logger=logger,
-        checkpoint_dir=args.checkpoint_dir or None,
-        checkpoint_every=args.checkpoint_every, **fkw,
-    )
+    rng = np.random.default_rng(args.seed)
+    generator = torch.Generator().manual_seed(args.seed + 1)
+    if args.pipeline:
+        latency = (faults.EmpiricalDelays.from_json(
+            args.latency_dist, n=n, seed=args.seed)
+            if args.latency_dist else None)
+        engine = rounds.make_pipelined_round_fn(
+            cfg, tcfg, n, pipe=pipe, max_L=args.max_L, device=device)
+        state, rows = rounds.run_rounds_pipelined(
+            state, round_fn=engine, rounds=args.rounds, rng=rng,
+            generator=generator, p=tcfg.p, staleness=args.staleness,
+            logger=logger, checkpoint_dir=args.checkpoint_dir or None,
+            checkpoint_every=args.checkpoint_every, latency=latency,
+            policy=args.round_policy, quorum=args.quorum or None,
+        )
+        if rows:
+            print(f"[train] simulated clock: {rows[-1]['commit_s']:.2f}s "
+                  f"at staleness {args.staleness}")
+    else:
+        state, rows = rounds.run_rounds(
+            state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=args.rounds,
+            rng=rng, generator=generator, max_L=args.max_L, logger=logger,
+            checkpoint_dir=args.checkpoint_dir or None,
+            checkpoint_every=args.checkpoint_every, **fkw,
+        )
     logger.close()
     dt = time.time() - t0
     total_steps = rows[-1]["local_steps"] if rows else 0

@@ -917,3 +917,56 @@ def test_adamw_leaf_on_the_card_matches_cpu_bitwise(dev):
         out[str(d)] = (p.cpu(), state.mu.cpu(), state.nu.cpu())
     for a, b in zip(out["cpu"], out[str(dev)]):
         assert torch.equal(a, b)
+
+
+def test_pipelined_rounds_on_the_card_match_the_cpu(dev):
+    """Three staleness-1 rounds under a quorum of 2 with a latency model
+    (a 1-layer width-16 model, n=6, c=3, s=2, the same batches on both
+    devices) on the card against the CPU: the same schedule, admissions,
+    uncovered counts and clock; x and h within 1e-5, h moved off zero by
+    the survivor h update; the survivor kernels launched."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.dist import faults, rounds, tamuna_dp
+
+    cfg = dataclasses.replace(
+        registry.get_reduced_config("gemma2-2b"), n_layers=1, d_model=16,
+        n_heads=2, n_kv_heads=1, head_dim=8, d_ff=32, vocab=64)
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=0.05, c=3, s=2, p=0.5)
+    toks = np.random.default_rng(4).integers(0, 64, size=(12, 3, 1, 9))
+
+    class Pipe:
+        def __init__(self, d):
+            self.d, self.used = d, 0
+            self.generator = torch.Generator()
+
+        def sample_batch(self, clients):
+            tk = torch.from_numpy(toks[self.used]).to(self.d)
+            self.used += 1
+            return {"tokens": tk[..., :-1], "labels": tk[..., 1:]}
+
+    out = {}
+    for d in ("cpu", dev):
+        # the same initial state on both devices: drawn on the CPU
+        state = tamuna_dp.init_state(cfg, tcfg, 6, seed=0, device="cpu")
+        state.x, state.h = state.x.to(d), state.h.to(d)
+        engine = rounds.make_pipelined_round_fn(cfg, tcfg, 6, pipe=Pipe(d),
+                                                max_L=2, device=d)
+        _build.reset_launch_counts()
+        state, rows = rounds.run_rounds_pipelined(
+            state, round_fn=engine, rounds=3, rng=np.random.default_rng(3),
+            generator=torch.Generator().manual_seed(1), p=0.5, staleness=1,
+            latency=faults.EmpiricalDelays([0.05, 0.1, 3.0], n=6, seed=5),
+            policy="quorum", quorum=2)
+        out[str(d)] = (state.x.cpu(), state.h.cpu(), rows,
+                       dict(_build.launch_counts))
+    (xc, hc, rc, _), (xg, hg, rg, launches) = out["cpu"], out[str(dev)]
+    keys = ("L", "admitted", "late_dropped", "uncovered", "dispatch_s",
+            "commit_s", "up_floats")
+    assert [[r[k] for k in keys] for r in rc] == \
+        [[r[k] for k in keys] for r in rg]
+    assert (xc - xg).abs().max() <= 1e-5 and (hc - hg).abs().max() <= 1e-5
+    assert hc.abs().max() > 0
+    for k in ("masked_sum_counts", "h_update_covered", "fused_local_step"):
+        assert launches[k] > 0, launches

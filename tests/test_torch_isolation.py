@@ -19,6 +19,9 @@ SRC = os.path.join(REPO, "src")
 def _run(args, timeout=300):
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    # one thread per subprocess: beside the suite's other workers a full
+    # thread pool slows a CLI training run many times over
+    env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = "1"
     return subprocess.run([sys.executable, *args], capture_output=True,
                           text=True, timeout=timeout, env=env, cwd=REPO)
 
@@ -46,7 +49,9 @@ assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack",
         "repro_torch.configs.gemma2_9b", "repro_torch.configs.stablelm_3b",
         "repro_torch.configs.deepseek_coder_33b",
         "repro_torch.configs.internvl2_26b", "repro_torch.optim.optimizers",
-        "repro_torch.checkpoint", "repro_torch.dist.block_uplink"} <= set(names)
+        "repro_torch.checkpoint", "repro_torch.dist.block_uplink",
+        "repro_torch.dist.rounds", "repro_torch.dist.cohort",
+        "repro_torch.launch.pipeline_bench"} <= set(names)
 from repro_torch.configs import registry
 assert len(registry.list_archs()) == 5
 for arch in registry.list_archs():
@@ -67,7 +72,9 @@ def _default_device_calls():
     from repro_torch.core import problems
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import model_api, tamuna_dp
-    from repro_torch.launch import convex_bench, paper_bench, serve, train
+    from repro_torch.dist import rounds
+    from repro_torch.launch import (convex_bench, paper_bench,
+                                    pipeline_bench, serve, train)
 
     cfg = gemma2_2b.REDUCED
     tcfg = tamuna_dp.DistTamunaConfig(gamma=0.05, c=3, s=2, p=0.5)
@@ -98,6 +105,10 @@ def _default_device_calls():
             ["--smoke", "--only", "robust", "--out", os.devnull]),
         "paper_bench.main": lambda: paper_bench.main(
             ["--smoke", "--only", "table2", "--out", os.devnull]),
+        "make_pipelined_round_fn": lambda: rounds.make_pipelined_round_fn(
+            cfg, tcfg, 4, pipe=None),
+        "pipeline_bench.main": lambda: pipeline_bench.main(
+            ["--smoke", "--out", os.devnull]),
     }
 
 
@@ -109,7 +120,9 @@ def _default_device_calls():
                                    "convex_problem_from_numpy",
                                    "tamuna_state_from_numpy", "make_cache",
                                    "cache_from_numpy", "serve.main",
-                                   "convex_bench.main", "paper_bench.main"])
+                                   "convex_bench.main", "paper_bench.main",
+                                   "make_pipelined_round_fn",
+                                   "pipeline_bench.main"])
 def test_default_device_raises_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid")

@@ -2,8 +2,8 @@
 (``repro_torch.launch.train``): a trimmed combiner against a sign-flipping
 adversary, with and without the anomaly reputation, and the refusal of
 ``--reputation`` without an adversary.  It runs the CLI in subprocesses
-and takes a file of its own so that ``--dist loadfile`` runs it beside
-``tests/test_torch_robust.py``."""
+on one thread each and takes a file of its own so that ``--dist
+loadfile`` runs it beside ``tests/test_torch_robust.py``."""
 
 import math
 import os
@@ -18,6 +18,9 @@ def test_train_cli_robust_adversary_runs_on_cpu():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.join(REPO, "src") + os.pathsep + env.get(
         "PYTHONPATH", "")
+    # one thread per CLI run: beside the suite's other workers a full
+    # thread pool per subprocess slows the run many times over
+    env["OMP_NUM_THREADS"] = env["MKL_NUM_THREADS"] = "1"
     args = ["--reduced", "--rounds", "2", "--sparsity", "3",
             "--robust-agg", "trimmed", "--trim-k", "1",
             "--adversary", "sign_flip", "--f-byz", "0.25", "--device", "cpu"]
