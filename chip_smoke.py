@@ -57,7 +57,9 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    counted and held to that bound); and a tall-and-thin round of a dense
    model of one layer and width 16 at n = c = 40, s = 2, whose norm
    leaves take the dense fallback (laid after the others; the kernels run
-   over the columns before them with the workspace's row pitch);
+   over the columns before them with the workspace's row pitch); and the
+   fault-free round of each new family's reduced config (qwen2-moe-a2.7b,
+   qwen3-moe-30b-a3b, rwkv6-7b, zamba2-2.7b at 32 tokens);
 5. drives six paths of ``repro_torch.dist.rounds.run_rounds``, each for
    3 rounds (4 on ``[reputation]``) of 2-layer full-width gemma2-2b (seq
    128, 2 sequences per client, max_L 4) with the launch counts set to 0
@@ -92,6 +94,21 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    ``[train_prefix]`` internvl2-26b at published widths cut to 1 layer,
                 256 prefix embeddings before 128 text tokens, d_total =
                 1,566,590,976 (row offsets past 2^31), n=3, c=2, s=2;
+   the new families, gated as ``[train]``:
+   ``[train_moe]`` qwen2-moe-a2.7b (60 experts, top-4 unnormalized, the
+                fused shared expert and its sigmoid gate, q/k/v biases,
+                untied head; the dense dispatch) cut 24 -> 2 layers,
+                d_total = 1,763,452,928, n=3, c=2, s=2;
+   ``[train_qwen3]`` qwen3-moe-30b-a3b (128 experts, top-8 renormalized,
+                GQA 32:4, hd 128) cut 48 -> 1 layer, d_total =
+                1,245,452,288, n=3, c=2, s=2;
+   ``[train_rwkv]`` rwkv6-7b cut 32 -> 4 layers, d_total = 1,411,567,616,
+                n=4, c=3, s=2;
+   ``[train_zamba2]`` zamba2-2.7b cut 54 -> 12 layers (two groups: the
+                shared block's gradient sums both uses), d_total =
+                665,436,480, n=4, c=3, s=2, 32 tokens (one 128-token loss
+                printed first, not gated: the reference's scan overflows
+                f32 there at its init);
    then the round's options on 2-layer gemma2-2b, n=4, c=3, s=2:
    ``[train_adamw]`` ``local_opt="adamw"``, ``microbatches=2`` (x, h and
                 the two moments: 16 rows of 2.98 GB), gated as ``[train]``
@@ -188,7 +205,9 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    all three at head_dim 80 (stablelm-3b's (8, 32, 80) queries over an
    (8, 4096, 32, 80) cache: globally without softcap, where SDPA computes
    the same function, in a window, at a tile's and a split's edge, with a
-   softcap);
+   softcap); and the bf16 instantiation at head_dim 128 (qwen2-moe's
+   (8, 16, 128) queries over an (8, 4096, 16, 128) cache, the same cases
+   but the softcap, SDPA beside it; qwen3-moe's group 8 globally);
 8. serves, launch counts set to 0 just before each path and read just
    after, through ``repro_torch.launch.serve.run``:
    ``[serve_reduced]`` the reduced gemma2-2b (f32) past its window of
@@ -205,7 +224,19 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
                  launches of the bf16 kernel at head_dim 80;
    ``[serve_long]`` two full-width layers past the 4096 window, batch 4,
                  prompt 4544 + 64: the launches, and the last step rerun
-                 from the same cache with plain attention.
+                 from the same cache with plain attention;
+   ``[serve_reduced]`` also serves the new families' reduced configs
+                 (the bf16-cache step rerun from a copy of the cache taken
+                 before it, the recurrent states after it within 1e-4);
+   ``[serve_moe]`` qwen2-moe-a2.7b at published widths and full depth (24
+                 layers, 14.3e9 parameters, every step the gather
+                 dispatch), ``[serve_qwen3]`` qwen3-moe-30b-a3b cut 48 -> 8
+                 layers (its f32 init does not fit), ``[serve_rwkv]``
+                 rwkv6-7b (32 layers, no attention: no launch) and
+                 ``[serve_zamba2]`` zamba2-2.7b (54 layers, the hd-80
+                 kernel on each of the 9 shared-block uses), batch 8,
+                 prompt 128 + 32 generated, bf16: the same measures and
+                 gates as ``[serve]``.
 
 It takes no options and runs every phase.  ``reduced_round_diag.py``
 runs the first reduced round's card, CPU and float64 evaluations in fresh
@@ -266,7 +297,8 @@ SERVE_LONG = dict(batch=4, prompt_len=4544, gen_len=64)
 SERVE_STABLELM = dict(batch=8, prompt_len=192, gen_len=64)
 # the dense family's reduced configs served card against CPU
 SERVE_REDUCED_ARCHS = ("gemma2-2b", "stablelm-3b", "deepseek-coder-33b",
-                       "internvl2-26b")
+                       "internvl2-26b", "qwen2-moe-a2.7b",
+                       "qwen3-moe-30b-a3b", "rwkv6-7b", "zamba2-2.7b")
 # the other training paths' configs at published widths, cut in depth so
 # x and h fit: stablelm-3b (untied head, q/k/v biases) 32 -> 6 layers at
 # N clients, internvl2-26b (the prefix: 256 patch embeddings + 128 text
@@ -288,6 +320,41 @@ PIPE_LATENCY = "benchmarks/artifacts/latency_dist.json"
 # AdamW's reduced round runs one local step (see check_reduced_adamw_round)
 # and gates columns whose g - h lies within ADAM_NEAR0 of 0 at 2 gamma
 ADAM_NEAR0 = 1e-5
+# the MoE, RWKV-6 and Mamba2-hybrid families: their training paths at
+# published widths, cut in depth so x and h fit ([tag], arch, layers, n,
+# c, s; PERF.md section 4), each [train]'s round
+TRAIN_FAMILIES = (
+    ("train_moe", "qwen2-moe-a2.7b", 2, 3, 2, 2),
+    ("train_qwen3", "qwen3-moe-30b-a3b", 1, 3, 2, 2),
+    ("train_rwkv", "rwkv6-7b", 4, 4, 3, 2),
+    ("train_zamba2", "zamba2-2.7b", 12, 4, 3, 2),
+)
+# sequence lengths other than [train]'s 128 and the reduced rounds' 96:
+# zamba2's chunked scan (the reference's factorization) overflows f32 at
+# the reference's init once a 64-token chunk's decay passes e^-88
+# (ROADMAP C), so its paths take 32 tokens (its [train_zamba2] also prints
+# a 128-token loss, not gated)
+TRAIN_SEQ = {"zamba2-2.7b": 32}
+REDUCED_SEQ = {"zamba2-2.7b": 32}
+# and a smaller step: at GAMMA one SGD step of full-width zamba2 moves
+# w_in by several times its init scale and the next forward's decays
+# overflow the scan (printed by [train_zamba2], not gated; ROADMAP C)
+TRAIN_GAMMA = {"zamba2-2.7b": 0.002}
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "rwkv6-7b",
+                "zamba2-2.7b")
+# their reduced rounds card vs CPU are held against a float64 round, leaf
+# by leaf: the card no farther from it than this many times the CPU's
+# distance, or 1e-5 (check_reduced_family_round)
+F64_RATIO = 4
+# their serving paths: batch 8, a 128-token prompt and 32 generated, bf16,
+# at full depth but qwen3-moe-30b-a3b (its f32 init, 122 GB, does not fit
+# one card: cut 48 -> SERVE_QWEN3_LAYERS); and decode attention at hd 128
+# at [serve_moe]'s shape over a 4096-key cache (qwen2-moe: 16 heads, group
+# 1), with qwen3-moe's group 8 beside it
+SERVE_FAMILY = dict(batch=8, prompt_len=128, gen_len=32)
+SERVE_QWEN3_LAYERS = 8
+DECODE_HD128 = dict(b=8, h=16, kvh=16, hd=128, S=4096)
+DECODE_HD128_G8 = dict(b=8, h=32, kvh=4, hd=128, S=4096)
 
 
 def smi() -> str:
@@ -914,16 +981,18 @@ def check_reduced_wire_round(dev, uplink="masked_psum"):
                              f"{err_comm}")
 
 
-def reduced_round_inputs(n: int, c: int):
-    """The reduced config, the round's batches ``(2 steps, c, 2, 97)`` and
-    the noise that makes the ``n - 1`` other client rows distinct, the same
-    on every side."""
-    from repro_torch.configs import gemma2_2b
+def reduced_round_inputs(n: int, c: int, arch: str = "gemma2-2b"):
+    """The reduced config of ``arch``, the round's batches ``(2 steps, c, 2,
+    seq + 1)`` (``seq`` 96, or REDUCED_SEQ's) and the noise that makes the
+    ``n - 1`` other client rows distinct, the same on every side."""
+    from repro_torch.configs import registry
     from repro_torch.dist import comm_ws, model_api
 
-    cfg = gemma2_2b.REDUCED
+    cfg = registry.get_reduced_config(arch)
+    seq = REDUCED_SEQ.get(arch, 96)
     rng = np.random.default_rng(5)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, c, 2, 97)))
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                         size=(2, c, 2, seq + 1)))
     d_total = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
     noise = torch.from_numpy(
         0.01 * rng.normal(size=(n - 1, d_total)).astype(np.float32))
@@ -1014,6 +1083,101 @@ def check_reduced_round(dev, n, c, s, cohort, perm, down, arrived=None,
     if not err <= 1e-5:
         raise AssertionError(f"reduced round: card vs CPU err {err}; "
                              + where)
+
+
+def check_reduced_family_round(dev, arch: str) -> None:
+    """One fault-free round of ``arch``'s reduced config (n=4, c=3, s=2)
+    on the card, on the CPU and on the CPU in float64 compute (each
+    gradient rounded to the f32 leaf; the same schedule, batches and
+    noise), gated leaf by leaf in x and in h: the card within
+    ``max(1e-5, F64_RATIO * CPU)`` of the float64 round, where CPU is that
+    leaf's CPU distance from it.  The new families' f32 rounds lie 2e-5
+    to 1e-4 from the float64 round at these sizes (their embeddings'
+    gradients reach 3-5 and RWKV's and Mamba2's scans carry e^20-e^60
+    factors); the card's f32 products accumulate in other orders, so its
+    distance differs from the CPU's, and card against CPU, printed
+    beside, is of that order and not held to gemma2-2b's 1e-5.  A leaf
+    the CPU rounds within 1e-5 of float64 keeps that 1e-5 on the card.
+    The round's kernels must have launched on the card.  For the MoE
+    configs, the routing choices (each token's set of top-k experts, at
+    every router call) of the three rounds are compared and the tokens
+    routed differently counted."""
+    from repro_torch.dist import tamuna_dp
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe
+
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
+    cfg, toks, noise = reduced_round_inputs(N, C, arch)
+    spec = tamuna_dp.state_spec(cfg, tcfg)
+    down = torch.tensor([True, True, False, True])
+    top_k = moe.top_k
+    out, routes = {}, {}
+    for tag, device, dt in (("cpu", "cpu", None), ("card", dev, None),
+                            ("f64", "cpu", torch.float64)):
+        c = cfg if dt is None else dataclasses.replace(cfg, dtype=dt)
+        routes[tag] = []
+
+        def recorded(probs, k, seen=routes[tag]):
+            vals, idx = top_k(probs, k)
+            seen.append(idx.sort(dim=-1).values.cpu())
+            return vals, idx
+
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        moe.top_k = recorded
+        try:
+            state, compact = reduced_local(device, c, tcfg, N, [0, 2, 3],
+                                           toks, noise)
+        finally:
+            moe.top_k = top_k
+        comm = tamuna_dp.make_comm_step(c, tcfg, N, device=device)
+        state = comm(tamuna_dp.scatter_cohort(state, compact), [0, 2, 3],
+                     [2, 0, 1], down)
+        out[tag] = (state.x.cpu(), state.h.cpu())
+        if tag == "card":
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in _build.launch_counts.items() if v}
+
+    def err(a, b, i, cols=slice(None)):
+        return max_abs_err(out[a][i][:, cols], out[b][i][:, cols])
+
+    card_cpu = max(err("card", "cpu", i) for i in (0, 1))
+    cpu_f64 = max(err("cpu", "f64", i) for i in (0, 1))
+    card_f64 = max(err("card", "f64", i) for i in (0, 1))
+    worst, bad, floored = (0.0, ""), [], 0
+    for i, which in ((0, "x"), (1, "h")):
+        for name, off, d in zip(spec.names, spec.offsets, spec.dims):
+            cols = slice(off, off + d)
+            cpu_l, card_l = err("cpu", "f64", i, cols), err("card", "f64", i,
+                                                            cols)
+            limit = max(1e-5, F64_RATIO * cpu_l)
+            floored += limit == 1e-5
+            row = (f"{which}:{name} card {card_l:.3e} CPU {cpu_l:.3e} "
+                   f"card-vs-CPU {err('card', 'cpu', i, cols):.3e}")
+            if card_l / limit >= worst[0]:
+                worst = (card_l / limit, row)
+            if not card_l <= limit:
+                bad.append(row)
+    print(f"[reduced] one round of {cfg.name} (n={N} c={C} s={S}, "
+          f"{toks.shape[-1] - 1} tokens): card vs CPU {card_cpu:.3e}; "
+          f"against the float64 round: CPU {cpu_f64:.3e}, card "
+          f"{card_f64:.3e}; leaf by leaf ({2 * len(spec.names)} leaves of x "
+          f"and h, {floored} at the 1e-5 floor) the closest to its limit "
+          f"max(1e-5, {F64_RATIO} CPU) is {worst[1]} ({worst[0]:.2f} of "
+          f"it); launches {launches}")
+    if routes["cpu"]:
+        flips = {f"{a} vs {b}": sum(int((ra != rb).any(-1).sum())
+                                    for ra, rb in zip(routes[a], routes[b]))
+                 for a, b in (("card", "cpu"), ("cpu", "f64"),
+                              ("card", "f64"))}
+        tokens = sum(int(r[..., 0].numel()) for r in routes["cpu"])
+        print(f"[reduced] {cfg.name}: tokens routed to another set of "
+              f"experts, over {len(routes['cpu'])} router calls and {tokens} "
+              f"token routings: {flips}")
+    need = ("masked_sum", "h_update", "fused_local_step")
+    if bad or not all(launches.get(k) for k in need):
+        raise AssertionError(f"reduced round of {arch}: leaves over their "
+                             f"limit {bad}; launches {launches}")
 
 
 def check_reduced_adamw_round(dev):
@@ -1369,6 +1533,59 @@ def check_decode_hd80(dev):
             "cases": cases,
         })
     return recs
+
+
+def check_decode_hd128(dev):
+    """``decode_attention`` (bf16, the instantiation the serving paths
+    launch) at head_dim 128 against its plain version within one bf16
+    ulp: at ``[serve_moe]``'s heads (qwen2-moe-a2.7b: 16 heads, group 1)
+    over DECODE_HD128's 4096-key cache, the headline pos 4095 globally
+    without softcap (the model's own attention, which SDPA computes
+    exactly), a 1024 window, the first tile's edge and a split's edge in a
+    window of 41; and at qwen3-moe's group 8 (32 heads on 4 kv heads,
+    DECODE_HD128_G8) globally.  Returns one record, its launches counted
+    under ``decode_attention``."""
+    from repro_torch.kernels import decode_attn
+    from repro_torch.models.transformer import GLOBAL_WINDOW
+
+    g = torch.Generator(device=dev).manual_seed(128)
+    cases = []
+    for shp, heads in ((DECODE_HD128, True), (DECODE_HD128_G8, False)):
+        b, h, kvh, hd, S = (shp[x] for x in ("b", "h", "kvh", "hd", "S"))
+        q = torch.randn(b, h, hd, generator=g, device=dev).bfloat16()
+        k = torch.randn(b, S, kvh, hd, generator=g, device=dev).bfloat16()
+        v = torch.randn(b, S, kvh, hd, generator=g, device=dev).bfloat16()
+        _, split_len = decode_attn.split_plan(b, kvh, S, tiled=True)
+        todo = [(S - 1, GLOBAL_WINDOW, 50, 5, True)]
+        if heads:
+            todo += [(S - 1, 1024, 50, 5, True),
+                     (decode_attn.TILE - 1, GLOBAL_WINDOW, 20, 3, False),
+                     (min(split_len, S - 1), 41, 20, 3, False)]
+        for pos, window, reps, plain, lib in todo:
+            c = check_decode_case(q, k, v, pos, window, None, reps, plain,
+                                  tol_ulps=1.0, library=lib)
+            c["cache"] = [b, S, kvh, hd]
+            c["heads"] = h
+            cases.append(c)
+            print_decode_case("decode_attention_hd128", c, (b, S, h, kvh, hd),
+                              dict(tol_ulps=1.0))
+        del q, k, v
+        torch.cuda.empty_cache()
+    head = cases[0]
+    b, h, kvh, hd, S = (DECODE_HD128[x] for x in ("b", "h", "kvh", "hd", "S"))
+    return [{
+        "name": "decode_attention_hd128", "count": "decode_attention",
+        "shape": [[b, h, hd], [b, S, kvh, hd]],
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "tolerance": "1.0 bf16 ulp",
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library": "scaled_dot_product_attention(enable_gqa=True): the same "
+                   "function at the headline (no softcap, global)",
+        "headline": f"pos {head['pos']} window {head['window']}",
+        "cases": cases,
+    }]
 
 
 def compress_owned(slot, d: int, c: int, s: int) -> int:
@@ -1992,6 +2209,80 @@ def run_family_paths(dev) -> dict:
     return out
 
 
+def zamba2_diagnostic(tag, cfg, n, seq, dev) -> None:
+    """What keeps ``[train_zamba2]`` at ``seq`` tokens and a small gamma,
+    printed and not gated: the loss of the initial parameters at 128
+    tokens, and at ``seq`` tokens before and after one plain SGD step of
+    GAMMA on that loss (one client's batch)."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import model_api
+
+    params = model_api.init(cfg, seed=0, device=dev)
+    losses = []
+    for t in (128, seq):
+        batch = SyntheticTokenPipeline(
+            DataConfig(seq_len=t, per_client_batch=2, vocab=512, seed=0,
+                       n_clients=n), cfg, dev).sample_batch([0])
+        tok, lab = batch["tokens"][0], batch["labels"][0]
+        leaves = [v.requires_grad_(True) for v in params.values()]
+        loss, _ = model_api.loss(params, cfg, tokens=tok, labels=lab)
+        losses.append(float(loss))
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        for v, g in zip(leaves, grads):
+            v.sub_(GAMMA * g)
+        del grads
+        losses.append(float(model_api.loss(params, cfg, tokens=tok,
+                                           labels=lab)[0]))
+    print(f"[{tag}] initial parameters: loss at 128 tokens "
+          f"{losses[0]!r}, at {seq} tokens {losses[1]!r}; after one SGD "
+          f"step of gamma {GAMMA} at {seq} tokens {losses[2]!r} (not "
+          f"gated; the reference's scan factorization overflows f32 where "
+          f"a chunk's decay passes e^-88)")
+    del params, leaves, loss
+    torch.cuda.empty_cache()
+
+
+def run_new_family_paths(dev) -> dict:
+    """``[train_moe]``, ``[train_qwen3]``, ``[train_rwkv]`` and
+    ``[train_zamba2]``: ``[train]``'s fault-free round (3 rounds, 2
+    sequences per client, max_L 4) on TRAIN_FAMILIES' configs at published
+    widths cut in depth, gated as ``[train]``.  The MoE paths take the
+    dense dispatch (b t top_k > num_experts).  zamba2 trains on
+    TRAIN_SEQ's 32 tokens at TRAIN_GAMMA's step, after
+    ``zamba2_diagnostic`` (ROADMAP C)."""
+    from repro_torch.configs import registry
+    from repro_torch.dist import comm_ws, model_api, tamuna_dp
+
+    out = {}
+    for tag, arch, layers, n, c, s in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        full = registry.get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        d = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
+        seq = TRAIN_SEQ.get(arch, 128)
+        print(f"[{tag}] {cfg.name} at published widths ({cfg.family}: "
+              f"d_model {cfg.d_model}, {cfg.n_heads}:{cfg.n_kv_heads} heads, "
+              f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, experts "
+              f"{cfg.num_experts} top-{cfg.top_k} moe_d_ff {cfg.moe_d_ff} "
+              f"shared_d_ff {cfg.shared_d_ff} renormalize {cfg.renormalize}, "
+              f"d_state {cfg.d_state}, shared_attn_every "
+              f"{cfg.shared_attn_every}); depth cut {full.n_layers} -> "
+              f"{layers}; seq {seq}; d_total {d} f32 per client row "
+              f"({d * 4} B), x and h {2 * n * d * 4} B")
+        gamma = TRAIN_GAMMA.get(arch, GAMMA)
+        if seq != 128 or gamma != GAMMA:
+            zamba2_diagnostic(tag, cfg, n, seq, dev)
+        tcfg = tamuna_dp.DistTamunaConfig(gamma=gamma, c=c, s=s, p=P)
+        print(f"[{tag}] gamma {gamma}")
+        out[tag] = run_path(tag, cfg, tcfg, n, dev,
+                            need=("masked_sum", "h_update",
+                                  "fused_local_step"),
+                            check_h_sum=True, seq_len=seq)
+        print(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def compare_on_card(ws: torch.Tensor, host: torch.Tensor,
                     chunk: int = 1 << 26):
     """``(max |ws - host| over the top of |host|, bitwise equal?)`` for an
@@ -2526,13 +2817,13 @@ def run_pipeline_bench(dev, here: str) -> dict:
 
 
 def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3,
-             forbid=(), keep=False, **kw):
+             forbid=(), keep=False, seq_len=128, **kw):
     """Drive ``run_rounds`` for ``rounds_`` rounds of ``cfg`` at ``n``
-    clients with the launch counts set to 0 just before and read just
-    after; check finite losses, a launch of every kernel in ``need`` and
-    none of ``forbid`` and, if asked, sum_i h_i = 0 (printed in any case).
-    Returns the launch counts, and with ``keep`` also the state and the
-    rows."""
+    clients (``seq_len`` tokens, 2 sequences per client) with the launch
+    counts set to 0 just before and read just after; check finite losses,
+    a launch of every kernel in ``need`` and none of ``forbid`` and, if
+    asked, sum_i h_i = 0 (printed in any case).  Returns the launch counts,
+    and with ``keep`` also the state and the rows."""
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import comm_ws, model_api, rounds, tamuna_dp
     from repro_torch.kernels import _build
@@ -2558,7 +2849,7 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3,
     print(f"[{tag}] " + ", ".join(desc))
     state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device=dev)
     pipe = SyntheticTokenPipeline(
-        DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=0,
+        DataConfig(seq_len=seq_len, per_client_batch=2, vocab=512, seed=0,
                    n_clients=n), cfg, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2636,21 +2927,56 @@ def serve_params_on(cfg, dev, seed=0):
     """Random parameters from ``seed`` on ``dev``, cast once for serving
     (the f32 originals freed)."""
     from repro_torch.dist import model_api
-    from repro_torch.serve_utils import serving_params
+    from repro_torch.serve_utils import cast_for_serving_
 
-    params = serving_params(model_api.init(cfg, seed=seed, device=dev), cfg)
+    params = model_api.init(cfg, seed=seed, device=dev)
+    cast_for_serving_(params, cfg)
     torch.cuda.empty_cache()
     return params
 
 
-def rerun_last_step(params, cfg, res, prompts, device, attend_fn):
+def serve_with_snapshot(params, cfg, prompts, gen_len, kv_dtype,
+                        attend_fn) -> dict:
+    """``serve.run``'s greedy batch, driven through ``serve_utils.generate``
+    with a copy of the cache taken just after the second-last step
+    (``snapshot``: the recurrent states the last step starts from);
+    ``serve.run``'s ``tokens``, ``logits``, ``cache`` and ``finite``."""
+    from repro_torch.dist import model_api
+    from repro_torch.serve_utils import generate
+
+    b, plen = prompts.shape
+    cache = model_api.make_cache(cfg, b, plen + gen_len, kv_dtype=kv_dtype,
+                                 device=prompts.device)
+    finite = torch.ones((), dtype=torch.bool, device=prompts.device)
+    seen = {}
+
+    def on_step(pos, logits):
+        finite.logical_and_(torch.isfinite(logits).all())
+        seen["logits"] = logits
+        if pos == plen + gen_len - 2:
+            seen["snapshot"] = {k: v.clone() for k, v in cache.items()}
+
+    with torch.no_grad():
+        tokens, cache = generate(params, cfg, prompts, gen_len,
+                                 temperature=0.0, cache=cache,
+                                 attend_fn=attend_fn, on_step=on_step)
+    return {"tokens": tokens, "logits": seen["logits"], "cache": cache,
+            "finite": bool(finite), "snapshot": seen["snapshot"]}
+
+
+def rerun_last_step(params, cfg, res, prompts, device, attend_fn,
+                    cache=None):
     """The served batch's last decode step again, on ``device`` from a
-    copy of the final cache (the step rewrites its own row at the last
-    position and attends to the same earlier rows): ``(logits, cache)``."""
+    copy of ``cache``, by default the final cache (the step rewrites its
+    own K/V row at the last position and attends to the same earlier rows:
+    the same step for an attention-only model; the recurrent states of the
+    other families need the cache from before the step, ``res["snapshot"]``
+    of ``serve_with_snapshot``): ``(logits, cache)``."""
     from repro_torch.dist import model_api
 
     pos = prompts.shape[1] + res["tokens"].shape[1] - 1
-    cache = {k: v.to(device, copy=True) for k, v in res["cache"].items()}
+    src = res["cache"] if cache is None else cache
+    cache = {k: v.to(device, copy=True) for k, v in src.items()}
     p = params if device == res["logits"].device else {
         k: v.to(device) for k, v in params.items()}
     with torch.no_grad():
@@ -2691,31 +3017,37 @@ def serve_reduced_one(arch: str, dev) -> dict:
     params_cpu = {k: v.cpu() for k, v in params.items()}
     prompts = serve.make_prompts(sr["batch"], sr["prompt_len"], cfg.vocab,
                                  0, "cpu")
-    print(f"[serve_reduced] {cfg.name} (f32, window {cfg.sliding_window}, "
-          f"head_dim {cfg.head_dim_}, {cfg.n_heads}:{cfg.n_kv_heads} heads, "
-          f"q/k/v biases {cfg.qkv_bias}, tied head {cfg.tie_embeddings}), "
-          f"batch {sr['batch']}, prompt {sr['prompt_len']}, gen "
-          f"{sr['gen_len']}: card (kernel) vs CPU (plain attention)")
+    print(f"[serve_reduced] {cfg.name} ({cfg.family}, f32, window "
+          f"{cfg.sliding_window}, head_dim {cfg.head_dim_}, "
+          f"{cfg.n_heads}:{cfg.n_kv_heads} heads, q/k/v biases "
+          f"{cfg.qkv_bias}, tied head {cfg.tie_embeddings}, {cfg.n_attn} "
+          f"attentions per token), batch {sr['batch']}, prompt "
+          f"{sr['prompt_len']}, gen {sr['gen_len']}: card (kernel) vs CPU "
+          f"(plain attention)")
     launches = dict.fromkeys(_build.launch_counts, 0)
+    steps = sr["prompt_len"] + sr["gen_len"]
     with intra_op_threads(REDUCED_CPU_THREADS):
         for kv in (torch.float32, torch.bfloat16):
             torch.cuda.synchronize()
             _build.reset_launch_counts()
+            # the bf16 cache's last step is rerun from the cache before it
+            drive = serve.run if kv == torch.float32 else serve_with_snapshot
             with count_plain_attention() as plain:
-                card = serve.run(params, cfg, prompts.to(dev),
-                                 sr["gen_len"], kv_dtype=kv,
-                                 attend_fn=make_attend_fn(cfg))
+                card = drive(params, cfg, prompts.to(dev), sr["gen_len"],
+                             kv_dtype=kv, attend_fn=make_attend_fn(cfg))
             got = {k: v for k, v in _build.launch_counts.items() if v}
             for k, v in got.items():
                 launches[k] += v
-            steps = sr["prompt_len"] + sr["gen_len"]
             name = ("decode_attention_f32" if kv == torch.float32
                     else "decode_attention_f32_bf16kv")
-            if got != {name: cfg.n_layers * steps} or plain.calls:
+            want_launches = ({name: cfg.n_attn * steps} if cfg.n_attn
+                             else {})
+            if got != want_launches or plain.calls:
                 raise AssertionError(f"[serve_reduced] {arch} {kv} cache: "
                                      f"launches "
                                      f"{got}, plain attention calls "
                                      f"{plain.calls}")
+            states = ""
             if kv == torch.float32:
                 cpu = serve.run(params_cpu, cfg, prompts, sr["gen_len"],
                                 kv_dtype=kv)
@@ -2723,11 +3055,21 @@ def serve_reduced_one(arch: str, dev) -> dict:
                     card["tokens"].cpu(), cpu["tokens"])
             else:
                 want, cache = rerun_last_step(params_cpu, cfg, card, prompts,
-                                              "cpu", None)
+                                              "cpu", None, card["snapshot"])
                 pos = steps - 1
                 same = all(bf16_ulps(cache[n][:, :, pos],
                                      card["cache"][n][:, :, pos].cpu()) <= 1
-                           for n in ("k", "v"))
+                           for n in ("k", "v") if n in cache)
+                # the recurrent states after the step, card vs CPU
+                errs = {n: float((cache[n] - card["cache"][n].cpu()).abs()
+                                 .max() / cache[n].abs().max().clamp(
+                                     min=1e-30))
+                        for n in cache if n not in ("k", "v")}
+                if errs:
+                    states = (" recurrent states after the step within "
+                              f"{max(errs.values()):.3e} of their largest "
+                              f"(tolerance 1e-4) {errs};")
+                    same = same and max(errs.values()) <= 1e-4
             err = float((card["logits"].cpu() - want).abs().max()
                         / want.abs().max())
             print(f"[serve_reduced] {arch} {kv} cache: {got}; last logits "
@@ -2735,7 +3077,8 @@ def serve_reduced_one(arch: str, dev) -> dict:
                   f"CPU {err:.3e} of the largest (tolerance 1e-4); "
                   + ("greedy tokens equal" if kv == torch.float32 else
                      "rows written at the last step within one bf16 ulp")
-                  + f": {same}; continuations {card['tokens'][:2].tolist()}")
+                  + f":{states} {same}; continuations "
+                  f"{card['tokens'][:2].tolist()}")
             if not (card["finite"] and err <= 1e-4 and same):
                 raise AssertionError(f"[serve_reduced] {arch} {kv} cache: "
                                      f"err {err}, match {same}")
@@ -2771,37 +3114,50 @@ def profile_last_steps(tag, params, cfg, res, prompts, dev, attend_fn,
           f"copy included): wall {wall * 1e3:.3f} ms, device busy "
           f"{busy:.3f} ms ({busy / (wall * 1e3):.1%}); decode_attention "
           f"{attn_ms:.4f} ms in {sum(e.count for e in attn) // reps} "
-          f"launches ({attn_ms / cfg.n_layers * 1e3:.2f} us of device "
-          f"time per layer); top kernels: "
+          f"launches ({attn_ms / max(cfg.n_attn, 1) * 1e3:.2f} us of "
+          f"device time per attention); top kernels: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / reps / 1e3:.3f}"
                       f" ms x{e.count // reps}" for e in top))
 
 
 def run_serve(dev, tag: str = "serve", arch: str = "gemma2-2b",
-              sv: dict = SERVE) -> dict:
+              sv: dict = SERVE, layers=None) -> dict:
     """``[serve]``: gemma2-2b (``[serve_stablelm]``: stablelm-3b, head_dim
-    80) at published widths and full depth through ``launch.serve.run``:
-    ``sv``'s batch, prompt and generation on a bf16 cache, the parameters
-    cast to bf16 once.  Gates: finite logits at every step, ``n_layers x
-    (prompt + gen)`` decode-kernel launches and no call of a plain
-    attention."""
+    80; ``[serve_moe]``, ``[serve_qwen3]``, ``[serve_rwkv]``,
+    ``[serve_zamba2]``: the new families) at published widths and full
+    depth (or ``layers``) through ``launch.serve.run``: ``sv``'s batch,
+    prompt and generation on a bf16 cache, the parameters cast to bf16
+    once (``cast_for_serving_``, leaf by leaf).  Gates: finite logits at every
+    step, ``n_attn x (prompt + gen)`` decode-kernel launches (none for
+    RWKV-6) and no call of a plain attention."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn import make_attend_fn
     from repro_torch.launch import serve
 
-    cfg = registry.get_config(arch)
+    full = registry.get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
     steps = sv["prompt_len"] + sv["gen_len"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     params = serve_params_on(cfg, dev)
+    init_peak = torch.cuda.max_memory_allocated()
     nbytes = sum(v.numel() * v.element_size() for v in params.values())
+    count = sum(v.numel() for v in params.values())
     prompts = serve.make_prompts(sv["batch"], sv["prompt_len"], cfg.vocab, 0,
                                  dev)
-    row_b = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim_ * 2
+    row_b = 2 * cfg.n_attn * cfg.n_kv_heads * cfg.head_dim_ * 2
     cache_b = row_b * sv["batch"] * steps
-    print(f"[{tag}] {cfg.name}, {cfg.n_layers} layers at published widths "
-          f"(head_dim {cfg.head_dim_}), parameters {nbytes} B in "
-          f"{cfg.dtype}; batch {sv['batch']}, prompt {sv['prompt_len']}, "
-          f"gen {sv['gen_len']}, bf16 cache {cache_b} B ({row_b} B per "
+    print(f"[{tag}] {cfg.name} ({cfg.family}), {cfg.n_layers} layers at "
+          f"published widths"
+          + ("" if layers is None else
+             f" (depth cut {full.n_layers} -> {layers})")
+          + f" (head_dim {cfg.head_dim_}, {cfg.n_heads}:{cfg.n_kv_heads} "
+          f"heads, {cfg.n_attn} attentions per token), {count} parameters, "
+          f"{nbytes} B for serving (f32 init and cast peak {init_peak} B); "
+          f"batch {sv['batch']}, prompt {sv['prompt_len']}, gen "
+          f"{sv['gen_len']}, bf16 K/V cache {cache_b} B ({row_b} B per "
           f"token)")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2826,10 +3182,11 @@ def run_serve(dev, tag: str = "serve", arch: str = "gemma2-2b",
     print(f"[{tag}] sample continuations: {res['tokens'][:2].tolist()}")
     profile_last_steps(tag, params, cfg, res, prompts, dev,
                        make_attend_fn(cfg))
-    if not res["finite"] or plain.calls or launches != {
-            "decode_attention": cfg.n_layers * steps}:
+    want = {"decode_attention": cfg.n_attn * steps} if cfg.n_attn else {}
+    if not res["finite"] or plain.calls or launches != want:
         raise AssertionError(f"[{tag}] finite {res['finite']}, launches "
-                             f"{launches}, plain calls {plain.calls}")
+                             f"{launches} (want {want}), plain calls "
+                             f"{plain.calls}")
     del params, res
     torch.cuda.empty_cache()
     return counts
@@ -2917,7 +3274,15 @@ def run_serve_paths(dev) -> dict:
             "serve": run_serve(dev),
             "serve_stablelm": run_serve(dev, "serve_stablelm", "stablelm-3b",
                                         SERVE_STABLELM),
-            "serve_long": run_serve_long(dev)}
+            "serve_long": run_serve_long(dev),
+            "serve_moe": run_serve(dev, "serve_moe", "qwen2-moe-a2.7b",
+                                   SERVE_FAMILY),
+            "serve_qwen3": run_serve(dev, "serve_qwen3", "qwen3-moe-30b-a3b",
+                                     SERVE_FAMILY, SERVE_QWEN3_LAYERS),
+            "serve_rwkv": run_serve(dev, "serve_rwkv", "rwkv6-7b",
+                                    SERVE_FAMILY),
+            "serve_zamba2": run_serve(dev, "serve_zamba2", "zamba2-2.7b",
+                                      SERVE_FAMILY)}
 
 
 def main(argv=None) -> int:
@@ -3001,6 +3366,11 @@ def main(argv=None) -> int:
         check_reduced_wire_round(dev, uplink="block_rs")
         check_reduced_adamw_round(dev)
         check_tall_round(dev)
+        # the new families' reduced configs
+        t0 = time.perf_counter()
+        for arch in FAMILY_ARCHS:
+            check_reduced_family_round(dev, arch)
+        print(f"[reduced] family rounds {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # ---- the paths: 3 rounds of full-width 2-layer gemma2-2b each --------
@@ -3056,6 +3426,7 @@ def main(argv=None) -> int:
         faults=faults.FaultPlan(seed=0, n=NF, p_drop=0.25),
         policy="quorum")
     by_path.update(run_family_paths(dev))
+    by_path.update(run_new_family_paths(dev))
     by_path.update(run_train_options(cfg, dev))
     by_path["checkpoint"] = run_checkpoint(
         dev, os.path.join(here, "_smoke"))
@@ -3109,6 +3480,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     recs += check_decode_hd80(dev)
     torch.cuda.empty_cache()
+    recs += check_decode_hd128(dev)
+    torch.cuda.empty_cache()
     by_path.update(run_serve_paths(dev))
 
     src = "src/repro_torch/kernels/csrc/tamuna_kernels.cu"
@@ -3147,6 +3520,9 @@ def main(argv=None) -> int:
                                       None),
         "decode_attention_f32_bf16kv_hd80": (
             "src/repro/kernels/decode_attn.py:33", None),
+        # head_dim 128: [serve_moe] (group 1; [serve_qwen3] group 8)
+        "decode_attention_hd128": ("src/repro/kernels/decode_attn.py:33",
+                                   "serve_moe"),
     }
     kernels = []
     for rec in recs:

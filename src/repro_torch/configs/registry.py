@@ -1,4 +1,5 @@
-"""Architecture registry of the port (dense family only)."""
+"""Architecture registry of the port: the dense, MoE, RWKV and
+Mamba2-hybrid architectures of the reference's registry."""
 
 from __future__ import annotations
 
@@ -11,7 +12,11 @@ ARCHS = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
     "internvl2-26b": "repro_torch.configs.internvl2_26b",
+    "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
 }
 
 

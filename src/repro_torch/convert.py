@@ -7,7 +7,7 @@ raw uint16 bits) plus ``meta.json`` (``names``, ``dtypes``, ``shapes``).
 Both are read here with numpy and json alone.
 
 A decode cache comes across with ``cache_from_numpy`` (the reference's
-``{"k", "v"}`` arrays, bf16 or f32), so a parity test can start
+arrays of any family, bf16 or f32), so a parity test can start
 mid-sequence.
 
 The convex core's problems and states come across as numpy arrays too:
@@ -75,17 +75,24 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
     return out
 
 
+# the cache's arrays per family (``transformer.init_cache``)
+CACHE_KEYS = (("k", "v"), ("shift_cm", "shift_tm", "wkv"),
+              ("conv", "k", "ssm", "v"))
+
+
 def cache_from_numpy(arrays: Mapping[str, np.ndarray],
                      device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """The port's decode cache from the reference's ``{"k", "v"}`` arrays
-    ``(n_layers, batch, max_seq, kv_heads, head_dim)``: bf16 (numpy's
-    ``bfloat16`` extension type) stays bf16, f32 stays f32, bit for
-    bit."""
+    """The port's decode cache from the reference's arrays: ``{"k", "v"}``
+    ``(n_attn, batch, max_seq, kv_heads, head_dim)`` (dense, MoE),
+    ``{"shift_tm", "shift_cm", "wkv"}`` (RWKV) or ``{"conv", "ssm", "k",
+    "v"}`` (the Mamba2 hybrid).  bf16 (numpy's ``bfloat16`` extension
+    type) stays bf16, f32 stays f32, bit for bit."""
     dev = resolve_device(device)
-    if sorted(arrays) != ["k", "v"]:
-        raise ValueError(f"want arrays k and v, got {sorted(arrays)}")
+    if tuple(sorted(arrays)) not in CACHE_KEYS:
+        raise ValueError(f"want the arrays of one of {CACHE_KEYS}, got "
+                         f"{sorted(arrays)}")
     out = {}
-    for name in ("k", "v"):
+    for name in arrays:
         a = np.asarray(arrays[name])
         if a.dtype.name == "bfloat16":
             bits = np.ascontiguousarray(a).view(np.uint16)
@@ -96,7 +103,8 @@ def cache_from_numpy(arrays: Mapping[str, np.ndarray],
         else:
             raise ValueError(f"cache {name}: dtype {a.dtype}, want bfloat16 "
                              "or float32")
-    if out["k"].shape != out["v"].shape or out["k"].dim() != 5:
+    if "k" in out and (out["k"].shape != out["v"].shape
+                       or out["k"].dim() != 5):
         raise ValueError(f"k {tuple(out['k'].shape)} and v "
                          f"{tuple(out['v'].shape)} must be one 5-d shape")
     return out

@@ -1,6 +1,7 @@
-"""Model API of the port (``repro.dist.model_api``) over the dense family:
-``init`` and ``loss`` for training, ``prefill``, ``make_cache`` and
-``decode`` for serving, plus the parameter layout the workspace packs."""
+"""Model API of the port (``repro.dist.model_api``) over the dense, MoE,
+RWKV and Mamba2-hybrid families: ``init`` and ``loss`` for training,
+``prefill``, ``make_cache`` and ``decode`` for serving, plus the parameter
+layout the workspace packs."""
 
 from __future__ import annotations
 
@@ -36,7 +37,9 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 def loss(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
          labels: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``(scalar loss, metrics)`` of one client's batch; ``prefix_embeds
+    """``(scalar loss, metrics)`` of one client's batch: the total loss
+    (the cross-entropy plus the MoE load-balance term, which the local
+    step differentiates) and ``{"xent", "moe_aux"}``; ``prefix_embeds
     (b, P, d_model)`` go before the tokens and the loss is on the text
     positions only."""
     return tr.loss_fn(params, cfg, tokens, labels, prefix_embeds)
@@ -57,7 +60,8 @@ def prefill(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
 def make_cache(cfg: ModelConfig, batch: int, max_seq: int,
                kv_dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = "cuda") -> Params:
-    """The decode cache (zeros) on ``device``."""
+    """The decode cache (zeros) on ``device``: the family's
+    (``transformer.init_cache``)."""
     return tr.init_cache(cfg, batch, max_seq, kv_dtype, device)
 
 

@@ -2,17 +2,20 @@
 prefill by stepping the decode path, then greedy decoding.
 
 The parameters are cast to the compute dtype once
-(``serve_utils.serving_params``) and the cache is bf16, as the
+(``serve_utils.cast_for_serving_``) and the cache is bf16, as the
 reference's driver makes it.  Attention goes through ``decode_attention``
 with each layer's window and the config's softcap
 (``kernels.decode_attn.make_attend_fn``): the CUDA kernel on the card, its
-plain version on the CPU.  There is no mesh: the reference's
+plain version on the CPU; RWKV-6 has no attention, and the Mamba2
+hybrid attends once per group of layers.  There is no mesh: the reference's
 ``--data-parallel``/``--model-parallel`` have no counterpart here.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --batch 2 \\
       --prompt-len 8 --gen-len 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
+      --reduced --batch 2 --prompt-len 8 --gen-len 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
       --reduced --batch 2 --prompt-len 8 --gen-len 4 --device cpu
 """
 
@@ -82,7 +85,8 @@ def run(params: Dict[str, torch.Tensor], cfg, prompts: torch.Tensor,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-2b",
-                    help="a dense architecture of configs.registry")
+                    help="an architecture of configs.registry (dense, moe, "
+                         "rwkv or mamba_hybrid)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--batch", type=int, default=4)
@@ -96,13 +100,13 @@ def main(argv=None) -> int:
     from repro_torch.configs import registry
     from repro_torch.dist import model_api
     from repro_torch.kernels.decode_attn import make_attend_fn
-    from repro_torch.serve_utils import serving_params
+    from repro_torch.serve_utils import cast_for_serving_
 
     dev = resolve_device(args.device)
     cfg = (registry.get_reduced_config(args.arch) if args.reduced
            else registry.get_config(args.arch))
-    params = serving_params(model_api.init(cfg, seed=args.seed, device=dev),
-                            cfg)
+    params = model_api.init(cfg, seed=args.seed, device=dev)
+    cast_for_serving_(params, cfg)
     prompts = make_prompts(args.batch, args.prompt_len, cfg.vocab, args.seed,
                            dev)
     out = run(params, cfg, prompts, args.gen_len,

@@ -22,15 +22,19 @@ reference's checkpoint format every that many rounds.
 ``--latency-dist``, and ``--round-policy``/``--quorum`` admission at the
 deferred commit; it prints the simulated clock.
 
-``--arch`` takes the dense family; internvl2-26b's batches carry its stub
-frontend's ``prefix_embeds`` (``SyntheticTokenPipeline``), and the loss
-is on the text positions.
+``--arch`` takes every architecture of the registry: the dense family
+(internvl2-26b's batches carry its stub frontend's ``prefix_embeds``,
+``SyntheticTokenPipeline``, and the loss is on the text positions), the
+MoE family (the loss adds the router's load-balance term), RWKV-6 and the
+Mamba2 hybrid.
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch gemma2-2b --reduced --rounds 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch internvl2-26b --reduced --rounds 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen2-moe-a2.7b --reduced --rounds 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --sparsity 3 --robust-agg trimmed --trim-k 1 --adversary sign_flip \\
       --f-byz 0.25 --device cpu
@@ -58,7 +62,8 @@ import time
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-2b",
-                    help="a dense architecture of configs.registry")
+                    help="an architecture of configs.registry (dense, moe, "
+                         "rwkv or mamba_hybrid)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--rounds", type=int, default=20)

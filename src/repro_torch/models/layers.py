@@ -1,4 +1,4 @@
-"""Building blocks of the dense path (``repro.models.layers``).
+"""Building blocks of the models (``repro.models.layers``).
 
 Conventions carried over from the reference: activations in the config's
 compute dtype, parameters stored in f32 and cast to the compute dtype
@@ -179,11 +179,18 @@ def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     return matmul(out.reshape(b, t, n_heads * head_dim), wo)
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA evaluates it: ``1 / (1 + exp(-x))``,
+    every operation rounded to ``x``'s dtype (in bf16 ``torch.sigmoid``
+    rounds once and differs on ~34% of the elements)."""
+    return torch.reciprocal(1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` as XLA evaluates it: ``x * (1 / (1 + exp(-x)))``,
     every operation rounded to ``x``'s dtype (in bf16 a fused
     ``F.silu`` rounds once and differs on ~40% of the elements)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    return x * sigmoid(x)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:

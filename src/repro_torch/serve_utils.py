@@ -1,11 +1,11 @@
 """Generation and evaluation on top of the decode path
 (``repro.serve_utils``).
 
-  sample_token    temperature / top-k / top-p sampling from logits
-  generate        batched autoregressive generation (prefill by stepping
-                  the decode path, then sampling)
-  perplexity      teacher-forced eval over a token stream
-  serving_params  the parameters cast once for decoding
+  sample_token       temperature / top-k / top-p sampling from logits
+  generate           batched autoregressive generation (prefill by
+                     stepping the decode path, then sampling)
+  perplexity         teacher-forced eval over a token stream
+  cast_for_serving_  the parameters cast once for decoding, in place
 
 Randomness is injected: ``jax.random.categorical`` is ``argmax(logits +
 gumbel)``, so ``sample_token`` takes the Gumbel noise itself or draws it
@@ -112,10 +112,24 @@ def perplexity(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return math.exp(float(loss))
 
 
-def serving_params(params: Params, cfg: ModelConfig) -> Params:
-    """The parameters for decoding: every matrix and the embedding cast
-    to the compute dtype once (the cast ``layers.matmul`` and the decode
-    step make per product, so the results are the same bits), the norm
-    scales left in f32 (the norms widen them, they never round them)."""
-    return {k: v if k.endswith("/scale") else v.to(cfg.dtype)
-            for k, v in params.items()}
+# leaves the model reads in f32 (``.astype(f32)`` in the reference):
+# RWKV's decay base and bonus, Mamba2's decay, skip and (in decode)
+# convolution; with the norm scales they stay f32 for serving
+F32_LEAVES = ("/scale", "/w_base", "/u", "/A_log", "/D", "/dt_bias",
+              "/conv_w", "/conv_b")
+
+
+def cast_for_serving_(params: Params, cfg: ModelConfig) -> None:
+    """Cast the parameters for decoding in place, leaf by leaf: every
+    matrix and the embedding to the compute dtype once (the cast
+    ``layers.matmul`` and the decode step make per product, so the results
+    are the same bits), the leaves the model reads in f32
+    (``F32_LEAVES``: the norm scales, RWKV's ``w_base`` and ``u``,
+    Mamba2's ``A_log``, ``D``, ``dt_bias``, ``conv_w``, ``conv_b``) left
+    as they are.  Each leaf's cast replaces its f32 original in ``params``
+    before the next leaf is cast, so the f32 and the cast copies of the
+    whole model never live at once (the originals are freed when the
+    caller holds no other reference to them)."""
+    for k in list(params):
+        if not k.endswith(F32_LEAVES):
+            params[k] = params[k].to(cfg.dtype)

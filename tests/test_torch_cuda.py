@@ -970,3 +970,110 @@ def test_pipelined_rounds_on_the_card_match_the_cpu(dev):
     assert hc.abs().max() > 0
     for k in ("masked_sum_counts", "h_update_covered", "fused_local_step"):
         assert launches[k] > 0, launches
+
+
+# --------------------------------------------------------------------------
+# the MoE, RWKV-6 and Mamba2-hybrid families on the card
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
+                                  "rwkv6-7b", "zamba2-2.7b"])
+def test_family_round_on_the_card_matches_the_cpu(dev, arch):
+    """One TAMUNA round of each new family's reduced config (n=4, c=3,
+    s=2, two local steps of 32 tokens, the same state, batches and
+    schedule) on the card, on the CPU and on the CPU in float64 compute:
+    leaf by leaf in x and in h, the card no farther from the float64
+    round than 4x the CPU's distance for that leaf, or 1e-5 where that is
+    larger (these families' f32 rounds lie 2e-5 to 1e-4 from it, and the
+    card's products accumulate in other orders:
+    ``chip_smoke.check_reduced_family_round``), the round's kernels
+    launched."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.dist import tamuna_dp
+
+    cfg = registry.get_reduced_config(arch)
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=0.05, c=3, s=2, p=0.34)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 3, 2, 33)))
+    out, noise = {}, None
+    for tag, d, dt in (("cpu", "cpu", None), ("card", dev, None),
+                       ("f64", "cpu", torch.float64)):
+        c = cfg if dt is None else dataclasses.replace(cfg, dtype=dt)
+        state = tamuna_dp.init_state(c, tcfg, 4, seed=0, device="cpu")
+        if noise is None:  # the other rows made distinct, on every side
+            noise = torch.from_numpy((0.01 * rng.normal(
+                size=tuple(state.x[1:].shape))).astype(np.float32))
+        state.x[1:] += noise
+        state.x, state.h = state.x.to(d), state.h.to(d)
+        local = tamuna_dp.make_local_step(c, tcfg)
+        compact = tamuna_dp.gather_cohort(state, [0, 2, 3])
+        _build.reset_launch_counts()
+        for t in range(2):
+            tk = toks[t].to(d)
+            local(compact, tokens=tk[..., :-1], labels=tk[..., 1:])
+        comm = tamuna_dp.make_comm_step(c, tcfg, 4, device=d)
+        state = comm(tamuna_dp.scatter_cohort(state, compact), [0, 2, 3],
+                     [2, 0, 1], torch.tensor([True, True, False, True]))
+        out[tag] = (state.x.cpu(), state.h.cpu(),
+                    dict(_build.launch_counts))
+
+    spec = tamuna_dp.state_spec(cfg, tcfg)
+    for i in (0, 1):
+        for name, off, d in zip(spec.names, spec.offsets, spec.dims):
+            cpu_l, card_l = (float((out[a][i][:, off:off + d]
+                                    - out["f64"][i][:, off:off + d])
+                                   .abs().max()) for a in ("cpu", "card"))
+            assert card_l <= max(1e-5, 4 * cpu_l), (i, name, card_l, cpu_l)
+    for k in ("masked_sum", "h_update", "fused_local_step"):
+        assert out["card"][2][k] > 0, out["card"][2]
+
+
+def test_decode_attention_hd128_group1_matches_plain(dev):
+    """The bf16 kernel at qwen2-moe-a2.7b's serving shape (16 heads of
+    128, group 1) over a 4096-key cache, and at qwen3-moe's group 8,
+    within one bf16 ulp of the plain version."""
+    from repro_torch.kernels import decode_attn
+
+    g = torch.Generator(device=dev).manual_seed(128)
+    for b, h, kvh in ((8, 16, 16), (8, 32, 4)):
+        q = torch.randn(b, h, 128, generator=g, device=dev).bfloat16()
+        k = torch.randn(b, 4096, kvh, 128, generator=g, device=dev).bfloat16()
+        v = torch.randn(b, 4096, kvh, 128, generator=g, device=dev).bfloat16()
+        for pos, window in ((4095, None), (4095, 1024), (15, None),
+                            (2047, 41)):
+            got = decode_attn.decode_attention(q, k, v, pos, window=window)
+            want = ref.decode_attention(q, k, v, pos, window=window)
+            torch.cuda.synchronize()
+            assert _bf16_ulps(got, want) <= 1.0, (h, kvh, pos, window)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "zamba2-2.7b",
+                                  "rwkv6-7b"])
+def test_family_decode_through_the_kernel_matches_plain(dev, arch):
+    """Each new family's reduced config decoded on the card for 40 steps
+    through the kernel and through the model's plain attention, from the
+    same weights: logits within 1e-5 of the largest, the kernel launched
+    once per attention per step (none for RWKV-6)."""
+    from repro_torch.configs import registry
+    from repro_torch.dist import model_api
+    from repro_torch.kernels.decode_attn import make_attend_fn
+
+    cfg = registry.get_reduced_config(arch)
+    params = model_api.init(cfg, seed=0, device=dev)
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(0)).to(dev)
+    caches = [model_api.make_cache(cfg, 2, 40, torch.float32, dev)
+              for _ in range(2)]
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        for i in range(40):
+            lk, _ = model_api.decode(params, cfg, toks[:, i:i + 1],
+                                     caches[0], i, make_attend_fn(cfg))
+            lp, _ = model_api.decode(params, cfg, toks[:, i:i + 1],
+                                     caches[1], i)
+            assert float((lk - lp).abs().max()) <= 1e-5 * float(
+                lp.abs().max()), i
+    assert _build.launch_counts["decode_attention_f32"] == 40 * cfg.n_attn

@@ -51,9 +51,14 @@ assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack",
         "repro_torch.configs.internvl2_26b", "repro_torch.optim.optimizers",
         "repro_torch.checkpoint", "repro_torch.dist.block_uplink",
         "repro_torch.dist.rounds", "repro_torch.dist.cohort",
-        "repro_torch.launch.pipeline_bench"} <= set(names)
+        "repro_torch.launch.pipeline_bench", "repro_torch.models.moe",
+        "repro_torch.models.rwkv", "repro_torch.models.ssm",
+        "repro_torch.configs.qwen2_moe_a2p7b",
+        "repro_torch.configs.qwen3_moe_30b_a3b",
+        "repro_torch.configs.rwkv6_7b",
+        "repro_torch.configs.zamba2_2p7b"} <= set(names)
 from repro_torch.configs import registry
-assert len(registry.list_archs()) == 5
+assert len(registry.list_archs()) == 9
 for arch in registry.list_archs():
     registry.get_config(arch), registry.get_reduced_config(arch)
 print(len(names), bad)

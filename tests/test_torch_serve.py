@@ -379,9 +379,9 @@ def test_generate_matches_reference_with_its_draws(reduced):
 def test_serving_params_cast_matrices_only():
     cfg = gemma2_2b.REDUCED
     params = model_api.init(cfg, device="cpu")
-    sp = serve_utils.serving_params(
+    serve_utils.cast_for_serving_(
         params, dataclasses.replace(cfg, dtype=torch.bfloat16))
-    for k, v in sp.items():
+    for k, v in params.items():
         assert v.dtype == (torch.float32 if k.endswith("/scale")
                            else torch.bfloat16), k
 
