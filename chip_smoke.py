@@ -59,7 +59,8 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    leaves take the dense fallback (laid after the others; the kernels run
    over the columns before them with the workspace's row pitch); and the
    fault-free round of each new family's reduced config (qwen2-moe-a2.7b,
-   qwen3-moe-30b-a3b, rwkv6-7b, zamba2-2.7b at 32 tokens);
+   qwen3-moe-30b-a3b, rwkv6-7b, zamba2-2.7b at 32 tokens, whisper-tiny
+   with its frames);
 5. drives six paths of ``repro_torch.dist.rounds.run_rounds``, each for
    3 rounds (4 on ``[reputation]``) of 2-layer full-width gemma2-2b (seq
    128, 2 sequences per client, max_L 4) with the launch counts set to 0
@@ -109,6 +110,13 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
                 665,436,480, n=4, c=3, s=2, 32 tokens (one 128-token loss
                 printed first, not gated: the reference's scan overflows
                 f32 there at its init);
+   ``[train_whisper]`` whisper-tiny at published widths and full depth (4
+                encoder and 4 decoder layers, 1,500 frames per sequence,
+                d_total = 36,501,504) over a federated population, n=128,
+                c=16, s=2 (x and h 37.4 GB); sum_i h_i = 0 gated on its
+                f32 rounding, per leaf within 1.25 times the bound of
+                ``tamuna_dp.h_sum_rounding``, and a planted lost owner
+                caught (``run_whisper_path``);
    then the round's options on 2-layer gemma2-2b, n=4, c=3, s=2:
    ``[train_adamw]`` ``local_opt="adamw"``, ``microbatches=2`` (x, h and
                 the two moments: 16 rows of 2.98 GB), gated as ``[train]``
@@ -236,7 +244,18 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
                  ``[serve_zamba2]`` zamba2-2.7b (54 layers, the hd-80
                  kernel on each of the 9 shared-block uses), batch 8,
                  prompt 128 + 32 generated, bf16: the same measures and
-                 gates as ``[serve]``.
+                 gates as ``[serve]``;
+   ``[serve_whisper]`` whisper-tiny at published widths and full depth,
+                 batch 8, its 1,500 frames encoded once into the cross K/V
+                 (timed), prompt 64 + 64 generated, bf16: the same
+                 measures and gates, no launch (its decode takes no
+                 ``attend_fn``, as the reference's); ``[serve_reduced]``
+                 serves its reduced config card against CPU too;
+9. runs ``[examples]``: each of ``repro_torch.examples``' ``main`` on the
+   card at small arguments (the convex quickstart, the c/s sweep and the
+   crossover, ``--lm``, ``--dist``, ``--dist --faults``, ``train_lm``,
+   ``serve_decode``), launch counts set to 0 before and read after, each
+   exiting 0.
 
 It takes no options and runs every phase.  ``reduced_round_diag.py``
 runs the first reduced round's card, CPU and float64 evaluations in fresh
@@ -298,7 +317,8 @@ SERVE_STABLELM = dict(batch=8, prompt_len=192, gen_len=64)
 # the dense family's reduced configs served card against CPU
 SERVE_REDUCED_ARCHS = ("gemma2-2b", "stablelm-3b", "deepseek-coder-33b",
                        "internvl2-26b", "qwen2-moe-a2.7b",
-                       "qwen3-moe-30b-a3b", "rwkv6-7b", "zamba2-2.7b")
+                       "qwen3-moe-30b-a3b", "rwkv6-7b", "zamba2-2.7b",
+                       "whisper-tiny")
 # the other training paths' configs at published widths, cut in depth so
 # x and h fit: stablelm-3b (untied head, q/k/v biases) 32 -> 6 layers at
 # N clients, internvl2-26b (the prefix: 256 patch embeddings + 128 text
@@ -341,7 +361,7 @@ REDUCED_SEQ = {"zamba2-2.7b": 32}
 # overflow the scan (printed by [train_zamba2], not gated; ROADMAP C)
 TRAIN_GAMMA = {"zamba2-2.7b": 0.002}
 FAMILY_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-30b-a3b", "rwkv6-7b",
-                "zamba2-2.7b")
+                "zamba2-2.7b", "whisper-tiny")
 # their reduced rounds card vs CPU are held against a float64 round, leaf
 # by leaf: the card no farther from it than this many times the CPU's
 # distance, or 1e-5 (check_reduced_family_round)
@@ -355,6 +375,28 @@ SERVE_FAMILY = dict(batch=8, prompt_len=128, gen_len=32)
 SERVE_QWEN3_LAYERS = 8
 DECODE_HD128 = dict(b=8, h=16, kvh=16, hd=128, S=4096)
 DECODE_HD128_G8 = dict(b=8, h=32, kvh=4, hd=128, S=4096)
+# the encoder-decoder: whisper-tiny at published widths and full depth
+# (36,501,504 parameters, a client row of 146 MB) trains a federated
+# population, n = 128 clients, c = 16, s = 2, at [train]'s seq 128, 2
+# sequences per client (each with 1,500 frames), gamma, p, 3 rounds and
+# max_L; it serves batch 8, the frames encoded once, 64 + 64 tokens
+# (within its published 448-token decoder context)
+TRAIN_WHISPER = dict(n=128, c=16, s=2)
+SERVE_WHISPER = dict(batch=8, prompt_len=64, gen_len=64)
+# [train_whisper]'s gate on sum_i h_i = 0, as a share of the f32 rounding
+# bound (run_whisper_path)
+H_SUM_HEADROOM = 1.25
+# the port's examples (repro_torch.examples), each main at small arguments
+EXAMPLES = (
+    ("quickstart", ["--rounds", "300"]),
+    ("federated_sim", ["--rounds", "200"]),
+    ("federated_sim", ["--lm", "--rounds", "2"]),
+    ("availability_sim", ["--rounds", "200"]),
+    ("availability_sim", ["--dist", "--rounds", "2"]),
+    ("availability_sim", ["--dist", "--faults", "--rounds", "2"]),
+    ("train_lm", ["--rounds", "4"]),
+    ("serve_decode", []),
+)
 
 
 def smi() -> str:
@@ -999,8 +1041,20 @@ def reduced_round_inputs(n: int, c: int, arch: str = "gemma2-2b"):
     return cfg, toks, noise
 
 
-def reduced_local(device, cfg, tcfg, n, cohort, toks, noise):
-    """The round's state after its two local steps on ``device``, and the
+def reduced_frames(cfg, c: int):
+    """The encoder-decoder's frames for ``reduced_round_inputs``' two steps,
+    ``(2, c, 2, n_frames, d_model)`` f32 (``None`` for the other
+    families)."""
+    if cfg.family != "encdec":
+        return None
+    rng = np.random.default_rng(6)
+    return torch.from_numpy(rng.normal(
+        size=(2, c, 2, cfg.n_frames, cfg.d_model)).astype(np.float32))
+
+
+def reduced_local(device, cfg, tcfg, n, cohort, toks, noise, frames=None):
+    """The round's state after its two local steps on ``device`` (with
+    ``frames``, ``reduced_frames``', for the encoder-decoder), and the
     cohort's rows."""
     from repro_torch.dist import tamuna_dp
 
@@ -1014,7 +1068,8 @@ def reduced_local(device, cfg, tcfg, n, cohort, toks, noise):
     compact = tamuna_dp.gather_cohort(state, cohort)
     for t in range(toks.shape[0]):
         tk = toks[t].to(device)
-        local(compact, tokens=tk[..., :-1], labels=tk[..., 1:])
+        kw = {} if frames is None else {"frames": frames[t].to(device)}
+        local(compact, tokens=tk[..., :-1], labels=tk[..., 1:], **kw)
     return state, compact
 
 
@@ -1088,8 +1143,8 @@ def check_reduced_round(dev, n, c, s, cohort, perm, down, arrived=None,
 def check_reduced_family_round(dev, arch: str) -> None:
     """One fault-free round of ``arch``'s reduced config (n=4, c=3, s=2)
     on the card, on the CPU and on the CPU in float64 compute (each
-    gradient rounded to the f32 leaf; the same schedule, batches and
-    noise), gated leaf by leaf in x and in h: the card within
+    gradient rounded to the f32 leaf; the same schedule, batches, frames
+    for the encoder-decoder, and noise), gated leaf by leaf in x and in h: the card within
     ``max(1e-5, F64_RATIO * CPU)`` of the float64 round, where CPU is that
     leaf's CPU distance from it.  The new families' f32 rounds lie 2e-5
     to 1e-4 from the float64 round at these sizes (their embeddings'
@@ -1108,6 +1163,7 @@ def check_reduced_family_round(dev, arch: str) -> None:
 
     tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
     cfg, toks, noise = reduced_round_inputs(N, C, arch)
+    frames = reduced_frames(cfg, C)
     spec = tamuna_dp.state_spec(cfg, tcfg)
     down = torch.tensor([True, True, False, True])
     top_k = moe.top_k
@@ -1127,7 +1183,7 @@ def check_reduced_family_round(dev, arch: str) -> None:
         moe.top_k = recorded
         try:
             state, compact = reduced_local(device, c, tcfg, N, [0, 2, 3],
-                                           toks, noise)
+                                           toks, noise, frames)
         finally:
             moe.top_k = top_k
         comm = tamuna_dp.make_comm_step(c, tcfg, N, device=device)
@@ -2283,6 +2339,146 @@ def run_new_family_paths(dev) -> dict:
     return out
 
 
+class lost_owner:
+    """Inside the block, the comm step's h update drops the first owner
+    row's update (a lost owner): a planted fault for the sum_i h_i = 0
+    gate to catch."""
+
+    def __enter__(self):
+        from repro_torch.kernels import uplink
+
+        self.h_update = h_update = uplink.h_update
+
+        def dropped(x, h, x_bar, slot, band, m, *args, **kw):
+            slot = slot.clone()
+            slot[int(((slot >= 0) & (slot < m)).nonzero()[0])] = -1
+            h_update(x, h, x_bar, slot, band, m, *args, **kw)
+
+        uplink.h_update = dropped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import uplink
+
+        uplink.h_update = self.h_update
+
+
+def profile_member_step(tag, cfg, dev, reps: int = 3) -> None:
+    """One client's local-step gradient (``model_api.loss`` forward and
+    backward on one batch of ``[train]``'s shape, frames included) run
+    ``reps`` times under ``torch.profiler`` after one warm-up: wall time
+    per step, the device's busy time per step and the kernels that take
+    most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import model_api
+
+    params = model_api.init(cfg, seed=0, device=dev)
+    leaves = [v.requires_grad_(True) for v in params.values()]
+    batch = {k: v[0] for k, v in SyntheticTokenPipeline(
+        DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=0,
+                   n_clients=1), cfg, dev).sample_batch([0]).items()}
+
+    def step():
+        loss, _ = model_api.loss(params, cfg, **batch)
+        return torch.autograd.grad(loss, leaves)
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")
+            and getattr(e, "self_device_time_total", 0) > 0]
+    busy = sum(e.self_device_time_total for e in rows) / reps / 1e3
+    launches = sum(e.count for e in rows) // reps
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"[{tag}] profiled member step (one client's loss and gradients, "
+          f"{reps} times): wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy:.3f} ms ({busy / (wall * 1e3):.1%}) in {launches} kernel "
+          f"launches; top kernels: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / reps / 1e3:.3f}"
+                      f" ms x{e.count // reps}" for e in top))
+    del params, leaves, batch
+    torch.cuda.empty_cache()
+
+
+def run_whisper_path(dev) -> dict:
+    """``[train_whisper]``: ``[train]``'s fault-free round (3 rounds, seq
+    128, 2 sequences per client, max_L 4) on whisper-tiny at published
+    widths and full depth, its batches carrying 1,500 frames per
+    sequence, over a federated population: TRAIN_WHISPER's n = 128
+    clients, c = 16, s = 2; then one member step profiled
+    (``profile_member_step``).  Gated as ``[train]`` but for sum_i h_i = 0,
+    which is gated on its f32 rounding: every leaf's |sum_i h_i| within
+    H_SUM_HEADROOM times the bound ``tamuna_dp.h_sum_rounding`` derives
+    (``R scale s (s - 1) / 2`` ulps of the leaf's max|x| plus ``2 R s`` of
+    its max|h|).  The headroom is for what the bound reads from the final
+    state only: a max|x| that changed binade, or a max|h| that shrank,
+    during the rounds.  Then a fourth round with a lost owner planted
+    (``lost_owner``) must read over 1000 times the bound.  The LM paths'
+    ``|sum_i h_i| / max|h| <= 1e-4`` is printed, not gated: whisper-tiny's
+    max|h| is ~1e-2 against its layernorm scales' max|x| = 1, and the
+    rounding bound alone is ~1.6e-4 of it there (PERF.md, ROADMAP C)."""
+    from repro_torch.configs import whisper_tiny
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import comm_ws, model_api, rounds, tamuna_dp
+
+    t0 = time.perf_counter()
+    cfg, tw = whisper_tiny.CONFIG, TRAIN_WHISPER
+    specs = model_api.param_specs(cfg)
+    d = comm_ws.workspace_spec(specs).d_total
+    print(f"[train_whisper] {cfg.name} at published widths and full depth "
+          f"({cfg.family}: d_model {cfg.d_model}, {cfg.n_encoder_layers} "
+          f"encoder + {cfg.n_layers} decoder layers, {cfg.n_heads} heads of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.n_frames} frames); {len(specs)} leaves, d_total {d} f32 "
+          f"per client row ({d * 4} B), x and h {2 * tw['n'] * d * 4} B")
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=tw["c"], s=tw["s"],
+                                      p=P)
+    out, state, rows = run_path(
+        "train_whisper", cfg, tcfg, tw["n"], dev,
+        need=("masked_sum", "h_update", "fused_local_step"),
+        check_h_sum=False, keep=True)
+    share, ulps, leaf = tamuna_dp.h_sum_rounding(state, tcfg, tw["n"],
+                                                 len(rows))
+    print(f"[train_whisper] worst leaf's |sum_i h_i| against its f32 "
+          f"rounding bound after {len(rows)} rounds: {share:.4f} of it, "
+          f"{ulps:.4f} ulps of its max|x| ({leaf}); gate "
+          f"{H_SUM_HEADROOM} of it")
+    if not share <= H_SUM_HEADROOM:
+        raise AssertionError(f"[train_whisper] sum_i h_i = 0 beyond f32 "
+                             f"rounding: {share} of the bound on {leaf}")
+    pipe = SyntheticTokenPipeline(
+        DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=1,
+                   n_clients=tw["n"]), cfg, dev)
+    with lost_owner():
+        state, _ = rounds.run_rounds(
+            state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=1,
+            rng=np.random.default_rng(1),
+            generator=torch.Generator().manual_seed(2), max_L=1)
+    share, ulps, leaf = tamuna_dp.h_sum_rounding(state, tcfg, tw["n"],
+                                                 len(rows) + 1)
+    print(f"[train_whisper] a lost owner planted in a fourth round: "
+          f"{share:.4g} of the bound, {ulps:.4g} ulps of max|x| ({leaf}), "
+          f"|sum_i h_i| / max|h| = {h_sum_ratio(state.h, d):.3e}")
+    del state, rows, pipe
+    torch.cuda.empty_cache()
+    if not share > 1000:
+        raise AssertionError(f"[train_whisper] the gate missed a lost "
+                             f"owner: {share} of the bound")
+    profile_member_step("train_whisper", cfg, dev)
+    print(f"[train_whisper] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def compare_on_card(ws: torch.Tensor, host: torch.Tensor,
                     chunk: int = 1 << 26):
     """``(max |ws - host| over the top of |host|, bitwise equal?)`` for an
@@ -2923,6 +3119,25 @@ class count_plain_attention:
             setattr(m, a, fn)
 
 
+def kernel_attn(cfg) -> int:
+    """Decode-kernel launches per token: ``n_attn``, but none for the
+    encoder-decoder, whose decode takes no ``attend_fn`` (the reference's
+    takes none either)."""
+    return 0 if cfg.family == "encdec" else cfg.n_attn
+
+
+def serve_inputs(cfg, batch: int, dev):
+    """``launch.serve.run``'s ``attend_fn`` and ``frames`` keywords for
+    ``cfg`` on ``dev``: the decode kernel, or the encoder-decoder's frames
+    (``serve.make_frames``)."""
+    from repro_torch.kernels.decode_attn import make_attend_fn
+    from repro_torch.launch import serve
+
+    if cfg.family == "encdec":
+        return {"frames": serve.make_frames(batch, cfg, dev)}
+    return {"attend_fn": make_attend_fn(cfg)}
+
+
 def serve_params_on(cfg, dev, seed=0):
     """Random parameters from ``seed`` on ``dev``, cast once for serving
     (the f32 originals freed)."""
@@ -2936,17 +3151,20 @@ def serve_params_on(cfg, dev, seed=0):
 
 
 def serve_with_snapshot(params, cfg, prompts, gen_len, kv_dtype,
-                        attend_fn) -> dict:
+                        attend_fn=None, frames=None) -> dict:
     """``serve.run``'s greedy batch, driven through ``serve_utils.generate``
     with a copy of the cache taken just after the second-last step
     (``snapshot``: the recurrent states the last step starts from);
     ``serve.run``'s ``tokens``, ``logits``, ``cache`` and ``finite``."""
     from repro_torch.dist import model_api
+    from repro_torch.launch import serve
     from repro_torch.serve_utils import generate
 
     b, plen = prompts.shape
     cache = model_api.make_cache(cfg, b, plen + gen_len, kv_dtype=kv_dtype,
                                  device=prompts.device)
+    if frames is not None:
+        serve.fill_cross_kv(params, cfg, cache, frames)
     finite = torch.ones((), dtype=torch.bool, device=prompts.device)
     seen = {}
 
@@ -2990,7 +3208,8 @@ def run_serve_reduced(dev) -> dict:
     untied head, deepseek-coder-33b's GQA 8:2 at head_dim 32,
     internvl2-26b's untied head) served for SERVE_REDUCED on the card
     (through the kernel) and on the CPU (the model's plain attention),
-    with the same prompts and weights.  On an f32 cache the greedy tokens
+    with the same prompts and weights (and frames: whisper-tiny's decode
+    takes no kernel).  On an f32 cache the greedy tokens
     must be equal and every logit of the last step within 1e-4 of the
     largest; on a bf16 cache (the CLI's) the last step is rerun on the CPU
     from the card's own final cache and held to the same 1e-4 (run through
@@ -3008,7 +3227,6 @@ def serve_reduced_one(arch: str, dev) -> dict:
     """``[serve_reduced]`` for one architecture's reduced config."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attn import make_attend_fn
     from repro_torch.launch import serve
 
     cfg = registry.get_reduced_config(arch)
@@ -3017,6 +3235,9 @@ def serve_reduced_one(arch: str, dev) -> dict:
     params_cpu = {k: v.cpu() for k, v in params.items()}
     prompts = serve.make_prompts(sr["batch"], sr["prompt_len"], cfg.vocab,
                                  0, "cpu")
+    card_kw = serve_inputs(cfg, sr["batch"], dev)
+    cpu_kw = ({"frames": card_kw["frames"].cpu()} if "frames" in card_kw
+              else {})
     print(f"[serve_reduced] {cfg.name} ({cfg.family}, f32, window "
           f"{cfg.sliding_window}, head_dim {cfg.head_dim_}, "
           f"{cfg.n_heads}:{cfg.n_kv_heads} heads, q/k/v biases "
@@ -3034,14 +3255,14 @@ def serve_reduced_one(arch: str, dev) -> dict:
             drive = serve.run if kv == torch.float32 else serve_with_snapshot
             with count_plain_attention() as plain:
                 card = drive(params, cfg, prompts.to(dev), sr["gen_len"],
-                             kv_dtype=kv, attend_fn=make_attend_fn(cfg))
+                             kv_dtype=kv, **card_kw)
             got = {k: v for k, v in _build.launch_counts.items() if v}
             for k, v in got.items():
                 launches[k] += v
             name = ("decode_attention_f32" if kv == torch.float32
                     else "decode_attention_f32_bf16kv")
-            want_launches = ({name: cfg.n_attn * steps} if cfg.n_attn
-                             else {})
+            want_launches = ({name: kernel_attn(cfg) * steps}
+                             if kernel_attn(cfg) else {})
             if got != want_launches or plain.calls:
                 raise AssertionError(f"[serve_reduced] {arch} {kv} cache: "
                                      f"launches "
@@ -3050,7 +3271,7 @@ def serve_reduced_one(arch: str, dev) -> dict:
             states = ""
             if kv == torch.float32:
                 cpu = serve.run(params_cpu, cfg, prompts, sr["gen_len"],
-                                kv_dtype=kv)
+                                kv_dtype=kv, **cpu_kw)
                 want, same = cpu["logits"], torch.equal(
                     card["tokens"].cpu(), cpu["tokens"])
             else:
@@ -3064,7 +3285,7 @@ def serve_reduced_one(arch: str, dev) -> dict:
                 errs = {n: float((cache[n] - card["cache"][n].cpu()).abs()
                                  .max() / cache[n].abs().max().clamp(
                                      min=1e-30))
-                        for n in cache if n not in ("k", "v")}
+                        for n in cache if n not in ("k", "v", "xk", "xv")}
                 if errs:
                     states = (" recurrent states after the step within "
                               f"{max(errs.values()):.3e} of their largest "
@@ -3124,15 +3345,16 @@ def run_serve(dev, tag: str = "serve", arch: str = "gemma2-2b",
               sv: dict = SERVE, layers=None) -> dict:
     """``[serve]``: gemma2-2b (``[serve_stablelm]``: stablelm-3b, head_dim
     80; ``[serve_moe]``, ``[serve_qwen3]``, ``[serve_rwkv]``,
-    ``[serve_zamba2]``: the new families) at published widths and full
-    depth (or ``layers``) through ``launch.serve.run``: ``sv``'s batch,
-    prompt and generation on a bf16 cache, the parameters cast to bf16
-    once (``cast_for_serving_``, leaf by leaf).  Gates: finite logits at every
-    step, ``n_attn x (prompt + gen)`` decode-kernel launches (none for
-    RWKV-6) and no call of a plain attention."""
+    ``[serve_zamba2]``, ``[serve_whisper]``: the other families) at
+    published widths and full depth (or ``layers``) through
+    ``launch.serve.run``: ``sv``'s batch, prompt and generation on a bf16
+    cache, the parameters cast to bf16 once (``cast_for_serving_``, leaf
+    by leaf); whisper-tiny first encodes its frames into the cross K/V
+    (timed apart).  Gates: finite logits at every step, ``kernel_attn x
+    (prompt + gen)`` decode-kernel launches (none for RWKV-6 and
+    whisper-tiny) and no call of the decode path's plain attentions."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attn import make_attend_fn
     from repro_torch.launch import serve
 
     full = registry.get_config(arch)
@@ -3148,7 +3370,8 @@ def run_serve(dev, tag: str = "serve", arch: str = "gemma2-2b",
     prompts = serve.make_prompts(sv["batch"], sv["prompt_len"], cfg.vocab, 0,
                                  dev)
     row_b = 2 * cfg.n_attn * cfg.n_kv_heads * cfg.head_dim_ * 2
-    cache_b = row_b * sv["batch"] * steps
+    cache_b = row_b * sv["batch"] * (steps + cfg.n_frames)
+    kw = serve_inputs(cfg, sv["batch"], dev)
     print(f"[{tag}] {cfg.name} ({cfg.family}), {cfg.n_layers} layers at "
           f"published widths"
           + ("" if layers is None else
@@ -3158,18 +3381,22 @@ def run_serve(dev, tag: str = "serve", arch: str = "gemma2-2b",
           f"{nbytes} B for serving (f32 init and cast peak {init_peak} B); "
           f"batch {sv['batch']}, prompt {sv['prompt_len']}, gen "
           f"{sv['gen_len']}, bf16 K/V cache {cache_b} B ({row_b} B per "
-          f"token)")
+          f"token" + (f", {cfg.n_frames} cross rows per sequence"
+                      if cfg.n_frames else "") + ")")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     with count_plain_attention() as plain:
         res = serve.run(params, cfg, prompts, sv["gen_len"],
-                        kv_dtype=torch.bfloat16,
-                        attend_fn=make_attend_fn(cfg))
+                        kv_dtype=torch.bfloat16, **kw)
     counts = dict(_build.launch_counts)
     launches = {k: v for k, v in counts.items() if v}
     peak = torch.cuda.max_memory_allocated()
     dt = res["prefill_s"] + res["decode_s"]
+    if "frames" in kw:
+        print(f"[{tag}] encoder over {cfg.n_frames} frames and the cross "
+              f"K/V of {cfg.n_layers} layers, batch {sv['batch']}: "
+              f"{res['encode_s'] * 1e3:.3f} ms")
     print(f"[{tag}] {steps} decode steps: prefill {res['prefill_s']:.3f} s "
           f"({res['prefill_s'] / sv['prompt_len'] * 1e3:.3f} ms per step), "
           f"generation {res['decode_s']:.3f} s "
@@ -3181,8 +3408,9 @@ def run_serve(dev, tag: str = "serve", arch: str = "gemma2-2b",
           f"{plain.calls}, logits finite {res['finite']}")
     print(f"[{tag}] sample continuations: {res['tokens'][:2].tolist()}")
     profile_last_steps(tag, params, cfg, res, prompts, dev,
-                       make_attend_fn(cfg))
-    want = {"decode_attention": cfg.n_attn * steps} if cfg.n_attn else {}
+                       kw.get("attend_fn"))
+    want = ({"decode_attention": kernel_attn(cfg) * steps}
+            if kernel_attn(cfg) else {})
     if not res["finite"] or plain.calls or launches != want:
         raise AssertionError(f"[{tag}] finite {res['finite']}, launches "
                              f"{launches} (want {want}), plain calls "
@@ -3282,7 +3510,48 @@ def run_serve_paths(dev) -> dict:
             "serve_rwkv": run_serve(dev, "serve_rwkv", "rwkv6-7b",
                                     SERVE_FAMILY),
             "serve_zamba2": run_serve(dev, "serve_zamba2", "zamba2-2.7b",
-                                      SERVE_FAMILY)}
+                                      SERVE_FAMILY),
+            "serve_whisper": run_serve(dev, "serve_whisper", "whisper-tiny",
+                                       SERVE_WHISPER)}
+
+
+def run_examples() -> dict:
+    """``[examples]``: each of EXAMPLES' ``main`` on the card (the
+    examples' default device), in this process, its standard output kept
+    and its last lines printed (and its standard error's, when it does not
+    return 0); the launch counts set to 0 before the first and read after
+    the last.  Gate: every ``main`` returns 0."""
+    import contextlib
+    import importlib
+    import io
+
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t_all, failed = time.perf_counter(), []
+    for name, argv in EXAMPLES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        buf, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = mod.main(argv)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        tail = [ln for ln in buf.getvalue().splitlines() if ln.strip()][-3:]
+        print(f"[examples] {name} {' '.join(argv)}: exit {rc} in {dt:.2f} s; "
+              + " | ".join(tail))
+        if rc != 0:
+            print(f"[examples] {name} standard error: "
+                  + " | ".join(err.getvalue().splitlines()[-10:]))
+            failed.append((name, argv, rc))
+    counts = dict(_build.launch_counts)
+    print(f"[examples] {len(EXAMPLES)} runs in "
+          f"{time.perf_counter() - t_all:.1f} s; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if failed:
+        raise AssertionError(f"[examples] non-zero exits: {failed}")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -3366,7 +3635,7 @@ def main(argv=None) -> int:
         check_reduced_wire_round(dev, uplink="block_rs")
         check_reduced_adamw_round(dev)
         check_tall_round(dev)
-        # the new families' reduced configs
+        # the other families' reduced configs
         t0 = time.perf_counter()
         for arch in FAMILY_ARCHS:
             check_reduced_family_round(dev, arch)
@@ -3427,6 +3696,7 @@ def main(argv=None) -> int:
         policy="quorum")
     by_path.update(run_family_paths(dev))
     by_path.update(run_new_family_paths(dev))
+    by_path["train_whisper"] = run_whisper_path(dev)
     by_path.update(run_train_options(cfg, dev))
     by_path["checkpoint"] = run_checkpoint(
         dev, os.path.join(here, "_smoke"))
@@ -3483,6 +3753,7 @@ def main(argv=None) -> int:
     recs += check_decode_hd128(dev)
     torch.cuda.empty_cache()
     by_path.update(run_serve_paths(dev))
+    by_path["examples"] = run_examples()
 
     src = "src/repro_torch/kernels/csrc/tamuna_kernels.cu"
     # each kernel's body in the reference and the path whose launches the

@@ -1,5 +1,6 @@
-"""Architecture registry of the port: the dense, MoE, RWKV and
-Mamba2-hybrid architectures of the reference's registry."""
+"""Architecture registry of the port: every architecture of the
+reference's registry (dense, MoE, RWKV, Mamba2-hybrid and
+encoder-decoder)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ ARCHS = {
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "rwkv6-7b": "repro_torch.configs.rwkv6_7b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "whisper-tiny": "repro_torch.configs.whisper_tiny",
     "zamba2-2.7b": "repro_torch.configs.zamba2_2p7b",
 }
 

@@ -75,17 +75,20 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
     return out
 
 
-# the cache's arrays per family (``transformer.init_cache``)
+# the cache's arrays per family (``transformer.init_cache``,
+# ``encdec.init_cache``)
 CACHE_KEYS = (("k", "v"), ("shift_cm", "shift_tm", "wkv"),
-              ("conv", "k", "ssm", "v"))
+              ("conv", "k", "ssm", "v"), ("k", "v", "xk", "xv"))
 
 
 def cache_from_numpy(arrays: Mapping[str, np.ndarray],
                      device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
     """The port's decode cache from the reference's arrays: ``{"k", "v"}``
     ``(n_attn, batch, max_seq, kv_heads, head_dim)`` (dense, MoE),
-    ``{"shift_tm", "shift_cm", "wkv"}`` (RWKV) or ``{"conv", "ssm", "k",
-    "v"}`` (the Mamba2 hybrid).  bf16 (numpy's ``bfloat16`` extension
+    ``{"shift_tm", "shift_cm", "wkv"}`` (RWKV), ``{"conv", "ssm", "k",
+    "v"}`` (the Mamba2 hybrid) or ``{"k", "v", "xk", "xv"}`` (the
+    encoder-decoder; ``xk``/``xv`` ``(n_layers, batch, n_frames,
+    kv_heads, head_dim)``).  bf16 (numpy's ``bfloat16`` extension
     type) stays bf16, f32 stays f32, bit for bit."""
     dev = resolve_device(device)
     if tuple(sorted(arrays)) not in CACHE_KEYS:

@@ -9,7 +9,8 @@ cumulative tables, with every draw taken from one ``torch.Generator`` on
 the device seeded with ``DataConfig.seed``.  Unlike the reference's
 per-client threefry streams, the draws depend on the cohort's make-up.
 A model with a stub frontend (``prefix_len``) also gets f32 normal
-``prefix_embeds`` from the same generator, cast to its compute dtype.
+``prefix_embeds`` from the same generator, cast to its compute dtype, and
+the encoder-decoder its f32 normal ``frames`` likewise.
 """
 
 from __future__ import annotations
@@ -53,8 +54,9 @@ def transition_tables(dcfg: DataConfig, model_cfg: ModelConfig
 
 class SyntheticTokenPipeline:
     """Batches ``{"tokens", "labels"}`` of shape ``(c, b, seq_len)`` for a
-    cohort of ``c`` clients, sampled on ``device``, and ``prefix_embeds
-    (c, b, prefix_len, d_model)`` when the model has a prefix."""
+    cohort of ``c`` clients, sampled on ``device``, ``prefix_embeds (c, b,
+    prefix_len, d_model)`` when the model has a prefix and ``frames (c, b,
+    n_frames, d_model)`` for the encoder-decoder."""
 
     def __init__(self, dcfg: DataConfig, model_cfg: ModelConfig,
                  device: DeviceLike = "cuda"):
@@ -73,7 +75,7 @@ class SyntheticTokenPipeline:
         """One batch for ``clients`` (row ``a`` is client ``clients[a]``'s
         chain): ``seq_len + 1`` states per sequence, tokens the first
         ``seq_len``, labels the last ``seq_len``; then the prefix
-        embeddings, drawn after the tokens."""
+        embeddings or the frames, drawn after the tokens."""
         dev, g, v = self.device, self.generator, self.v
         b, T = self.dcfg.per_client_batch, self.dcfg.seq_len
         ids = torch.as_tensor(list(clients), dtype=torch.long,
@@ -94,4 +96,8 @@ class SyntheticTokenPipeline:
             pe = torch.randn((ids.shape[0], b, mc.prefix_len, mc.d_model),
                              generator=g, dtype=torch.float32, device=dev)
             batch["prefix_embeds"] = pe.to(mc.dtype)
+        if mc.family == "encdec":
+            fr = torch.randn((ids.shape[0], b, mc.n_frames, mc.d_model),
+                             generator=g, dtype=torch.float32, device=dev)
+            batch["frames"] = fr.to(mc.dtype)
         return batch

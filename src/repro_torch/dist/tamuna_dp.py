@@ -195,6 +195,48 @@ def init_state(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int, *,
     return DistTamunaState(x=x, h=h, spec=spec, opt=opt)
 
 
+def h_sum_rounding(state: DistTamunaState, tcfg: DistTamunaConfig, n: int,
+                   rounds: int, rows: Optional[Sequence[int]] = None
+                   ) -> Tuple[float, float, str]:
+    """How far sum_i h_i = 0 is off after ``rounds`` fault-free rounds of
+    the mean combine from h = 0, against what f32 rounding allows: the
+    worst leaf's ``max |sum_i h_i|`` as a share of its bound, the same in
+    ulps of the leaf's ``max |x|`` (over ``rows``; every row when
+    ``None``), and the leaf's name.  ``s`` must be a power of two.
+
+    A round adds ``scale (x_bar - x_i)`` (``scale = eta / gamma``) to the h
+    of each of a coordinate's s owners.  In exact arithmetic these sum to
+    ``scale`` times the rounding of x_bar's owner sum (the ``1/s`` is
+    exact): s - 1 additions, each off by at most half an ulp of ``s
+    max|x|``, so ``scale s (s - 1) / 2`` ulps of ``max|x|``.  Each owner
+    rounds its difference, its product and its sum, each by at most half
+    an ulp of a term below ``2 max|h|`` while h grows from 0: ``2 s`` ulps
+    of ``max|h|``.  Per round, ``rounds`` times.  The bound reads the final
+    ``max|x|`` and ``max|h|``.  Column chunks: a population-sized
+    workspace needs no copy."""
+    s = tcfg.s
+    if s & (s - 1):
+        raise ValueError(f"the bound takes s a power of two, got s={s}")
+    scale = tcfg.eta_(n) / tcfg.gamma
+    x = state.x if rows is None else state.x[list(rows)]
+
+    def ulp(v: float) -> float:
+        return 2.0 ** (np.floor(np.log2(v)) - 23) if v > 0 else 2.0 ** -149
+
+    worst = (0.0, 0.0, "")
+    for name, off, d in zip(state.spec.names, state.spec.offsets,
+                            state.spec.dims):
+        hs = xm = hm = 0.0
+        for a in range(off, off + d, 1 << 25):
+            b = min(a + (1 << 25), off + d)
+            hs = max(hs, float(state.h[:, a:b].sum(0).abs().max()))
+            hm = max(hm, float(state.h[:, a:b].abs().max()))
+            xm = max(xm, float(x[:, a:b].abs().max()))
+        bound = rounds * (scale * s * (s - 1) / 2 * ulp(xm) + 2 * s * ulp(hm))
+        worst = max(worst, (hs / bound, hs / ulp(xm), name))
+    return worst
+
+
 def member_mask(cohort: Sequence[int], n: int) -> torch.Tensor:
     """``(n,)`` bool membership of a cohort (on the CPU)."""
     mask = torch.zeros(n, dtype=torch.bool)
@@ -257,7 +299,8 @@ def _client_grads(cfg: ModelConfig, params: Dict[str, torch.Tensor],
                   batch: Dict[str, torch.Tensor], microbatches: int
                   ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """One client's loss and gradients (in ``params``' order) of its batch
-    (``tokens``/``labels`` ``(b, T)``, ``prefix_embeds`` ``(b, P, d)``).
+    (``tokens``/``labels`` ``(b, T)``, ``prefix_embeds`` ``(b, P, d)``,
+    ``frames`` ``(b, n_frames, d)``).
     With ``M = microbatches > 1`` the batch axis splits into M equal parts
     (``b % M != 0`` raises); their losses and gradients are summed in f32
     from zero in microbatch order, then multiplied by the f32 of ``1 / M``
@@ -297,12 +340,13 @@ def _client_grads(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 
 def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Build ``fn(compact, *, tokens, labels, prefix_embeds=None) ->
-    {"loss": mean loss}``.
+    """Build ``fn(compact, *, tokens, labels, prefix_embeds=None,
+    frames=None) -> {"loss": mean loss}``.
 
     ``tokens``/``labels`` are ``(c, b, T)``, row ``a`` the batch of cohort
-    member ``a``, and ``prefix_embeds`` ``(c, b, P, d_model)`` where the
-    model has a prefix.  Each member's loss and gradient are taken on
+    member ``a``, ``prefix_embeds`` ``(c, b, P, d_model)`` where the
+    model has a prefix and ``frames`` ``(c, b, n_frames, d_model)`` for
+    the encoder-decoder; microbatches split the frames with the tokens.  Each member's loss and gradient are taken on
     views of its workspace row (``tcfg.microbatches`` at a time), then the
     row is updated leaf by leaf: ``fused_local_step`` writes ``x - gamma
     (g - h)`` under sgd; under adamw the gradient becomes ``g - h`` in
@@ -315,7 +359,8 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
     spec = state_spec(cfg, tcfg)
 
     def fn(compact: Cohort, *, tokens: torch.Tensor, labels: torch.Tensor,
-           prefix_embeds: Optional[torch.Tensor] = None
+           prefix_embeds: Optional[torch.Tensor] = None,
+           frames: Optional[torch.Tensor] = None
            ) -> Dict[str, torch.Tensor]:
         if adam:
             count = compact.count + 1
@@ -330,6 +375,8 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
             batch = {"tokens": tokens[a], "labels": labels[a]}
             if prefix_embeds is not None:
                 batch["prefix_embeds"] = prefix_embeds[a]
+            if frames is not None:
+                batch["frames"] = frames[a]
             loss, grads = _client_grads(cfg, params, batch,
                                         tcfg.microbatches)
             del params

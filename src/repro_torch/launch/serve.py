@@ -7,7 +7,12 @@ reference's driver makes it.  Attention goes through ``decode_attention``
 with each layer's window and the config's softcap
 (``kernels.decode_attn.make_attend_fn``): the CUDA kernel on the card, its
 plain version on the CPU; RWKV-6 has no attention, and the Mamba2
-hybrid attends once per group of layers.  There is no mesh: the reference's
+hybrid attends once per group of layers.  The encoder-decoder
+(whisper-tiny) serves against frame embeddings drawn from a numpy stream
+(the reference draws them from threefry key 7): the encoder runs once and
+fills the cross-attention's K/V in the cache, timed apart from the
+prefill; its decode step takes no pluggable attention, as the
+reference's.  There is no mesh: the reference's
 ``--data-parallel``/``--model-parallel`` have no counterpart here.
 
 Example:
@@ -16,6 +21,8 @@ Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
       --reduced --batch 2 --prompt-len 8 --gen-len 4 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+      --reduced --batch 2 --prompt-len 8 --gen-len 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \\
       --reduced --batch 2 --prompt-len 8 --gen-len 4 --device cpu
 """
 
@@ -39,21 +46,48 @@ def make_prompts(batch: int, prompt_len: int, vocab: int, seed: int,
     return torch.from_numpy(toks).to(device)
 
 
+def make_frames(batch: int, cfg, device) -> torch.Tensor:
+    """The encoder-decoder's frame embeddings ``(batch, n_frames,
+    d_model)``: f32 normals from a numpy stream seeded with 7 (the
+    reference draws them from threefry key 7), cast to the compute
+    dtype."""
+    rng = np.random.default_rng(7)
+    fr = rng.standard_normal((batch, cfg.n_frames, cfg.d_model),
+                             dtype=np.float32)
+    return torch.from_numpy(fr).to(device=device, dtype=cfg.dtype)
+
+
+def fill_cross_kv(params: Dict[str, torch.Tensor], cfg, cache,
+                  frames: torch.Tensor):
+    """The encoder-decoder's cache made ready to decode: ``encode(frames)``
+    once, then its cross-attention K/V into the cache, in place."""
+    from repro_torch.models import encdec
+
+    with torch.no_grad():
+        enc = encdec.encode(params, cfg, frames)
+        return encdec.precompute_cross_kv(params, cfg, enc, cache)
+
+
 def run(params: Dict[str, torch.Tensor], cfg, prompts: torch.Tensor,
         gen_len: int, *, kv_dtype: torch.dtype = torch.bfloat16,
-        attend_fn=None) -> dict:
+        attend_fn=None, frames=None) -> dict:
     """Serve one batch through ``serve_utils.generate``, greedy:
     ``prompt_len`` decode steps over the prompts, then ``gen_len`` greedy
     ones (the last token's step writes its cache row, as the reference's
-    loop does).  Returns the generated ``tokens (b, gen_len)``, the last
-    ``logits``, the ``cache``, whether every step's logits were finite
-    (``finite``) and the wall times (``prefill_s``, ``decode_s``, each
-    ending in a device synchronisation)."""
+    loop does); the encoder-decoder first encodes ``frames`` into the
+    cache (``fill_cross_kv``).  Returns the generated ``tokens (b,
+    gen_len)``, the last ``logits``, the ``cache``, whether every step's
+    logits were finite (``finite``) and the wall times (``encode_s``, 0
+    for the other families, ``prefill_s``, ``decode_s``, each ending in a
+    device synchronisation)."""
     from repro_torch.dist import model_api
     from repro_torch.serve_utils import generate
 
     b, plen = prompts.shape
     dev = prompts.device
+    if (cfg.family == "encdec") != (frames is not None):
+        raise ValueError("frames are the encoder-decoder's input, and only "
+                         "its")
     cache = model_api.make_cache(cfg, b, plen + gen_len, kv_dtype=kv_dtype,
                                  device=dev)
     finite = torch.ones((), dtype=torch.bool, device=dev)
@@ -70,6 +104,9 @@ def run(params: Dict[str, torch.Tensor], cfg, prompts: torch.Tensor,
         if pos == plen - 1:
             seen["prefill_end"] = now()
 
+    t_enc = now()
+    if frames is not None:
+        fill_cross_kv(params, cfg, cache, frames)
     t0 = now()
     with torch.no_grad():
         tokens, cache = generate(params, cfg, prompts, gen_len,
@@ -78,15 +115,15 @@ def run(params: Dict[str, torch.Tensor], cfg, prompts: torch.Tensor,
     t2 = now()
     t1 = seen["prefill_end"]
     return {"tokens": tokens, "logits": seen["logits"], "cache": cache,
-            "finite": bool(finite), "prefill_s": t1 - t0,
-            "decode_s": t2 - t1}
+            "finite": bool(finite), "encode_s": t0 - t_enc,
+            "prefill_s": t1 - t0, "decode_s": t2 - t1}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-2b",
                     help="an architecture of configs.registry (dense, moe, "
-                         "rwkv or mamba_hybrid)")
+                         "rwkv, mamba_hybrid or encdec)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--batch", type=int, default=4)
@@ -109,8 +146,14 @@ def main(argv=None) -> int:
     cast_for_serving_(params, cfg)
     prompts = make_prompts(args.batch, args.prompt_len, cfg.vocab, args.seed,
                            dev)
-    out = run(params, cfg, prompts, args.gen_len,
-              attend_fn=make_attend_fn(cfg))
+    if cfg.family == "encdec":
+        out = run(params, cfg, prompts, args.gen_len,
+                  frames=make_frames(args.batch, cfg, dev))
+        print(f"[serve] encoder and cross K/V over {cfg.n_frames} frames: "
+              f"{out['encode_s']:.3f}s")
+    else:
+        out = run(params, cfg, prompts, args.gen_len,
+                  attend_fn=make_attend_fn(cfg))
     dt = out["prefill_s"] + out["decode_s"]
     max_seq = args.prompt_len + args.gen_len
     print(f"[serve] {args.arch}{' (reduced)' if args.reduced else ''} on "

@@ -25,8 +25,9 @@ deferred commit; it prints the simulated clock.
 ``--arch`` takes every architecture of the registry: the dense family
 (internvl2-26b's batches carry its stub frontend's ``prefix_embeds``,
 ``SyntheticTokenPipeline``, and the loss is on the text positions), the
-MoE family (the loss adds the router's load-balance term), RWKV-6 and the
-Mamba2 hybrid.
+MoE family (the loss adds the router's load-balance term), RWKV-6, the
+Mamba2 hybrid and the encoder-decoder (whisper-tiny: the batches carry its
+stub frontend's ``frames``, ``n_frames`` frame embeddings per sequence).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.train \\
@@ -35,6 +36,8 @@ Example:
       --arch internvl2-26b --reduced --rounds 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch qwen2-moe-a2.7b --reduced --rounds 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch whisper-tiny --reduced --rounds 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
       --sparsity 3 --robust-agg trimmed --trim-k 1 --adversary sign_flip \\
       --f-byz 0.25 --device cpu
@@ -63,7 +66,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-2b",
                     help="an architecture of configs.registry (dense, moe, "
-                         "rwkv or mamba_hybrid)")
+                         "rwkv, mamba_hybrid or encdec)")
     ap.add_argument("--reduced", action="store_true",
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--rounds", type=int, default=20)

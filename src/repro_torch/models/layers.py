@@ -47,6 +47,37 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor,
     return (y * (1.0 + widen(scale))).to(x.dtype)
 
 
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm as the reference writes it: the mean and the mean of the
+    squared deviations in f32, ``rsqrt(var + eps)``, then the scale and
+    the bias, each read in f32 (``F.layer_norm`` computes the variance
+    another way)."""
+    xf = widen(x)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mean) * torch.rsqrt(var + eps)
+    return (y * widen(scale) + widen(bias)).to(x.dtype)
+
+
+def sinusoid(positions: torch.Tensor, d: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The sinusoidal position table ``(len(positions), d)`` in ``dtype``
+    (``repro.models.encdec.sinusoidal_positions``): the angle ``pos /
+    10000^(2 i / d)`` in f32 (float64 for a float64 ``dtype``), then
+    ``[sin, cos]``.  Every division is a true one, so the card and the CPU
+    agree; at large positions the f32 angle's rounding puts the table
+    ~1e-4 from a float64 one, as the reference's."""
+    wide = torch.float64 if dtype == torch.float64 else torch.float32
+    dev = positions.device
+    pos = positions.to(wide)[:, None]
+    dim = torch.arange(d // 2, dtype=wide, device=dev)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, dtype=wide, device=dev),
+                            2 * dim / torch.tensor(float(d), dtype=wide,
+                                                   device=dev))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding over split halves; ``x (b, t, heads, hd)``,
@@ -101,13 +132,15 @@ FLASH_THRESHOLD = 2048
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int, attn_softcap: Optional[float],
-                    k_chunk: int = 1024) -> torch.Tensor:
-    """Causal GQA attention of ``q (b, t, h, hd)`` over ``k, v (b, t, kvh,
+                    k_chunk: int = 1024, causal: bool = True
+                    ) -> torch.Tensor:
+    """GQA attention of ``q (b, t, h, hd)`` over ``k, v (b, t, kvh,
     hd)`` in ``k_chunk``-key blocks with an online softmax
     (``repro.models.layers.flash_attention``): q scaled by ``1/sqrt(hd)``
     in its own dtype before the logits, f32 logits of the widened
     operands, the softcap, key ``kp`` visible from query ``qp`` iff
-    ``qp - window < kp <= qp`` (others -1e30), the running max and
+    ``qp - window < kp <= qp`` (others -1e30; every key where not
+    ``causal``, and ``window`` is not read), the running max and
     denominator in f32, the probabilities kept in f32 into the product with
     the widened ``v``, and ``acc / max(l, 1e-30)`` in ``q``'s dtype.  A
     ragged last block is cut short, which is the reference's zero padding
@@ -129,9 +162,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kc, vc = k[:, a:a + k_chunk], v[:, a:a + k_chunk]
         logits = torch.einsum("btkgd,bskd->bkgts", qw, widen(kc))
         logits = softcap(logits, attn_softcap)
-        kp = torch.arange(a, a + kc.shape[1], device=q.device)[None, :]
-        mask = (kp <= qp) & (kp > qp - window)
-        logits = logits.masked_fill(~mask, -1e30)
+        if causal:
+            kp = torch.arange(a, a + kc.shape[1], device=q.device)[None, :]
+            mask = (kp <= qp) & (kp > qp - window)
+            logits = logits.masked_fill(~mask, -1e30)
         m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(logits - m_new)
@@ -142,18 +176,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
 
 
+def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool = False, q_offset: int = 0,
+                     sliding_window: Optional[int] = None,
+                     kv_len: Optional[int] = None,
+                     attn_softcap: Optional[float] = None) -> torch.Tensor:
+    """Dense GQA attention of ``q (b, tq, h, hd)`` over ``k, v (b, tk,
+    kvh, hd)``, which may come from another sequence (cross-attention):
+    ``repro.models.layers.attention_scores``.  f32 logits of the widened
+    operands truly divided by ``sqrt(hd)``, the softcap, the mask (with
+    ``causal`` key ``kp`` visible from query ``qp`` iff ``kp <= qp +
+    q_offset``; with ``sliding_window`` only keys ``kp > qp + q_offset -
+    sliding_window``; with ``kv_len`` only keys ``kp < kv_len``; others
+    -1e30),
+    the f32 softmax, and the probabilities rounded to ``q``'s dtype before
+    the product with ``v``: ``(b, tq, h, hd)``."""
+    b, tq, h, hd = q.shape
+    tk, kvh = k.shape[1], k.shape[2]
+    qg = q.reshape(b, tq, kvh, h // kvh, hd)
+    logits = torch.einsum("btkgd,bskd->bkgts", widen(qg), widen(k))
+    logits = logits / torch.tensor(math.sqrt(hd), dtype=logits.dtype,
+                                   device=q.device)
+    logits = softcap(logits, attn_softcap)
+    kp = torch.arange(tk, device=q.device)[None, :]
+    qp = torch.arange(tq, device=q.device)[:, None] + q_offset
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if sliding_window is not None:
+        mask &= kp > qp - sliding_window
+    if kv_len is not None:
+        mask &= kp < kv_len
+    logits = logits.masked_fill(~mask, -1e30)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+    return out.reshape(b, tq, h, hd)
+
+
 def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
               wv: torch.Tensor, wo: torch.Tensor, *, n_heads: int,
               n_kv_heads: int, head_dim: int, rope_theta: Optional[float],
               window: int, attn_softcap: Optional[float],
-              biases: Optional[Tuple[torch.Tensor, ...]] = None
-              ) -> torch.Tensor:
-    """Causal GQA self-attention over ``x (b, t, d)`` with a sliding
-    window: key ``kp`` is visible from query ``qp`` iff
-    ``qp - window < kp <= qp``.  From ``t >= FLASH_THRESHOLD`` on the
-    blockwise ``flash_attention``, as the reference's forward; below it
-    the dense form, whose probabilities are rounded to the compute dtype
-    before the product with ``v``.  ``biases`` are ``qkv``'s."""
+              biases: Optional[Tuple[torch.Tensor, ...]] = None,
+              causal: bool = True) -> torch.Tensor:
+    """GQA self-attention over ``x (b, t, d)``: causal with a sliding
+    window (key ``kp`` is visible from query ``qp`` iff ``qp - window <
+    kp <= qp``), or over every key where not ``causal`` (``window`` is not
+    read; an encoder).  From ``t >= FLASH_THRESHOLD`` on the blockwise
+    ``flash_attention``, as the reference's forward; below it the dense
+    ``attention_scores``, whose probabilities are rounded to the compute
+    dtype before the product with ``v``.  ``biases`` are ``qkv``'s."""
     b, t, _ = x.shape
     q, k, v = qkv(x, wq, wk, wv, n_heads, n_kv_heads, head_dim, biases)
     if rope_theta is not None:
@@ -162,20 +234,11 @@ def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         k = apply_rope(k, pos, rope_theta)
     if t >= FLASH_THRESHOLD:
         out = flash_attention(q, k, v, window=window,
-                              attn_softcap=attn_softcap)
-        return matmul(out.reshape(b, t, n_heads * head_dim), wo)
-    group = n_heads // n_kv_heads
-    qg = q.view(b, t, n_kv_heads, group, head_dim)
-    logits = torch.einsum(
-        "btkgd,bskd->bkgts", widen(qg), widen(k)
-    ) / math.sqrt(head_dim)
-    logits = softcap(logits, attn_softcap)
-    qp = torch.arange(t, device=x.device)[:, None]
-    kp = torch.arange(t, device=x.device)[None, :]
-    mask = (kp <= qp) & (kp > qp - window)
-    logits = logits.masked_fill(~mask, -1e30)
-    probs = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgts,bskd->btkgd", probs, v)
+                              attn_softcap=attn_softcap, causal=causal)
+    else:
+        out = attention_scores(q, k, v, causal=causal,
+                               sliding_window=window if causal else None,
+                               attn_softcap=attn_softcap)
     return matmul(out.reshape(b, t, n_heads * head_dim), wo)
 
 
@@ -204,18 +267,24 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
-def mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-        w_down: torch.Tensor, act: str) -> torch.Tensor:
-    """Gated MLP ``act(x W_gate) * (x W_up) W_down``; ``gelu`` is the tanh
-    approximation (``jax.nn.gelu``'s default)."""
+def _activation(act: str, x: torch.Tensor) -> torch.Tensor:
     if act == "gelu":
-        a = gelu_tanh(matmul(x, w_gate))
-    elif act == "silu":
-        a = silu(matmul(x, w_gate))
-    elif act == "relu":
-        a = F.relu(matmul(x, w_gate))
-    else:
-        raise ValueError(f"unknown activation {act!r}")
+        return gelu_tanh(x)
+    if act == "silu":
+        return silu(x)
+    if act == "relu":
+        return F.relu(x)
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
+        w_down: torch.Tensor, act: str) -> torch.Tensor:
+    """Gated MLP ``act(x W_gate) * (x W_up) W_down``, or the ungated
+    ``act(x W_up) W_down`` where ``w_gate`` is ``None``; ``gelu`` is the
+    tanh approximation (``jax.nn.gelu``'s default)."""
+    if w_gate is None:
+        return matmul(_activation(act, matmul(x, w_up)), w_down)
+    a = _activation(act, matmul(x, w_gate))
     return matmul(a * matmul(x, w_up), w_down)
 
 

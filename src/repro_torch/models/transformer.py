@@ -1,6 +1,7 @@
 """Decoder-only transformer (``repro.models.transformer``): config,
 parameter layout, init, forward and loss, and the decode side: the cache
-and one decode step against it.  Four families:
+and one decode step against it.  Four families here, and the config,
+layout and init of a fifth, the encoder-decoder (``models/encdec.py``):
 
   dense         pre/post-norm GQA attention + gated MLP  [gemma2, stablelm,
                                                           deepseek, internvl]
@@ -37,7 +38,7 @@ Params = Dict[str, torch.Tensor]
 # ``jnp.iinfo(jnp.int32).max // 2``): wider than any cache
 GLOBAL_WINDOW = (2 ** 31 - 1) // 2
 
-FAMILIES = ("dense", "moe", "rwkv", "mamba_hybrid")
+FAMILIES = ("dense", "moe", "rwkv", "mamba_hybrid", "encdec")
 # the reference's fixed widths: RWKV's decay LoRA, Mamba2's convolution
 DECAY_LORA = 64
 CONV_WIDTH = 4
@@ -52,7 +53,7 @@ class ModelConfig:
     workspace is f32); ``dtype`` is the compute dtype."""
 
     name: str = "model"
-    family: str = "dense"  # dense | moe | rwkv | mamba_hybrid
+    family: str = "dense"  # dense | moe | rwkv | mamba_hybrid | encdec
     n_layers: int = 2
     d_model: int = 256
     n_heads: int = 4
@@ -83,6 +84,9 @@ class ModelConfig:
     tie_embeddings: bool = True
     prefix_len: int = 0  # stub frontend: embeddings prepended to the text
     scale_embed: bool = False  # gemma multiplies embed by sqrt(d_model)
+    # encoder-decoder (family "encdec"): n_layers counts the decoder's
+    n_encoder_layers: int = 0
+    n_frames: int = 0  # encoder input length (stub frontend frames)
     dtype: torch.dtype = torch.bfloat16
     xent_chunk: int = 512
     scan_chunk: int = 64  # linear-attention chunk size
@@ -105,8 +109,9 @@ class ModelConfig:
 
     @property
     def n_attn(self) -> int:
-        """Attention applications per token: one per layer (dense, moe),
-        none (rwkv), one per group of ``shared_attn_every`` layers
+        """Attention applications per token through the K/V cache: one per
+        layer (dense, moe; the decoder's self-attention of encdec), none
+        (rwkv), one per group of ``shared_attn_every`` layers
         (mamba_hybrid)."""
         if self.family == "rwkv":
             return 0
@@ -201,7 +206,11 @@ def param_specs(cfg: ModelConfig) -> Spec:
     ``jax.tree.leaves`` order (dict keys sorted as Python strings at every
     level, so ``A_log`` and ``D`` come first): the ``blocks/*`` leaves,
     ``embed``, ``final_norm``, then ``lm_head``, ``prefix_proj`` and the
-    hybrid's ``shared_attn/*`` where the config has them."""
+    hybrid's ``shared_attn/*`` where the config has them.  The
+    encoder-decoder's are ``encdec.param_specs``'."""
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+        return encdec.param_specs(cfg)
     d = cfg.d_model
     shared = [] if cfg.family != "mamba_hybrid" else [
         *_attn_specs("shared_attn/", (), cfg, False),
@@ -232,7 +241,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random f32 parameters with the reference's init scales: matrices
     (experts, ``lm_head`` and ``prefix_proj`` included) ``N(0,
     1/in_dim)``, the embedding ``N(0, 0.02^2)``, norm scales ones, q/k/v
-    biases zeros; RWKV's mixes 0.5, ``w_base`` -1, ``u`` 0.5 and
+    and layernorm biases zeros; RWKV's mixes 0.5, ``w_base`` -1, ``u`` 0.5 and
     ``w_lora_b`` a tenth of its ``N(0, 1/in_dim)``; Mamba2's ``conv_w``
     ``N(0, 0.01)``, ``A_log``, ``dt_bias`` and ``conv_b`` zeros, ``D``
     ones; the shared experts' gate zeros.  ``generator`` must live on
@@ -245,7 +254,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             params[name] = torch.full(shape, _CONST_INIT.get(name, 1.0),
                                       dtype=torch.float32, device=dev)
             continue
-        if name.startswith("blocks/attn/b"):
+        if name.rsplit("/", 1)[-1] in ("bq", "bk", "bv", "bias"):
             params[name] = torch.zeros(shape, dtype=torch.float32,
                                        device=dev)
             continue

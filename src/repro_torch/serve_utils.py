@@ -114,9 +114,10 @@ def perplexity(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 # leaves the model reads in f32 (``.astype(f32)`` in the reference):
 # RWKV's decay base and bonus, Mamba2's decay, skip and (in decode)
-# convolution; with the norm scales they stay f32 for serving
-F32_LEAVES = ("/scale", "/w_base", "/u", "/A_log", "/D", "/dt_bias",
-              "/conv_w", "/conv_b")
+# convolution, the layernorm biases; with the norm scales they stay f32
+# for serving
+F32_LEAVES = ("/scale", "/bias", "/w_base", "/u", "/A_log", "/D",
+              "/dt_bias", "/conv_w", "/conv_b")
 
 
 def cast_for_serving_(params: Params, cfg: ModelConfig) -> None:
@@ -124,9 +125,10 @@ def cast_for_serving_(params: Params, cfg: ModelConfig) -> None:
     matrix and the embedding to the compute dtype once (the cast
     ``layers.matmul`` and the decode step make per product, so the results
     are the same bits), the leaves the model reads in f32
-    (``F32_LEAVES``: the norm scales, RWKV's ``w_base`` and ``u``,
-    Mamba2's ``A_log``, ``D``, ``dt_bias``, ``conv_w``, ``conv_b``) left
-    as they are.  Each leaf's cast replaces its f32 original in ``params``
+    (``F32_LEAVES``: the norm scales and the layernorm biases, RWKV's
+    ``w_base`` and ``u``, Mamba2's ``A_log``, ``D``, ``dt_bias``,
+    ``conv_w``, ``conv_b``) left as they are; the attention biases, added
+    in the compute dtype, are cast.  Each leaf's cast replaces its f32 original in ``params``
     before the next leaf is cast, so the f32 and the cast copies of the
     whole model never live at once (the originals are freed when the
     caller holds no other reference to them)."""

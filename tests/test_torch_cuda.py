@@ -978,11 +978,13 @@ def test_pipelined_rounds_on_the_card_match_the_cpu(dev):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-30b-a3b",
-                                  "rwkv6-7b", "zamba2-2.7b"])
+                                  "rwkv6-7b", "zamba2-2.7b",
+                                  "whisper-tiny"])
 def test_family_round_on_the_card_matches_the_cpu(dev, arch):
     """One TAMUNA round of each new family's reduced config (n=4, c=3,
-    s=2, two local steps of 32 tokens, the same state, batches and
-    schedule) on the card, on the CPU and on the CPU in float64 compute:
+    s=2, two local steps of 32 tokens, the same state, batches, frames for
+    the encoder-decoder, and schedule) on the card, on the CPU and on the
+    CPU in float64 compute:
     leaf by leaf in x and in h, the card no farther from the float64
     round than 4x the CPU's distance for that leaf, or 1e-5 where that is
     larger (these families' f32 rounds lie 2e-5 to 1e-4 from it, and the
@@ -998,6 +1000,9 @@ def test_family_round_on_the_card_matches_the_cpu(dev, arch):
     tcfg = tamuna_dp.DistTamunaConfig(gamma=0.05, c=3, s=2, p=0.34)
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 3, 2, 33)))
+    frames = (torch.from_numpy(rng.normal(size=(
+        2, 3, 2, cfg.n_frames, cfg.d_model)).astype(np.float32))
+        if cfg.family == "encdec" else None)
     out, noise = {}, None
     for tag, d, dt in (("cpu", "cpu", None), ("card", dev, None),
                        ("f64", "cpu", torch.float64)):
@@ -1013,7 +1018,8 @@ def test_family_round_on_the_card_matches_the_cpu(dev, arch):
         _build.reset_launch_counts()
         for t in range(2):
             tk = toks[t].to(d)
-            local(compact, tokens=tk[..., :-1], labels=tk[..., 1:])
+            kw = {} if frames is None else {"frames": frames[t].to(d)}
+            local(compact, tokens=tk[..., :-1], labels=tk[..., 1:], **kw)
         comm = tamuna_dp.make_comm_step(c, tcfg, 4, device=d)
         state = comm(tamuna_dp.scatter_cohort(state, compact), [0, 2, 3],
                      [2, 0, 1], torch.tensor([True, True, False, True]))
@@ -1077,3 +1083,34 @@ def test_family_decode_through_the_kernel_matches_plain(dev, arch):
             assert float((lk - lp).abs().max()) <= 1e-5 * float(
                 lp.abs().max()), i
     assert _build.launch_counts["decode_attention_f32"] == 40 * cfg.n_attn
+
+
+def test_whisper_serve_on_the_card_matches_the_cpu(dev):
+    """whisper-tiny-reduced served through ``launch.serve.run`` (the frames
+    encoded once into the cross K/V, 8 prompt tokens, 6 greedy ones) on
+    an f32 cache, on the card and on the CPU from the same weights and
+    frames: the greedy tokens equal, the last logits within 1e-4 of the
+    largest, finite at every step, and no decode-attention launch (the
+    encoder-decoder's decode takes no attend_fn)."""
+    from repro_torch.configs import registry
+    from repro_torch.dist import model_api
+    from repro_torch.launch import serve
+
+    cfg = registry.get_reduced_config("whisper-tiny")
+    params = model_api.init(cfg, seed=0, device="cpu")
+    prompts = serve.make_prompts(2, 8, cfg.vocab, 0, "cpu")
+    frames = serve.make_frames(2, cfg, "cpu")
+    out = {}
+    for d in ("cpu", dev):
+        _build.reset_launch_counts()
+        with torch.no_grad():
+            out[str(d)] = serve.run(
+                {k: v.to(d) for k, v in params.items()}, cfg, prompts.to(d),
+                6, kv_dtype=torch.float32, frames=frames.to(d))
+        launches = {k: v for k, v in _build.launch_counts.items() if v}
+    cpu, card = out["cpu"], out[str(dev)]
+    assert card["finite"] and cpu["finite"]
+    assert torch.equal(card["tokens"].cpu(), cpu["tokens"])
+    err = (card["logits"].cpu() - cpu["logits"]).abs().max()
+    assert float(err) <= 1e-4 * float(cpu["logits"].abs().max())
+    assert launches == {}

@@ -203,14 +203,14 @@ def test_bf16_elementwise_ops_are_xlas_bitwise(op):
 
 def test_registry_and_families():
     """The registry lists the four new architectures beside the dense
-    ones; ``ModelConfig`` takes the four ported families and still refuses
-    ``encdec``."""
+    ones and whisper-tiny's encoder-decoder; ``ModelConfig`` takes the five
+    ported families and refuses any other."""
     archs = registry.list_archs()
-    assert set(NEW) <= set(archs) and len(archs) == 9
+    assert set(NEW) <= set(archs) and len(archs) == 10
     assert {registry.get_config(a).family for a in archs} == {
-        "dense", "moe", "rwkv", "mamba_hybrid"}
+        "dense", "moe", "rwkv", "mamba_hybrid", "encdec"}
     with pytest.raises(ValueError, match="not ported"):
-        ModelConfig(family="encdec")
+        ModelConfig(family="diffusion")
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b",

@@ -56,9 +56,15 @@ assert {"repro_torch.dist.wire", "repro_torch.kernels.wire_pack",
         "repro_torch.configs.qwen2_moe_a2p7b",
         "repro_torch.configs.qwen3_moe_30b_a3b",
         "repro_torch.configs.rwkv6_7b",
-        "repro_torch.configs.zamba2_2p7b"} <= set(names)
+        "repro_torch.configs.zamba2_2p7b", "repro_torch.models.encdec",
+        "repro_torch.configs.whisper_tiny", "repro_torch.examples",
+        "repro_torch.examples.quickstart",
+        "repro_torch.examples.federated_sim",
+        "repro_torch.examples.availability_sim",
+        "repro_torch.examples.train_lm",
+        "repro_torch.examples.serve_decode"} <= set(names)
 from repro_torch.configs import registry
-assert len(registry.list_archs()) == 9
+assert len(registry.list_archs()) == 10
 for arch in registry.list_archs():
     registry.get_config(arch), registry.get_reduced_config(arch)
 print(len(names), bad)
