@@ -42,6 +42,11 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    in f32 on the ``(4, d)`` workspace (slot ``[1, -1, 0, 2]``, c=3, s=2,
    an idle row of NaN), and in its 1-D form at ``(20958,)`` f64 and
    ``(d,)`` f32, each bitwise;
+   and the kernels' whole domain (``check_domain_kernels``):
+   ``robust_sum`` at s = 17 and s = 32 (trimmed k=2 and median; the
+   masked-min passes, ``robust_sum_large_s``) and ``h_update`` in both
+   forms at n = 4097 rows (slot and down from global memory), bitwise,
+   each with its time and byte bound;
 4. runs one round of the reduced gemma2-2b config on the card and on the
    CPU (one intra-op thread) with the same injected schedule and batches,
    and compares them:
@@ -60,7 +65,10 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    over the columns before them with the workspace's row pitch); and the
    fault-free round of each new family's reduced config (qwen2-moe-a2.7b,
    qwen3-moe-30b-a3b, rwkv6-7b, zamba2-2.7b at 32 tokens, whisper-tiny
-   with its frames);
+   with its frames); and reduced gemma2-2b's round at 2304 tokens (1
+   sequence per client: the blockwise attention with its recomputing
+   backward under ``remat``, a ragged last block), card against CPU
+   against float64, leaf by leaf as the families';
 5. drives six paths of ``repro_torch.dist.rounds.run_rounds``, each for
    3 rounds (4 on ``[reputation]``) of 2-layer full-width gemma2-2b (seq
    128, 2 sequences per client, max_L 4) with the launch counts set to 0
@@ -87,7 +95,32 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    each must have finite losses and launch every kernel of its path; the
    fault-free and survivor paths on the f32 wire must keep sum_i h_i = 0
    (printed, not checked, on the others: a robust combine breaks it by
-   design, a quantized numerator by its rounding); then ``[train]``'s
+   design, a quantized numerator by its rounding); every path runs with
+   ``remat`` (the model's default) and drains its metrics every round,
+   and prints each round's device time (CUDA events between commits)
+   beside its wall time; after ``[train]``:
+   ``[sync]``   ``[train]``'s rounds with ``flush_every`` 3 under
+                ``torch.cuda.set_sync_debug_mode("warn")``: the
+                synchronising calls inside the one drain and between
+                drains (0, or it fails), with their call sites;
+   ``[train_long]`` ``[train]``'s round at 8192 tokens, 1 sequence per
+                client, ``flush_every`` 10: layer 0's 4096-token window
+                cuts keys, the blockwise attention runs 8 blocks each way;
+                peak memory, each round's device seconds; gated as
+                ``[train]`` but for sum_i h_i = 0, gated per leaf on its
+                f32 rounding bound as ``[train_whisper]``, a lost owner
+                planted in a fourth round over 1000 times it;
+   ``[memory]`` the model alone at those widths, 2 layers, 8192 tokens, 1
+                sequence: peak memory and seconds of one loss and gradient
+                with ``remat`` on and off against the recomputing
+                Function, autograd through the plain chunk loop and the
+                dense path (a fresh process under
+                ``REPRO_DISABLE_FLASH=1``, ``smoke_phases.py``); one at
+                full depth (26 layers, ``remat``, the Function); the
+                Function's f32 gradients against the chunk loop's
+                (within 1e-4 of each leaf's largest) and ``remat`` on
+                against off in bf16 (bitwise, or the difference printed);
+   then ``[train]``'s
    round on the rest of the dense family, gated as ``[train]``:
    ``[train_stablelm]`` stablelm-3b at published widths (q/k/v biases,
                 untied head) cut to 6 layers, d_total = 733,427,200, n=4,
@@ -386,6 +419,19 @@ SERVE_WHISPER = dict(batch=8, prompt_len=64, gen_len=64)
 # [train_whisper]'s gate on sum_i h_i = 0, as a share of the f32 rounding
 # bound (run_whisper_path)
 H_SUM_HEADROOM = 1.25
+# [train_long] and the memory table: tokens per sequence past the flash
+# threshold (8 blocks of 1024 keys), and the tolerance of the Function's
+# f32 gradients against autograd through the chunk loop, of each leaf's
+# largest gradient
+LONG_SEQ = 8192
+LONG_GRAD_TOL = 1e-4
+# the reduced round held card vs CPU vs float64 past the threshold (a
+# ragged last block of 256 keys)
+REDUCED_LONG_SEQ = 2304
+# the domain checks' widths: the robust UpCom past s = 16 and h_update past
+# 4096 rows (ragged, small enough to keep the phase to seconds)
+D_DOMAIN = (1 << 22) + 77
+D_DOMAIN_ROWS = (1 << 16) + 3
 # the port's examples (repro_torch.examples), each main at small arguments
 EXAMPLES = (
     ("quickstart", ["--rounds", "300"]),
@@ -743,6 +789,126 @@ def check_fault_kernels(spec, dev):
     return recs
 
 
+def check_domain_kernels(dev):
+    """The kernels past the sizes their first instantiations stage:
+    ``robust_sum`` at s = 17 and s = 32, trimmed (k = 2) and median, on
+    ``(s + 4, D_DOMAIN)`` with a dropped and an idle row of NaN, ties, +-inf
+    and +-0.0 (the s masked-min passes, ``robust_sum_large_s``), and
+    ``h_update`` in both forms at n = 4097 (64 in the cohort, a quarter of
+    the rows downloading; slot and down read from global memory,
+    ``h_update_large_n``, ``h_update_covered_large_n``), each bitwise
+    against its plain version, timed beside its byte bound (at s = 32 the
+    passes re-read each owned entry up to s times: the bound counts one
+    read).  Returns their records."""
+    from repro_torch.dist import comm_ws
+    from repro_torch.kernels import _build, ref, uplink
+
+    d = D_DOMAIN
+    g = torch.Generator(device=dev).manual_seed(11)
+    recs = []
+    rb = {}
+    for s in (17, 32):
+        m = s + 2
+        n = s + 4
+        # s members on columns 0..s-1 in a shuffled order, then a dropped
+        # row (NaN), an idle row (NaN) and two rows on the last columns
+        slot = torch.tensor(
+            np.random.default_rng(s).permutation(m)[:s].tolist()
+            + [-1, -1, s, s + 1], dtype=torch.int32, device=dev)
+        band = comm_ws.cyclic_band([d], m, s, dev)
+        x = torch.randn(n, d, generator=g, device=dev)
+        x[s:s + 2] = float("nan")
+        x[0, ::1000] = float("inf")
+        x[2, 500::1000] = float("-inf")
+        x[3, ::7] = x[0, ::7]
+        x[4, 3::29], x[5, 3::29] = 0.0, -0.0
+        owned = owned_entries(slot, band, m, s)
+        for kind, k in (("trimmed", 2), ("median", 0)):
+            before = _build.launch_counts["robust_sum_large_s"]
+            bar, cnt = uplink.robust_sum(x, slot, band, m, s, kind=kind, k=k)
+            if _build.launch_counts["robust_sum_large_s"] != before + 1:
+                raise AssertionError("robust_sum past s = 16 did not take "
+                                     "robust_sum_large_s")
+            bar_p, cnt_p = ref.robust_sum(x, slot, band, m, s, kind, k)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(bar, bar_p), max_abs_err(cnt, cnt_p))
+            same = bool(torch.equal(bar.view(torch.int32),
+                                    bar_p.view(torch.int32)))
+            print(f"[check] robust_sum s={s} {kind} k={k} on ({n}, {d}): "
+                  f"max abs err {e}, bitwise {same}, "
+                  f"{int(bar.isinf().sum())} inf outputs")
+            if e != 0.0:
+                raise AssertionError(f"robust_sum s={s} {kind}: max abs err "
+                                     f"{e}, want 0")
+            rb[s, kind] = (cuda_ms(lambda: uplink.robust_sum(
+                x, slot, band, m, s, kind=kind, k=k), 5),
+                cuda_ms(lambda: ref.robust_sum(x, slot, band, m, s, kind, k),
+                        1), bound_ms(4 * (owned + 3 * d + n)))
+            del bar, cnt, bar_p, cnt_p
+        del x
+    recs.append({
+        "name": "robust_sum_large_s", "shape": [36, d], "s": 32,
+        "max_abs_err": 0.0, "tolerance": 0.0,
+        "ms": rb[32, "trimmed"][0], "plain_ms": rb[32, "trimmed"][1],
+        "bound_ms": rb[32, "trimmed"][2],
+        **{f"s{s}_{kind}_ms": v[0] for (s, kind), v in rb.items()},
+        **{f"s{s}_{kind}_plain_ms": v[1] for (s, kind), v in rb.items()},
+        "s17_bound_ms": rb[17, "trimmed"][2],
+    })
+
+    n, m, s = 4097, 64, 2
+    rng = np.random.default_rng(n)
+    slot_np = np.full(n, -1, np.int32)
+    slot_np[rng.choice(n, m, replace=False)] = rng.permutation(m)
+    slot = torch.from_numpy(slot_np).to(dev)
+    down = torch.from_numpy((rng.random(n) < 0.25).astype(np.int32)).to(dev)
+    band = comm_ws.cyclic_band([D_DOMAIN_ROWS], m, s, dev)
+    dn = D_DOMAIN_ROWS
+    x = torch.randn(n, dn, generator=g, device=dev)
+    x[torch.from_numpy(slot_np < 0).to(dev)] = float("nan")
+    h = torch.randn(n, dn, generator=g, device=dev).mul_(0.01)
+    x_bar = torch.randn(dn, generator=g, device=dev)
+    covered = torch.rand(dn, generator=g, device=dev) < 0.75
+    owned = owned_entries(slot, band, m, s)
+    n_down = int(down.sum())
+    for cov in (None, covered):
+        name = ("h_update" if cov is None else "h_update_covered") + \
+            "_large_n"
+        xk, hk = x.clone(), h.clone()
+        xp, hp = x.clone(), h.clone()
+        before = _build.launch_counts[name]
+        uplink.h_update(xk, hk, x_bar, slot, band, m, s, 0.37, down=down,
+                        covered=cov)
+        if _build.launch_counts[name] != before + 1:
+            raise AssertionError(f"h_update at n={n} did not take {name}")
+        ref.h_update(xp, hp, x_bar, slot, band, m, s, 0.37, down=down,
+                     covered=cov)
+        torch.cuda.synchronize()
+        err = max(max_abs_err(xk, xp), max_abs_err(hk, hp))
+        print(f"[check] {name} at n={n} ({m} owners' slots, {n_down} down "
+              f"rows) on ({n}, {dn}): max abs err {err}")
+        if err != 0.0:
+            raise AssertionError(f"{name}: max abs err {err}, want 0")
+        nc = dn if cov is None else int(cov.sum())
+        recs.append({
+            "name": name, "shape": [n, dn], "max_abs_err": err,
+            "tolerance": 0.0,
+            "ms": cuda_ms(lambda: uplink.h_update(
+                xk, hk, x_bar, slot, band, m, s, 0.37, down=down,
+                covered=cov), 5),
+            "plain_ms": cuda_ms(lambda: ref.h_update(
+                xp, hp, x_bar, slot, band, m, s, 0.37, down=down,
+                covered=cov), 1),
+            # (the gate read,) x_bar and band read and the down rows of x
+            # written on the (covered) coordinates, owned x read and owned
+            # h read and written, slot and down read
+            "bound_ms": bound_ms((0 if cov is None else dn) + 4 * (
+                2 * nc + n_down * nc + 3 * owned + 2 * n)),
+        })
+        del xk, hk, xp, hp
+    return recs
+
+
 def check_wire_kernels(spec, dev):
     """The wire's kernels against their plain versions on full-width
     workspaces: ``masked_sum_dequant`` (both forms), ``masked_sum`` over
@@ -1023,18 +1189,20 @@ def check_reduced_wire_round(dev, uplink="masked_psum"):
                              f"{err_comm}")
 
 
-def reduced_round_inputs(n: int, c: int, arch: str = "gemma2-2b"):
-    """The reduced config of ``arch``, the round's batches ``(2 steps, c, 2,
-    seq + 1)`` (``seq`` 96, or REDUCED_SEQ's) and the noise that makes the
-    ``n - 1`` other client rows distinct, the same on every side."""
+def reduced_round_inputs(n: int, c: int, arch: str = "gemma2-2b",
+                         seq: int = None, batch: int = 2, steps: int = 2):
+    """The reduced config of ``arch``, the round's batches ``(steps, c,
+    batch, seq + 1)`` (``seq`` 96, or REDUCED_SEQ's) and the noise that
+    makes the ``n - 1`` other client rows distinct, the same on every
+    side."""
     from repro_torch.configs import registry
     from repro_torch.dist import comm_ws, model_api
 
     cfg = registry.get_reduced_config(arch)
-    seq = REDUCED_SEQ.get(arch, 96)
+    seq = seq or REDUCED_SEQ.get(arch, 96)
     rng = np.random.default_rng(5)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab,
-                                         size=(2, c, 2, seq + 1)))
+                                         size=(steps, c, batch, seq + 1)))
     d_total = comm_ws.workspace_spec(model_api.param_specs(cfg)).d_total
     noise = torch.from_numpy(
         0.01 * rng.normal(size=(n - 1, d_total)).astype(np.float32))
@@ -1140,8 +1308,14 @@ def check_reduced_round(dev, n, c, s, cohort, perm, down, arrived=None,
                              + where)
 
 
-def check_reduced_family_round(dev, arch: str) -> None:
-    """One fault-free round of ``arch``'s reduced config (n=4, c=3, s=2)
+def check_reduced_family_round(dev, arch: str, seq: int = None,
+                               batch: int = 2, steps: int = 2,
+                               f64_threads=None) -> None:
+    """One fault-free round of ``arch``'s reduced config (n=4, c=3, s=2;
+    ``seq`` tokens, ``batch`` sequences per client, ``steps`` local steps:
+    at REDUCED_LONG_SEQ gemma2-2b's round runs the blockwise attention
+    under ``remat``; the float64 round on ``f64_threads`` intra-op
+    threads, the caller's when ``None``)
     on the card, on the CPU and on the CPU in float64 compute (each
     gradient rounded to the f32 leaf; the same schedule, batches, frames
     for the encoder-decoder, and noise), gated leaf by leaf in x and in h: the card within
@@ -1162,7 +1336,7 @@ def check_reduced_family_round(dev, arch: str) -> None:
     from repro_torch.models import moe
 
     tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
-    cfg, toks, noise = reduced_round_inputs(N, C, arch)
+    cfg, toks, noise = reduced_round_inputs(N, C, arch, seq, batch, steps)
     frames = reduced_frames(cfg, C)
     spec = tamuna_dp.state_spec(cfg, tcfg)
     down = torch.tensor([True, True, False, True])
@@ -1182,8 +1356,9 @@ def check_reduced_family_round(dev, arch: str) -> None:
         _build.reset_launch_counts()
         moe.top_k = recorded
         try:
-            state, compact = reduced_local(device, c, tcfg, N, [0, 2, 3],
-                                           toks, noise, frames)
+            with intra_op_threads(f64_threads if tag == "f64" else None):
+                state, compact = reduced_local(device, c, tcfg, N,
+                                               [0, 2, 3], toks, noise, frames)
         finally:
             moe.top_k = top_k
         comm = tamuna_dp.make_comm_step(c, tcfg, N, device=device)
@@ -1215,7 +1390,8 @@ def check_reduced_family_round(dev, arch: str) -> None:
             if not card_l <= limit:
                 bad.append(row)
     print(f"[reduced] one round of {cfg.name} (n={N} c={C} s={S}, "
-          f"{toks.shape[-1] - 1} tokens): card vs CPU {card_cpu:.3e}; "
+          f"{toks.shape[-1] - 1} tokens, {toks.shape[2]} sequences per "
+          f"client, remat {cfg.remat}): card vs CPU {card_cpu:.3e}; "
           f"against the float64 round: CPU {cpu_f64:.3e}, card "
           f"{card_f64:.3e}; leaf by leaf ({2 * len(spec.names)} leaves of x "
           f"and h, {floored} at the 1e-5 floor) the closest to its limit "
@@ -2410,6 +2586,34 @@ def profile_member_step(tag, cfg, dev, reps: int = 3) -> None:
     torch.cuda.empty_cache()
 
 
+def planted_lost_owner(tag, state, cfg, tcfg, n, done, dev, *, seq_len,
+                       batch) -> None:
+    """The control of the sum_i h_i = 0 gate on the f32 rounding bound: a
+    further round of ``state`` (after ``done`` rounds, one local step of
+    ``seq_len`` tokens, ``batch`` sequences per client) with a lost owner
+    planted (``lost_owner``) must read over 1000 times the bound
+    ``tamuna_dp.h_sum_rounding`` derives."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import rounds, tamuna_dp
+
+    pipe = SyntheticTokenPipeline(
+        DataConfig(seq_len=seq_len, per_client_batch=batch, vocab=512,
+                   seed=1, n_clients=n), cfg, dev)
+    with lost_owner():
+        state, _ = rounds.run_rounds(
+            state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=1,
+            rng=np.random.default_rng(1),
+            generator=torch.Generator().manual_seed(2), max_L=1)
+    share, ulps, leaf = tamuna_dp.h_sum_rounding(state, tcfg, n, done + 1)
+    d = state.spec.d_total
+    print(f"[{tag}] a lost owner planted in round {done + 1}: "
+          f"{share:.4g} of the bound, {ulps:.4g} ulps of max|x| ({leaf}), "
+          f"|sum_i h_i| / max|h| = {h_sum_ratio(state.h, d):.3e}")
+    if not share > 1000:
+        raise AssertionError(f"[{tag}] the gate missed a lost owner: "
+                             f"{share} of the bound")
+
+
 def run_whisper_path(dev) -> dict:
     """``[train_whisper]``: ``[train]``'s fault-free round (3 rounds, seq
     128, 2 sequences per client, max_L 4) on whisper-tiny at published
@@ -2428,8 +2632,7 @@ def run_whisper_path(dev) -> dict:
     max|h| is ~1e-2 against its layernorm scales' max|x| = 1, and the
     rounding bound alone is ~1.6e-4 of it there (PERF.md, ROADMAP C)."""
     from repro_torch.configs import whisper_tiny
-    from repro_torch.data import DataConfig, SyntheticTokenPipeline
-    from repro_torch.dist import comm_ws, model_api, rounds, tamuna_dp
+    from repro_torch.dist import comm_ws, model_api, tamuna_dp
 
     t0 = time.perf_counter()
     cfg, tw = whisper_tiny.CONFIG, TRAIN_WHISPER
@@ -2456,24 +2659,10 @@ def run_whisper_path(dev) -> dict:
     if not share <= H_SUM_HEADROOM:
         raise AssertionError(f"[train_whisper] sum_i h_i = 0 beyond f32 "
                              f"rounding: {share} of the bound on {leaf}")
-    pipe = SyntheticTokenPipeline(
-        DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=1,
-                   n_clients=tw["n"]), cfg, dev)
-    with lost_owner():
-        state, _ = rounds.run_rounds(
-            state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=1,
-            rng=np.random.default_rng(1),
-            generator=torch.Generator().manual_seed(2), max_L=1)
-    share, ulps, leaf = tamuna_dp.h_sum_rounding(state, tcfg, tw["n"],
-                                                 len(rows) + 1)
-    print(f"[train_whisper] a lost owner planted in a fourth round: "
-          f"{share:.4g} of the bound, {ulps:.4g} ulps of max|x| ({leaf}), "
-          f"|sum_i h_i| / max|h| = {h_sum_ratio(state.h, d):.3e}")
-    del state, rows, pipe
+    planted_lost_owner("train_whisper", state, cfg, tcfg, tw["n"],
+                       len(rows), dev, seq_len=128, batch=2)
+    del state, rows
     torch.cuda.empty_cache()
-    if not share > 1000:
-        raise AssertionError(f"[train_whisper] the gate missed a lost "
-                             f"owner: {share} of the bound")
     profile_member_step("train_whisper", cfg, dev)
     print(f"[train_whisper] phase {time.perf_counter() - t0:.1f} s")
     return out
@@ -3012,14 +3201,62 @@ def run_pipeline_bench(dev, here: str) -> dict:
     return launches
 
 
+class round_events:
+    """Inside the block, every round engine that ``rounds`` builds records
+    a CUDA event after each commit (and ``start()`` one before the
+    rounds), so the device time of each round reads as the time between
+    two events whatever ``flush_every`` lets the host run ahead; no event
+    is waited for before the drain."""
+
+    def __enter__(self):
+        from repro_torch.dist import rounds
+
+        self.mod, self.real = rounds, rounds.make_pipelined_round_fn
+        self.events = []
+
+        def make(*a, **k):
+            engine = self.real(*a, **k)
+            commit = engine.commit
+
+            def timed(*ca, **ck):
+                out = commit(*ca, **ck)
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                self.events.append(ev)
+                return out
+
+            engine.commit = timed
+            return engine
+
+        rounds.make_pipelined_round_fn = make
+        return self
+
+    def start(self):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+    def seconds(self):
+        """Device seconds of each round (after the rounds' drain)."""
+        self.events[-1].synchronize()
+        return [a.elapsed_time(b) / 1e3
+                for a, b in zip(self.events, self.events[1:])]
+
+    def __exit__(self, *exc):
+        self.mod.make_pipelined_round_fn = self.real
+
+
 def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3,
-             forbid=(), keep=False, seq_len=128, **kw):
+             forbid=(), keep=False, seq_len=128, batch=2, **kw):
     """Drive ``run_rounds`` for ``rounds_`` rounds of ``cfg`` at ``n``
-    clients (``seq_len`` tokens, 2 sequences per client) with the launch
-    counts set to 0 just before and read just after; check finite losses,
-    a launch of every kernel in ``need`` and none of ``forbid`` and, if
-    asked, sum_i h_i = 0 (printed in any case).  Returns the launch counts,
-    and with ``keep`` also the state and the rows."""
+    clients (``seq_len`` tokens, ``batch`` sequences per client) with the
+    launch counts set to 0 just before and read just after; check finite
+    losses, a launch of every kernel in ``need`` and none of ``forbid``
+    and, if asked, sum_i h_i = 0 (printed in any case).  The metrics drain
+    every round unless ``flush_every`` is given, so each row's ``seconds``
+    holds its own wait for the card, as before the drain was batched; each
+    round's device time (``round_events``) is printed beside it.  Returns
+    the launch counts, and with ``keep`` also the state and the rows."""
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import comm_ws, model_api, rounds, tamuna_dp
     from repro_torch.kernels import _build
@@ -3045,23 +3282,29 @@ def run_path(tag, cfg, tcfg, n, dev, need, check_h_sum, rounds_=3,
     print(f"[{tag}] " + ", ".join(desc))
     state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device=dev)
     pipe = SyntheticTokenPipeline(
-        DataConfig(seq_len=seq_len, per_client_batch=2, vocab=512, seed=0,
-                   n_clients=n), cfg, dev)
+        DataConfig(seq_len=seq_len, per_client_batch=batch, vocab=512,
+                   seed=0, n_clients=n), cfg, dev)
+    kw.setdefault("flush_every", 1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
-    state, rows = rounds.run_rounds(
-        state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=rounds_,
-        rng=np.random.default_rng(0),
-        generator=torch.Generator().manual_seed(1), max_L=4, **kw)
+    with round_events() as evs:
+        evs.start()
+        state, rows = rounds.run_rounds(
+            state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=rounds_,
+            rng=np.random.default_rng(0),
+            generator=torch.Generator().manual_seed(1), max_L=4, **kw)
     launches = dict(_build.launch_counts)
     peak = torch.cuda.max_memory_allocated()
+    for row, sec in zip(rows, evs.seconds()):
+        row["device_s"] = sec
     fault_keys = ("arrivals", "corrupted", "retries", "backoff_s",
                   "quorum_miss", "round_latency_s", "anomaly_max")
     for row in rows:
         extra = " ".join(f"{k} {row[k]:.6g}" for k in fault_keys if k in row)
         print(f"[{tag}] round {row['round']}: L={row['L']} loss "
-              f"{row['loss']:.6f} wall {row['seconds']:.3f} s up_floats "
+              f"{row['loss']:.6f} wall {row['seconds']:.3f} s device "
+              f"{row['device_s']:.3f} s up_floats "
               f"{row['up_floats']:.0f} down_floats {row['down_floats']:.0f} "
               f"up_bytes {row['up_bytes']:.0f} down_bytes "
               f"{row['down_bytes']:.0f}" + (f" {extra}" if extra else ""))
@@ -3515,6 +3758,319 @@ def run_serve_paths(dev) -> dict:
                                        SERVE_WHISPER)}
 
 
+def long_config():
+    """gemma2-2b at published widths cut to 2 layers, ``remat`` on (the
+    default): the config of ``[train_long]`` and the memory table."""
+    from repro_torch.configs import gemma2_2b
+
+    return dataclasses.replace(gemma2_2b.CONFIG, n_layers=2)
+
+
+def run_train_long(dev) -> dict:
+    """``[train_long]``: ``[train]``'s round (n=4, c=3, s=2, gamma 0.05,
+    p 0.34, 3 rounds, max_L 4) at LONG_SEQ tokens, 1 sequence per client,
+    ``flush_every`` 10 (one drain at the last round), on ``long_config``:
+    layer 0's 4096-token window cuts keys and the blockwise attention runs
+    8 blocks of 1024 keys each way.  Each round's device time comes from
+    ``round_events``.  Gated as ``[train]``, but for sum_i h_i = 0, gated
+    as ``[train_whisper]``'s on each leaf's f32 rounding bound
+    (``tamuna_dp.h_sum_rounding``), with its control, a lost owner planted
+    in a fourth round (``planted_lost_owner``): ``|sum_i h_i| / max|h|``
+    reads about 1.07e-4 here (printed), at the LM paths' 1e-4."""
+    from repro_torch.dist import tamuna_dp
+    from repro_torch.models import layers
+
+    cfg = long_config()
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
+    print(f"[train_long] {cfg.name} 2 layers at published widths, "
+          f"{LONG_SEQ} tokens, 1 sequence per client, remat {cfg.remat}, "
+          f"windows {cfg.layer_windows()}, blockwise attention from "
+          f"{layers.FLASH_THRESHOLD} tokens")
+    t0 = time.perf_counter()
+    out, state, rows = run_path(
+        "train_long", cfg, tcfg, N, dev,
+        need=("masked_sum", "h_update", "fused_local_step"),
+        check_h_sum=False, keep=True, seq_len=LONG_SEQ, batch=1,
+        flush_every=10)
+    share, ulps, leaf = tamuna_dp.h_sum_rounding(state, tcfg, N, len(rows))
+    print(f"[train_long] worst leaf's |sum_i h_i| against its f32 rounding "
+          f"bound after {len(rows)} rounds: {share:.4f} of it, {ulps:.4f} "
+          f"ulps of its max|x| ({leaf}); gate {H_SUM_HEADROOM} of it")
+    if not share <= H_SUM_HEADROOM:
+        raise AssertionError(f"[train_long] sum_i h_i = 0 beyond f32 "
+                             f"rounding: {share} of the bound on {leaf}")
+    planted_lost_owner("train_long", state, cfg, tcfg, N, len(rows), dev,
+                       seq_len=LONG_SEQ, batch=1)
+    del state
+    torch.cuda.empty_cache()
+    print(f"[train_long] phase {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def loss_and_grads_timed(cfg, params, tokens, labels, reps: int = 2):
+    """One loss and gradient of ``cfg`` (``reps`` times, the last timed and
+    its peak taken): ``(loss, grads, seconds, peak bytes)``.  The peak
+    counts the parameters, their gradients and whatever autograd keeps."""
+    from repro_torch.dist import model_api
+
+    for i in range(reps):
+        ps = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = model_api.loss(ps, cfg, tokens=tokens, labels=labels)
+        grads = torch.autograd.grad(loss, list(ps.values()))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        del ps
+        if i + 1 < reps:
+            del loss, grads
+    return loss.detach(), grads, sec, peak
+
+
+class chunk_loop_attention:
+    """Inside the block ``layers.attention`` takes the blockwise
+    attention's plain chunk loop, differentiated by autograd through the
+    chunks, in place of the recomputing Function."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self.real = layers.flash_attention
+        layers.flash_attention = layers.flash_attention_plain
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+
+        layers.flash_attention = self.real
+
+
+def long_inputs(cfg, dev, seq: int = None):
+    seq = seq or LONG_SEQ
+    g = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, 512, (1, seq + 1), generator=g, device=dev)
+    return toks[:, :-1], toks[:, 1:]
+
+
+def memory_rows(dev, variants=("function", "chunk_loop")) -> list:
+    """The memory table's rows for ``variants`` of the attention past 2048
+    tokens (the recomputing Function, autograd through the chunk loop, or
+    ``dense``: what this process's ``FLASH_THRESHOLD`` gives, the dense
+    path under ``REPRO_DISABLE_FLASH=1``), each with ``remat`` on and off:
+    one loss and gradient of ``long_config`` at LONG_SEQ tokens, 1
+    sequence, its peak memory and seconds.  Prints each row as ``[memory]
+    row {json}``."""
+    from repro_torch.dist import model_api
+    from repro_torch.models import layers
+
+    base = long_config()
+    params = model_api.init(base, seed=0, device=dev)
+    tokens, labels = long_inputs(base, dev)
+    rows = []
+    for variant in variants:
+        if variant == "dense" and layers.FLASH_THRESHOLD <= LONG_SEQ:
+            raise AssertionError("the dense variant needs "
+                                 "REPRO_DISABLE_FLASH=1")
+        for remat in (True, False):
+            cfg = dataclasses.replace(base, remat=remat)
+            if variant == "chunk_loop":
+                with chunk_loop_attention():
+                    loss, grads, sec, peak = loss_and_grads_timed(
+                        cfg, params, tokens, labels)
+            else:
+                loss, grads, sec, peak = loss_and_grads_timed(
+                    cfg, params, tokens, labels)
+            if not bool(torch.isfinite(loss)):
+                raise AssertionError(f"[memory] {variant} remat {remat}: "
+                                     f"loss {loss}")
+            row = {"attention": variant, "remat": remat, "layers": 2,
+                   "seq": LONG_SEQ, "peak_bytes": peak,
+                   "peak_gib": peak / 2 ** 30, "seconds": sec,
+                   "loss": float(loss)}
+            rows.append(row)
+            print(f"[memory] row {json.dumps(row)}")
+            del loss, grads
+            torch.cuda.empty_cache()
+    return rows
+
+
+def run_memory_table(dev, here: str) -> dict:
+    """The model-only memory table at ``long_config``'s widths, 2 layers,
+    LONG_SEQ tokens, 1 sequence: peak memory and seconds of one loss and
+    gradient for ``remat`` on and off against the recomputing Function,
+    autograd through the plain chunk loop, and the dense path (in a fresh
+    process with ``REPRO_DISABLE_FLASH=1``, through ``smoke_phases.py``);
+    one loss and gradient at full depth (26 layers) with ``remat`` and
+    the Function; and on the card, at 2 layers and LONG_SEQ tokens, the
+    Function's gradients against autograd through the chunk loop in f32
+    compute (within LONG_GRAD_TOL of each leaf's largest gradient) and
+    ``remat`` on against off in the main path's bf16 compute (bitwise, or
+    the difference printed)."""
+    from repro_torch.configs import gemma2_2b
+    from repro_torch.dist import model_api
+
+    t0 = time.perf_counter()
+    rows = memory_rows(dev)
+    torch.cuda.empty_cache()
+    env = dict(os.environ, REPRO_DISABLE_FLASH="1")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "smoke_phases.py"), "--tree",
+         here, "--phase", "memory_dense"], env=env, capture_output=True,
+        text=True)
+    dense = [json.loads(line.split("[memory] row ", 1)[1])
+             for line in proc.stdout.splitlines()
+             if line.startswith("[memory] row ")]
+    if proc.returncode != 0 or len(dense) != 2:
+        raise AssertionError(f"[memory] the dense process failed "
+                             f"({proc.returncode}):\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    rows += dense
+    for r in rows:
+        print(f"[memory] {r['attention']:>10} remat {str(r['remat']):>5}: "
+              f"peak {r['peak_gib']:.2f} GiB, {r['seconds']:.3f} s per "
+              f"loss and gradient, loss {r['loss']:.6f}")
+
+    full = gemma2_2b.CONFIG
+    params = model_api.init(full, seed=0, device=dev)
+    tokens, labels = long_inputs(full, dev)
+    loss, grads, sec, peak = loss_and_grads_timed(full, params, tokens,
+                                                  labels, 1)
+    if not bool(torch.isfinite(loss)):
+        raise AssertionError(f"[memory] full depth: loss {loss}")
+    print(f"[memory] full depth ({full.n_layers} layers), remat "
+          f"{full.remat}, the Function, {LONG_SEQ} tokens: peak "
+          f"{peak / 2 ** 30:.2f} GiB ({peak} B), {sec:.3f} s per loss and "
+          f"gradient, loss {float(loss):.6f}")
+    rows.append({"attention": "function", "remat": True,
+                 "layers": full.n_layers, "seq": LONG_SEQ,
+                 "peak_bytes": peak, "peak_gib": peak / 2 ** 30,
+                 "seconds": sec, "loss": float(loss)})
+    del params, grads, loss
+    torch.cuda.empty_cache()
+
+    # the gradients on the card: the Function against the chunk loop (f32
+    # compute), remat on against off (bf16 compute)
+    base = long_config()
+    params = model_api.init(base, seed=0, device=dev)
+    tokens, labels = long_inputs(base, dev)
+    f32 = dataclasses.replace(base, dtype=torch.float32)
+    _, g_fn, _, _ = loss_and_grads_timed(f32, params, tokens, labels, 1)
+    with chunk_loop_attention():
+        _, g_loop, _, _ = loss_and_grads_timed(f32, params, tokens, labels,
+                                               1)
+    worst = (0.0, "")
+    for name, a, b in zip(params, g_fn, g_loop):
+        r = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, (r, name))
+    del g_fn, g_loop
+    print(f"[memory] f32 gradients, the Function against autograd through "
+          f"the chunk loop: worst leaf {worst[1]} at {worst[0]:.3e} of its "
+          f"largest gradient (tolerance {LONG_GRAD_TOL})")
+    if not worst[0] <= LONG_GRAD_TOL:
+        raise AssertionError(f"[memory] Function vs chunk loop: {worst}")
+    out = []
+    for remat in (True, False):
+        out.append(loss_and_grads_timed(
+            dataclasses.replace(base, remat=remat), params, tokens, labels,
+            1)[:2])
+    (l1, g1), (l0, g0) = out
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(g1, g0))
+    same = bool(torch.equal(l1, l0)) and all(
+        torch.equal(a, b) for a, b in zip(g1, g0))
+    print(f"[memory] bf16 compute, remat on against off: loss "
+          f"{float(l1)!r} vs {float(l0)!r}, gradients bitwise {same} (max "
+          f"abs difference {diff})")
+    if not bool(torch.isfinite(l1)):
+        raise AssertionError("[memory] remat: non-finite loss")
+    del out, g1, g0, params
+    torch.cuda.empty_cache()
+    print(f"[memory] phase {time.perf_counter() - t0:.1f} s")
+    return {"rows": rows, "function_vs_loop": worst[0],
+            "remat_bitwise": same, "remat_max_diff": diff}
+
+
+def run_sync_check(cfg, dev) -> dict:
+    """``[sync]``: ``[train]``'s fault-free rounds (n=4, c=3, s=2, 3
+    rounds) with ``flush_every`` 3 under
+    ``torch.cuda.set_sync_debug_mode("warn")``, every warning recorded:
+    the synchronising calls inside the drains (``rounds._drain``) and
+    between them, with the call sites of the latter; fails on any between
+    drains.  (Setting the mode prints a notice that it is a prototype:
+    only "called a synchronizing CUDA operation" warnings count.)"""
+    import traceback
+    import warnings
+
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import rounds, tamuna_dp
+
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
+    state = tamuna_dp.init_state(cfg, tcfg, N, seed=0, device=dev)
+    pipe = SyntheticTokenPipeline(
+        DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=0,
+                   n_clients=N), cfg, dev)
+    torch.cuda.synchronize()
+    drain = rounds._drain
+    marks, caught = [], []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        # the repository's innermost frame that led to the warning
+        here = os.path.dirname(os.path.abspath(__file__))
+        frames = [f for f in traceback.extract_stack()[:-1]
+                  if f.filename.startswith(here)
+                  and not f.filename.endswith("chip_smoke.py")]
+        site = (f"{os.path.relpath(frames[-1].filename, here)}:"
+                f"{frames[-1].lineno} {frames[-1].name}" if frames
+                else f"{filename}:{lineno}")
+        caught.append((str(message), site, time.perf_counter()))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+
+        def marked(pending):
+            a = len(caught)
+            drain(pending)
+            marks.append((a, len(caught)))
+
+        rounds._drain = marked
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            state, rows = rounds.run_rounds(
+                state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=3,
+                rng=np.random.default_rng(0),
+                generator=torch.Generator().manual_seed(1), max_L=4,
+                flush_every=3)
+            returned = len(caught)
+        finally:
+            # switching the mode off may itself warn: not a round's
+            torch.cuda.set_sync_debug_mode(0)
+            rounds._drain = drain
+    syncs = [i for i, (msg, _, _) in enumerate(caught[:returned])
+             if "called a synchronizing CUDA operation" in msg]
+    in_drain = {i for a, b in marks for i in range(a, b)}
+    outside = [caught[i] for i in syncs if i not in in_drain]
+    sites = {}
+    for msg, site, _ in outside:
+        sites[f"{site}: {msg[:80]}"] = sites.get(f"{site}: {msg[:80]}", 0) + 1
+    print(f"[sync] {len(rows)} rounds (L {[r['L'] for r in rows]}) with "
+          f"flush_every 3: {len(marks)} drain(s) with "
+          f"{len(syncs) - len(outside)} synchronising call(s) inside; "
+          f"{len(outside)} between drains (target 0): {sites}; "
+          f"{len(caught) - returned} warning(s) after run_rounds returned "
+          f"(the debug mode's own switch)")
+    if not all(math.isfinite(r["loss"]) for r in rows):
+        raise AssertionError(f"[sync] non-finite loss: {rows}")
+    if outside or len(marks) != 1:
+        raise AssertionError(f"[sync] {len(outside)} synchronising calls "
+                             f"between drains: {sites}")
+    del state, pipe
+    torch.cuda.empty_cache()
+    return {"between_drains": len(outside), "sites": sites,
+            "drains": len(marks)}
+
+
 def run_examples() -> dict:
     """``[examples]``: each of EXAMPLES' ``main`` on the card (the
     examples' default device), in this process, its standard output kept
@@ -3606,6 +4162,9 @@ def main(argv=None) -> int:
     recs += check_wire_kernels(spec, dev)
     torch.cuda.empty_cache()
     recs += check_compress_kernels(spec.d_total, dev)
+    torch.cuda.empty_cache()
+    recs += check_domain_kernels(dev)
+    torch.cuda.empty_cache()
     for rec in recs:
         print(f"[check] {rec['name']} {rec['shape']}: max abs err "
               f"{rec['max_abs_err']} (tolerance {rec['tolerance']}), "
@@ -3640,6 +4199,14 @@ def main(argv=None) -> int:
         for arch in FAMILY_ARCHS:
             check_reduced_family_round(dev, arch)
         print(f"[reduced] family rounds {time.perf_counter() - t0:.1f} s")
+        # past the flash threshold: the blockwise attention under remat
+        t0 = time.perf_counter()
+        # one local step, the float64 anchor on every core
+        check_reduced_family_round(dev, "gemma2-2b", seq=REDUCED_LONG_SEQ,
+                                   batch=1, steps=1,
+                                   f64_threads=os.cpu_count())
+        print(f"[reduced] {REDUCED_LONG_SEQ}-token round "
+              f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # ---- the paths: 3 rounds of full-width 2-layer gemma2-2b each --------
@@ -3647,6 +4214,10 @@ def main(argv=None) -> int:
         "train", cfg, tcfg, N, dev,
         need=("masked_sum", "h_update", "fused_local_step"),
         check_h_sum=True)
+    sync = run_sync_check(cfg, dev)
+    by_path["train_long"] = run_train_long(dev)
+    torch.cuda.empty_cache()
+    memory = run_memory_table(dev, here)
     tcfg_f = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=CF, s=SF, p=P)
     by_path["faults"] = run_path(
         "faults", cfg, tcfg_f, NF, dev,
@@ -3764,6 +4335,12 @@ def main(argv=None) -> int:
         "robust_sum": ("src/repro/kernels/uplink.py:106", "robust"),
         "h_update": ("src/repro/kernels/uplink.py:153", "train"),
         "h_update_covered": ("src/repro/kernels/uplink.py:167", "faults"),
+        # the rest of the Pallas kernels' domain: no path runs s > 16 or
+        # more than 4096 clients
+        "robust_sum_large_s": ("src/repro/kernels/uplink.py:106", None),
+        "h_update_large_n": ("src/repro/kernels/uplink.py:153", None),
+        "h_update_covered_large_n": ("src/repro/kernels/uplink.py:167",
+                                     None),
         "fused_local_step": ("src/repro/kernels/local_step.py:26", "train"),
         "masked_sum_dequant": ("src/repro/kernels/uplink.py:80", "wire"),
         "masked_sum_dequant_counts": ("src/repro/kernels/uplink.py:94",
@@ -3815,6 +4392,9 @@ def main(argv=None) -> int:
                 "name", "shape", "max_abs_err", "tolerance", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })
+    print(f"[sync] synchronising calls between drains: "
+          f"{sync['between_drains']} {sync['sites']}")
+    print(f"[memory] summary {json.dumps(memory)}")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)

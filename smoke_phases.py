@@ -5,7 +5,10 @@ device: to compare two trees on one card (parent, change, change, parent)
 or to rerun a phase alone.  Each checkout builds its kernels under its own
 tree at its first process.  Each process prints the phases' own lines;
 a summary of every ``[tag] N decode steps`` reading (prefill and
-generation ms per step) by process follows.
+generation ms per step) and of every training path's L=1 round seconds
+and peak memory by process follows.  The environment passes on, so
+``REPRO_DISABLE_FLASH=1 python3 smoke_phases.py --tree . --phase
+memory_dense`` gives the memory table's dense rows.
 
   python3 smoke_phases.py --tree _checkout/parent --tree . --tree . \\
       --tree _checkout/parent --phase serve --phase serve_rwkv
@@ -26,6 +29,17 @@ PHASES = {
     "serve_zamba2": ('run_serve(dev, "serve_zamba2", "zamba2-2.7b", '
                      'SERVE_FAMILY)'),
     "train_whisper": "run_whisper_path(dev)",
+    # the [train_*] paths, as main calls them (TWO_LAYERS: gemma2-2b cut
+    # to 2 layers, main's cfg)
+    "train": ('run_path("train", TWO_LAYERS, tamuna_dp.DistTamunaConfig('
+              'gamma=GAMMA, c=C, s=S, p=P), N, dev, need=("masked_sum", '
+              '"h_update", "fused_local_step"), check_h_sum=True)'),
+    "train_families": "run_family_paths(dev)",
+    "train_new_families": "run_new_family_paths(dev)",
+    "train_options": "run_train_options(TWO_LAYERS, dev)",
+    # the memory table's rows of the attention this process's switch gives
+    # (the dense path under REPRO_DISABLE_FLASH=1)
+    "memory_dense": 'memory_rows(dev, ("dense",))',
 }
 
 CHILD = r"""
@@ -34,6 +48,11 @@ import torch
 tree = os.getcwd()
 sys.path.insert(0, os.path.join(tree, "src"))
 smoke = runpy.run_path(os.path.join(tree, "chip_smoke.py"), run_name="phase")
+import dataclasses
+from repro_torch.configs import gemma2_2b
+from repro_torch.dist import tamuna_dp
+smoke["tamuna_dp"] = tamuna_dp
+smoke["TWO_LAYERS"] = dataclasses.replace(gemma2_2b.CONFIG, n_layers=2)
 from repro_torch.kernels import _build
 path, secs, _ = _build.build()
 print(f"[build] {os.path.relpath(path, tree)} in {secs:.1f} s", flush=True)
@@ -45,6 +64,10 @@ for call in sys.argv[1:]:
     sys.stdout.flush()
 """
 
+ROUND = re.compile(r"^\[(\w+)\] round (\d+): L=(\d+) loss \S+ wall "
+                   r"([\d.]+) s")
+PEAK = re.compile(r"^\[(\w+)\] max_memory_allocated \d+ B \(([\d.]+) "
+                  r"GiB\)")
 STEPS = re.compile(r"^\[(\w+)\] \d+ decode steps: prefill .*?\(([\d.]+) ms "
                    r"per step\), generation .*?\(([\d.]+) ms per step")
 
@@ -62,6 +85,7 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True)
     print(f"[card] {card.stdout.strip()}", flush=True)
     rows, rc = [], 0
+    trains, peaks = {}, {}
     for i, tree in enumerate(args.tree):
         print(f"[process {i}] {tree}: {' '.join(args.phase)}", flush=True)
         proc = subprocess.run(
@@ -73,12 +97,23 @@ def main(argv=None) -> int:
             sys.stdout.write(proc.stderr[-4000:])
             print(f"[process {i}] exit {proc.returncode}")
             rc = 1
-        rows += [(i, tree, *m.groups()) for m in
-                 map(STEPS.match, proc.stdout.splitlines()) if m]
+        lines = proc.stdout.splitlines()
+        rows += [(i, tree, *m.groups()) for m in map(STEPS.match, lines)
+                 if m]
+        for m in filter(None, map(ROUND.match, lines)):
+            if m.group(3) == "1":
+                trains.setdefault((i, tree, m.group(1)), []).append(
+                    m.group(4))
+        for m in filter(None, map(PEAK.match, lines)):
+            peaks[i, tree, m.group(1)] = m.group(2)
     print("[summary] process, tree, path, prefill ms per step, generation "
           "ms per step")
     for row in rows:
         print("[summary] " + ", ".join(map(str, row)))
+    print("[summary] process, tree, path, L=1 round seconds, peak GiB")
+    for key in sorted(set(trains) | set(peaks)):
+        print("[summary] " + ", ".join(map(str, key)) + ", "
+              + " ".join(trains.get(key, [])) + ", " + peaks.get(key, "-"))
     return rc
 
 

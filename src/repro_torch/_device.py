@@ -30,3 +30,16 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; want cuda or cpu")
     return dev
+
+
+def upload(host, device: torch.device,
+           dtype: Union[torch.dtype, None] = None) -> torch.Tensor:
+    """``host`` (a numpy array, a sequence or a CPU tensor) as a tensor on
+    ``device``.  A CUDA copy goes from pinned memory without blocking, so
+    the caller does not wait for the card (a plain ``.to(device)`` of
+    pageable memory synchronises); PyTorch's pinned allocator keeps the
+    staging buffer until the copy has run."""
+    t = torch.as_tensor(host, dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

@@ -1,4 +1,5 @@
-"""The weight carrier: reference parameters in, port parameters out.
+"""The weight carrier: reference parameters in, port parameters out, and
+back (``params_to_numpy``), in the model's ``param_dtype``.
 
 The reference names its leaves ``checkpoint._flatten_with_names`` style
 (``blocks/attn/wq``, ``embed``, ``final_norm/scale``) and saves a checkpoint
@@ -54,10 +55,21 @@ def read_checkpoint(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
+def _to_f32(a: np.ndarray) -> np.ndarray:
+    """An f32 array of ``a``'s values: numpy's ``bfloat16`` extension type
+    widened exactly through its bits, any other float type by numpy."""
+    if a.dtype.name == "bfloat16":
+        return _bf16_bits_to_f32(np.ascontiguousarray(a).view(np.uint16))
+    return a.astype(np.float32)
+
+
 def params_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
                       device: DeviceLike = "cuda") -> Dict[str, torch.Tensor]:
-    """The port's f32 parameters from reference-named numpy arrays; the
-    names and shapes must be exactly the model's."""
+    """The port's parameters in ``cfg.param_dtype`` from reference-named
+    numpy arrays (f32, or bf16 as numpy's ``bfloat16`` extension type, as
+    a ``param_dtype=bfloat16`` reference init gives them); the names and
+    shapes must be exactly the model's.  A bf16 leaf into a bf16 model
+    comes across bit for bit."""
     dev = resolve_device(device)
     specs = param_specs(cfg)
     want = [name for name, _ in specs]
@@ -71,7 +83,27 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
         a = np.asarray(arrays[name])
         if tuple(a.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {a.shape}, want {shape}")
-        out[name] = torch.tensor(a, dtype=torch.float32, device=dev)
+        out[name] = torch.from_numpy(_to_f32(a)).to(
+            device=dev, dtype=cfg.param_dtype)
+    return out
+
+
+def params_to_numpy(params: Mapping[str, torch.Tensor]
+                    ) -> Dict[str, np.ndarray]:
+    """The port's parameters as reference-named numpy arrays, the other
+    way: f32 leaves as float32, bf16 leaves as their raw uint16 bits (the
+    reference checkpoint's storage of bf16; ``.view`` them as a
+    ``bfloat16`` type to hand them to the reference)."""
+    out = {}
+    for name, t in params.items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            out[name] = t.view(torch.int16).numpy().view(np.uint16)
+        elif t.dtype == torch.float32:
+            out[name] = t.numpy()
+        else:
+            raise ValueError(f"{name}: dtype {t.dtype}, want float32 or "
+                             "bfloat16")
     return out
 
 

@@ -21,7 +21,7 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch._device import DeviceLike, resolve_device
+from repro_torch._device import DeviceLike, resolve_device, upload
 from repro_torch.models.transformer import ModelConfig
 
 
@@ -78,8 +78,7 @@ class SyntheticTokenPipeline:
         embeddings or the frames, drawn after the tokens."""
         dev, g, v = self.device, self.generator, self.v
         b, T = self.dcfg.per_client_batch, self.dcfg.seq_len
-        ids = torch.as_tensor(list(clients), dtype=torch.long,
-                              device=dev)[:, None]
+        ids = upload(list(clients), dev, torch.long)[:, None]
         state = torch.randint(0, v, (ids.shape[0], b), generator=g,
                               device=dev)
         seq = [state]

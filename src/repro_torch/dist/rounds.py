@@ -178,16 +178,18 @@ def _make_fault_resolver(faults, *, n: int, policy: str, q, max_retries: int,
 
 
 def _faulty_uplink(x: torch.Tensor, member: np.ndarray, arrived, corrupt,
-                   byz, model, *, guard: bool, guard_mode: str,
-                   guard_max_abs: Optional[float]
+                   byz, model, *, dtype: torch.dtype, guard: bool,
+                   guard_mode: str, guard_max_abs: Optional[float]
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """The fault branch of a round before its comm step, in place on the
     ``(n, d)`` workspace ``x``: inject the corruption (the ``corrupt``
     rows, when given), then the Byzantine payloads (the arrived ``byz``
-    rows, when given), then run the payload guard over the ``member`` rows
-    and zero the rows it demotes.  Every step reads and writes only member
-    rows.  ``model`` (a ``faults.FaultModel``) carries the modes.  Returns
-    the ``(n,)`` bool arrived rows and the guard's verdict."""
+    rows, when given), round the member rows to the parameters' storage
+    ``dtype`` (``tamuna_dp.store_rows``: the reference writes the payloads
+    in it), then run the payload guard over the ``member`` rows and zero
+    the rows it demotes.  Every step reads and writes only member rows.
+    ``model`` (a ``faults.FaultModel``) carries the modes.  Returns the
+    ``(n,)`` bool arrived rows and the guard's verdict."""
     if corrupt is not None:
         faults_mod.corrupt_rows(x, corrupt, model.corrupt_mode,
                                 model.blowup)
@@ -199,6 +201,7 @@ def _faulty_uplink(x: torch.Tensor, member: np.ndarray, arrived, corrupt,
                                     model.adversary,
                                     byz_scale=model.byz_scale,
                                     byz_z=model.byz_z)
+    tamuna_dp.store_rows(x, member, dtype)
     bad = np.zeros(len(member), bool)
     if guard:
         bad = faults_mod.nonfinite_clients(x, member, guard_max_abs)
@@ -294,8 +297,9 @@ def make_pipelined_round_fn(cfg: ModelConfig,
             member = np.zeros(n, bool)
             member[np.asarray(cohort)] = True
             arr, bad = _faulty_uplink(
-                state.x, member, arrived, corrupt, byz, model, guard=guard,
-                guard_mode=guard_mode, guard_max_abs=guard_max_abs)
+                state.x, member, arrived, corrupt, byz, model,
+                dtype=cfg.param_dtype, guard=guard, guard_mode=guard_mode,
+                guard_max_abs=guard_max_abs)
             info.update(arrived=arr, bad=bad)
             if anomaly:  # before the comm step's DownCom
                 info["anomaly"] = robust_mod.anomaly_scores(state.x, arr)
@@ -341,6 +345,7 @@ def run_rounds(
     elastic: Optional[bool] = None,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
+    flush_every: int = 10,
 ) -> Tuple[tamuna_dp.DistTamunaState, List[Dict[str, Any]]]:
     """Run ``rounds`` rounds on ``state`` in place.
 
@@ -350,8 +355,23 @@ def run_rounds(
     ``cohort.CohortPlan``) replaces the uniform cohorts; ``pipe`` draws
     the batches.  ``tcfg`` carries the local optimizer, the microbatches,
     the uplink and the comm impl.  Returns the state and
-    one metrics row per round; a row's ``seconds`` is the round's wall
-    time up to a device synchronisation.
+    one metrics row per round.
+
+    Each round's loss sum stays on the device; every ``flush_every``
+    rounds (clamped to ``[1, rounds]``, as the reference) and at the last
+    round one device-to-host copy drains the window's losses (``_drain``).
+    That copy is the fault-free round's only wait for the device: the
+    cohort, slot and DownCom tables go up from pinned memory without
+    blocking.  The rows are built at the drain, keys, values and order as
+    at ``flush_every=1``, and the logger receives them there in round
+    order.  A row's ``seconds`` is the round's host time; the last row of
+    a window also carries the wait at the drain, so a window's rows add up
+    to its wall time.  The round's own logic still reads the device where
+    it must: the payload guard of a faulted round
+    (``faults.nonfinite_clients``, ``robust.magnitude_outliers``), the
+    anomaly scores of a reputation round
+    (which feed the next cohorts), and a checkpoint save.  The fault
+    resolution itself is host-side and reads nothing back.
 
     ``elastic`` (default ``default_elastic(n, c)``: gather when ``c <
     n``) ``False`` runs the all-rows round: every row trains on its own
@@ -423,6 +443,7 @@ def run_rounds(
         elastic = default_elastic(n, c)
     if checkpoint_every and not checkpoint_dir:
         raise ValueError("checkpoint_every needs a checkpoint_dir")
+    flush_every = max(1, min(int(flush_every), rounds))
     dev = state.x.device
     engine = make_pipelined_round_fn(cfg, tcfg, n, pipe=pipe, max_L=max_L,
                                      elastic=elastic, coverage=False,
@@ -441,6 +462,7 @@ def run_rounds(
 
     start = state.round
     rows: List[Dict[str, Any]] = []
+    pending: List[Tuple[Dict[str, Any], torch.Tensor]] = []
     total_steps = 0
     for r in range(rounds):
         t0 = time.perf_counter()
@@ -469,19 +491,15 @@ def run_rounds(
         else:
             state, _ = engine.commit(state, buf, cohort, nxt, **tmpl,
                                      wire_seed=wseed)
-        loss_sum = buf["loss"]
-        loss = float(loss_sum) / L  # waits for the device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
         total_steps += L
         row = {
-            "round": g, "L": L, "loss": loss, "local_steps": total_steps,
+            "round": g, "L": L, "loss": None, "local_steps": total_steps,
             # the f32 counters as Python floats, as the reference's rows
             "up_floats": float(state.up_floats),
             "down_floats": float(state.down_floats),
             "up_bytes": float(state.up_bytes),
             "down_bytes": float(state.down_bytes),
-            "seconds": time.perf_counter() - t0,
+            "seconds": 0.0,
         }
         if faulted:
             row.update({
@@ -513,15 +531,33 @@ def run_rounds(
                 if wins:
                     for k in [k for k in resolve.cache if k >= g + 2]:
                         del resolve.cache[k]
-        rows.append(row)
-        if logger is not None:
-            logger.log(g, row)
+        row["seconds"] = time.perf_counter() - t0
+        pending.append((row, buf["loss"]))
+        if len(pending) == flush_every or r == rounds - 1:
+            t1 = time.perf_counter()
+            _drain(pending)
+            pending[-1][0]["seconds"] += time.perf_counter() - t1
+            for row, _ in pending:
+                rows.append(row)
+                if logger is not None:
+                    logger.log(row["round"], row)
+            pending = []
         if checkpoint_every and (r + 1) % checkpoint_every == 0:
             from repro_torch import checkpoint
 
             checkpoint.save_state(
                 os.path.join(checkpoint_dir, f"step_{g + 1}"), state, g + 1)
     return state, rows
+
+
+def _drain(pending: List[Tuple[Dict[str, Any], torch.Tensor]]) -> None:
+    """Fill each pending row's ``loss`` (its round's loss sum over its L)
+    from one device-to-host copy of the window's loss sums: the driver's
+    wait for the device, which also waits for the comm steps queued
+    before it."""
+    sums = torch.stack([loss for _, loss in pending]).cpu().tolist()
+    for (row, _), total in zip(pending, sums):
+        row["loss"] = total / row["L"]
 
 
 # --------------------------------------------------------------------------

@@ -44,7 +44,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Sequence,
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, upload
 from repro_torch.core import masks, theory
 from repro_torch.dist import comm_ws, model_api, robust, wire
 from repro_torch.kernels.local_step import fused_local_step
@@ -237,6 +237,21 @@ def h_sum_rounding(state: DistTamunaState, tcfg: DistTamunaConfig, n: int,
     return worst
 
 
+def store_rows(x: torch.Tensor, rows, dtype: torch.dtype) -> None:
+    """Round the ``rows`` of the workspace ``x`` (row indices, an ``(n,)``
+    bool mask, or None for all of ``x``, a single row's view too) to the
+    parameters' storage ``dtype`` in place, nothing for f32: the
+    workspace holds bf16 parameters as their f32 values, and the
+    reference's round casts each write of x back to the storage dtype
+    (``astype(x.dtype)`` after a local step and a fault injection,
+    ``comm_ws._downcom`` after the comm step)."""
+    if dtype == torch.float32:
+        return
+    sel = (slice(None) if rows is None
+           else torch.as_tensor(rows, device=x.device))
+    x[sel] = x[sel].to(dtype).to(x.dtype)
+
+
 def member_mask(cohort: Sequence[int], n: int) -> torch.Tensor:
     """``(n,)`` bool membership of a cohort (on the CPU)."""
     mask = torch.zeros(n, dtype=torch.bool)
@@ -353,10 +368,15 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
     place and ``optimizers.adamw_leaf`` updates x and the moments.
     Members are independent, so one at a time is the reference's vmap over
     them, with one member's gradients alive at once; AdamW's count goes up
-    once per call, as the reference's one update of the stacked state."""
+    once per call, as the reference's one update of the stacked state.
+    With a ``cfg.param_dtype`` other than f32 the loss and gradients are
+    taken on the row's leaves cast to it (so the gradients come in that
+    dtype, as the reference's of its bf16 leaves), the update runs in f32
+    and the row is rounded back to it (``store_rows``)."""
     gamma = tcfg.gamma
     adam = tcfg.local_opt == "adamw"
     spec = state_spec(cfg, tcfg)
+    pd = cfg.param_dtype
 
     def fn(compact: Cohort, *, tokens: torch.Tensor, labels: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor] = None,
@@ -370,7 +390,7 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
         for a, (xr, hr) in enumerate(zip(compact.x, compact.h)):
             xs = comm_ws.leaf_views(xr, spec)
             hs = comm_ws.leaf_views(hr, spec)
-            params = {k: v.detach().requires_grad_(True)
+            params = {k: v.detach().to(pd).requires_grad_(True)
                       for k, v in xs.items()}
             batch = {"tokens": tokens[a], "labels": labels[a]}
             if prefix_embeds is not None:
@@ -384,7 +404,7 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
                 ms = comm_ws.leaf_views(compact.mu[a], spec)
                 ns = comm_ws.leaf_views(compact.nu[a], spec)
             for (name, xv), g in zip(xs.items(), grads):
-                g = g.contiguous()
+                g = g.to(torch.float32).contiguous()
                 if adam:
                     g.sub_(hs[name])  # the h-corrected gradient, in f32
                     optimizers.adamw_leaf(
@@ -394,6 +414,7 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
                 else:
                     fused_local_step(xv, g, hs[name], gamma, out=xv)
             del grads, g
+            store_rows(xr, None, pd)
             losses.append(loss)
         if adam:
             compact.count = count
@@ -492,16 +513,16 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
             slot = np.full(n, -1, dtype=np.int32)
             slot[cohort] = perm
         dev = state.x.device
-        slot_t = torch.from_numpy(slot).to(dev)
+        slot_t = upload(slot, dev)
         arr_t, survivors = None, None
         if arrived is not None:
             arrived = np.asarray(arrived, bool)
-            arr_t = torch.from_numpy(arrived).to(dev)
+            arr_t = upload(arrived, dev)
             survivors = int(arrived[cohort].sum())
         seed = 0 if wire_seed is None else wire_seed
         if path == "kernel":
             down_t = (None if down is None
-                      else torch.as_tensor(down).to(torch.int32).to(dev))
+                      else upload(torch.as_tensor(down).to(torch.int32), dev))
             kw = dict(down=down_t, arrived=arr_t, correct=correct,
                       robust=rspec, wire=plan, wire_seed=seed,
                       wire_down=tcfg.wire_down)
@@ -528,6 +549,10 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
                 xv[name].copy_(xn)
                 hv[name].copy_(hn)
                 del xn, hn
+        # the DownCom wrote x_bar to the down rows
+        store_rows(state.x, None if down is None
+                   else torch.as_tensor(down).to(torch.bool),
+                   cfg.param_dtype)
         state.round += 1
         add_counters(state, totals, c, survivors)
         if not with_stats:

@@ -150,7 +150,8 @@ def dist_main(rounds, device, dist_out=None) -> bool:
         state, rows = rounds_mod.run_rounds(
             state, cfg=cfg, tcfg=tcfg, pipe=pipe(), rounds=rounds,
             rng=np.random.default_rng(c),
-            generator=torch.Generator().manual_seed(1), max_L=8, plan=plan)
+            generator=torch.Generator().manual_seed(1), max_L=8,
+            flush_every=min(10, rounds), plan=plan)
         steps = [row["L"] for row in rows]
         times = wallclock_per_round(
             steps, n, c, base, np.random.default_rng(3),
@@ -215,8 +216,8 @@ def faults_main(rounds, device) -> bool:
         state, rows = rounds_mod.run_rounds(
             state, cfg=cfg, tcfg=tcfg, pipe=pipe(), rounds=rounds,
             rng=np.random.default_rng(0),
-            generator=torch.Generator().manual_seed(1), max_L=8, plan=plan,
-            **kw)
+            generator=torch.Generator().manual_seed(1), max_L=8,
+            flush_every=min(10, rounds), plan=plan, **kw)
         arr = sum(r.get("arrivals", c) for r in rows)
         ret = sum(r.get("retries", 0) for r in rows)
         miss = sum(r.get("quorum_miss", 0) for r in rows)

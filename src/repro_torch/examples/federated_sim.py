@@ -81,7 +81,8 @@ def lm_sweep(rounds: int, device) -> bool:
         state, rows = rounds_mod.run_rounds(
             state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=rounds,
             rng=np.random.default_rng(c),
-            generator=torch.Generator().manual_seed(1), max_L=8)
+            generator=torch.Generator().manual_seed(1), max_L=8,
+            flush_every=rounds)
         last = rows[-1]
         finite = finite and all(np.isfinite(r["loss"]) for r in rows)
         print(f"{c:>4} {tcfg.s:>4} {rounds:>7} {last['local_steps']:>6} "

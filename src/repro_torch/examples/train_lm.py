@@ -64,7 +64,7 @@ def main(argv=None) -> int:
         state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=args.rounds,
         rng=np.random.default_rng(0),
         generator=torch.Generator().manual_seed(1), max_L=8,
-        logger=metrics.MetricLogger(print_every=5))
+        flush_every=5, logger=metrics.MetricLogger(print_every=5))
     last = rows[-1]
     print(f"round {last['round']:4d}  local_steps {last['local_steps']:5d}  "
           f"loss {last['loss']:.4f}")

@@ -21,7 +21,7 @@ import os
 import subprocess
 import tempfile
 import time
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -34,14 +34,16 @@ NVCC_FLAGS = (
     "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
-# one count per kernel instantiation: the UpComs per lane type, compress
-# per float type and rank, decode attention per query and cache type (bf16
-# queries on a bf16 cache, f32 queries on an f32 or a bf16 cache)
+# one count per kernel instantiation: the UpComs per lane type, robust_sum
+# for s <= 16 and above, h_update in both forms up to 4096 rows and above,
+# compress per float type and rank, decode attention per query and cache
+# type (bf16 queries on a bf16 cache, f32 queries on an f32 or a bf16 cache)
 KERNELS = ("masked_sum", "masked_sum_f16", "masked_sum_bf16",
            "masked_sum_counts", "masked_sum_counts_f16",
            "masked_sum_counts_bf16", "masked_sum_dequant",
-           "masked_sum_dequant_counts", "robust_sum", "h_update",
-           "h_update_covered", "fused_local_step", "wire_quantize",
+           "masked_sum_dequant_counts", "robust_sum", "robust_sum_large_s",
+           "h_update", "h_update_covered", "h_update_large_n",
+           "h_update_covered_large_n", "fused_local_step", "wire_quantize",
            "compress_f64", "compress_f32", "compress_1d_f64",
            "compress_1d_f32", "decode_attention", "decode_attention_f32",
            "decode_attention_f32_bf16kv")
@@ -111,12 +113,13 @@ def load() -> ctypes.CDLL:
     lib.tamuna_wire_quantize.argtypes = [p, i64, i64, p, p, i32, i64,
                                          ctypes.c_uint32, f32, p, i64, p, i64,
                                          p, i32, p]
+    pi = ctypes.POINTER(ctypes.c_int)
     lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
-                                      i32, i32, i32, p]
+                                      i32, i32, i32, p, pi]
     lib.tamuna_h_update.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32,
-                                    i32, f32, p]
+                                    i32, f32, p, pi]
     lib.tamuna_h_update_covered.argtypes = [p, p, p, p, p, p, p, i64, i64,
-                                            i64, i32, i32, f32, p]
+                                            i64, i32, i32, f32, p, pi]
     lib.tamuna_local_step.argtypes = [p, p, p, p, i64, f32, p]
     lib.tamuna_compress.argtypes = [p, i32, p, p, i64, i64, i32, i32, p]
     lib.tamuna_decode_attention.argtypes = [p, i32, p, p, i32, p, p, p, i32,
@@ -155,3 +158,16 @@ def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     launch_counts[name] += 1
+
+
+def check_variant_launch(names: Sequence[str], rc: int,
+                         variant: ctypes.c_int) -> None:
+    """``check_launch`` for a C entry that picks its kernel by size and
+    reports the one it launched: ``names[variant]``, or none at -1 (an
+    empty input, nothing launched or counted)."""
+    if variant.value < 0:
+        if rc != 0:
+            raise RuntimeError(f"{names[0]} kernel launch failed: CUDA "
+                               f"error {rc}")
+        return
+    check_launch(names[variant.value], rc)

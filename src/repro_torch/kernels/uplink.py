@@ -33,7 +33,10 @@ it never waits for the card.
 (``_robust_sum_kernel``, uplink.py:106): the per-coordinate trimmed mean or
 median of the owned values.  It moves the bytes of the counts kernel, in
 the same layout; its order statistics stay in registers, S per column, so
-a lane takes 16 columns for s <= 4, 8 for s <= 8 and 4 for s <= 16.
+a lane takes 16 columns for s <= 4, 8 for s <= 8 and 4 for s <= 16.  For
+``s > 16`` a second kernel runs the Pallas body's s passes
+of masked-min extraction, a thread per coordinate reading the owners from
+global memory in every pass (``robust_sum_large_s``).
 
 ``h_update`` replaces ``repro.kernels.uplink.h_update`` (``_h_update_kernel``,
 uplink.py:153): ``h += scale (x_bar - x)`` on owned coordinates and the
@@ -44,8 +47,11 @@ and write h on owned entries, read x_bar and the band, and write the
 updates gated by a ``(d,)`` bool, 1 B per coordinate more, and nothing
 touched where the gate is off.  The kernel makes one pass over the
 coordinates, 4 per thread, reading x_bar, the band and the gate once and
-then every row that owns or downloads any of the 4; at most
-``H_UPDATE_MAX_ROWS`` rows.
+then every row that owns or downloads any of the 4.  Up to 4096 rows it
+stages slot and down in shared memory; above, an instantiation reads them
+from global memory (``h_update_large_n``, ``h_update_covered_large_n``).
+The C entries pick the kernel by size (``kMaxRobustS``, ``kHMaxRows`` in
+the source) and report which one they launched, which names the count.
 
 All evaluate ownership in the kernel from the per-coordinate ``band``
 table and the per-client ``slot`` vector (``compress.owned_from_band``);
@@ -61,12 +67,12 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import _build, compress, ref
 
-ROBUST_MAX_S = 16  # the robust kernel is instantiated for s <= 16
-H_UPDATE_MAX_ROWS = 4096  # h_update stages slot and down in shared memory
 # lane types of the mean UpComs and the kernels' lane codes
 LANES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _LANE_NAME = {torch.float32: "", torch.float16: "_f16",
@@ -211,17 +217,16 @@ def robust_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
     _check(x, m, s, slot=slot, band=band)
     if x.device.type == "cpu":
         return ref.robust_sum(x, slot, band, m, s, kind, int(k))
-    if s > ROBUST_MAX_S:
-        raise ValueError(f"the robust_sum kernel takes s <= {ROBUST_MAX_S}, "
-                         f"got s={s}")
     n, d = x.shape
     bar = torch.empty(d, dtype=torch.float32, device=x.device)
     cnt = torch.empty(d, dtype=torch.float32, device=x.device)
+    variant = ctypes.c_int(-1)
     rc = _build.load().tamuna_robust_sum(
         x.data_ptr(), slot.data_ptr(), band.data_ptr(), bar.data_ptr(),
         cnt.data_ptr(), n, d, x.stride(0), m, s, int(k),
-        int(kind == "median"), _build.stream_of(x))
-    _build.check_launch("robust_sum", rc)
+        int(kind == "median"), _build.stream_of(x), ctypes.byref(variant))
+    _build.check_variant_launch(("robust_sum", "robust_sum_large_s"), rc,
+                                variant)
     return bar, cnt
 
 
@@ -242,19 +247,20 @@ def h_update(x: torch.Tensor, h: torch.Tensor, x_bar: torch.Tensor,
         ref.h_update(x, h, x_bar, slot, band, m, s, scale, down, covered)
         return
     n, d = x.shape
-    if n > H_UPDATE_MAX_ROWS:
-        raise ValueError(f"h_update takes at most {H_UPDATE_MAX_ROWS} client "
-                         f"rows, got {n}")
     if down is None:
         down = torch.ones(n, dtype=torch.int32, device=x.device)
     lib = _build.load()
     args = (x.data_ptr(), h.data_ptr(), x_bar.data_ptr(), slot.data_ptr(),
             down.data_ptr(), band.data_ptr())
-    tail = (n, d, x.stride(0), m, s, float(scale), _build.stream_of(x))
+    variant = ctypes.c_int(-1)
+    tail = (n, d, x.stride(0), m, s, float(scale), _build.stream_of(x),
+            ctypes.byref(variant))
     if covered is None:
-        _build.check_launch("h_update", lib.tamuna_h_update(*args, *tail))
+        name = "h_update"
+        rc = lib.tamuna_h_update(*args, *tail)
     else:
         # a bool tensor is stored one byte per element, 0 or 1: the
         # kernel's uint8 gate
-        _build.check_launch("h_update_covered", lib.tamuna_h_update_covered(
-            *args, covered.data_ptr(), *tail))
+        name = "h_update_covered"
+        rc = lib.tamuna_h_update_covered(*args, covered.data_ptr(), *tail)
+    _build.check_variant_launch((name, name + "_large_n"), rc, variant)

@@ -60,7 +60,7 @@ def model_config(smoke: bool = False):
                        d_model=32 if smoke else 64,
                        n_heads=2 if smoke else 4, n_kv_heads=2,
                        d_ff=64 if smoke else 128, vocab=128,
-                       dtype=torch.float32)
+                       dtype=torch.float32, remat=False)
 
 
 def run_one(tau: int, policy: str, quorum: Optional[int] = None,

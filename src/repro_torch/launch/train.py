@@ -17,6 +17,9 @@ kernels, or the reference's plain ``ws``/``dense``), and
 ``--checkpoint-dir``/``--checkpoint-every`` save the state in the
 reference's checkpoint format every that many rounds.
 
+``--flush-every`` sets how many rounds' metrics the driver keeps on the
+device before it drains them (both drivers).
+
 ``--pipeline`` runs the pipelined rounds (``run_rounds_pipelined``):
 ``--staleness`` rounds in flight, the simulated clock priced by
 ``--latency-dist``, and ``--round-policy``/``--quorum`` admission at the
@@ -93,6 +96,10 @@ def main(argv=None) -> int:
     ap.add_argument("--checkpoint-every", type=int, default=0)
     ap.add_argument("--max-L", type=int, default=16,
                     help="cap on the geometric round length")
+    ap.add_argument("--flush-every", type=int, default=10,
+                    help="drain the rounds' metrics from the device every "
+                         "this many rounds (the driver's only wait for the "
+                         "device in a fault-free round)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--pipeline", action="store_true",
                     help="pipelined rounds under bounded staleness: a "
@@ -211,6 +218,7 @@ def main(argv=None) -> int:
             logger=logger, checkpoint_dir=args.checkpoint_dir or None,
             checkpoint_every=args.checkpoint_every, latency=latency,
             policy=args.round_policy, quorum=args.quorum or None,
+            flush_every=args.flush_every,
         )
         if rows:
             print(f"[train] simulated clock: {rows[-1]['commit_s']:.2f}s "
@@ -220,7 +228,8 @@ def main(argv=None) -> int:
             state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=args.rounds,
             rng=rng, generator=generator, max_L=args.max_L, logger=logger,
             checkpoint_dir=args.checkpoint_dir or None,
-            checkpoint_every=args.checkpoint_every, **fkw,
+            checkpoint_every=args.checkpoint_every,
+            flush_every=args.flush_every, **fkw,
         )
     logger.close()
     dt = time.time() - t0

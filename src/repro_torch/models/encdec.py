@@ -9,6 +9,10 @@ d_model)`` and runs the transformer that consumes them:
   decoder  causal self-attention, cross-attention to the encoder's output,
            the MLP; the head is the tied embedding
 
+Under ``cfg.remat`` each encoder and decoder layer recomputes its
+activations in the backward (``transformer.layer``), as the reference
+checkpoints its scanned bodies.
+
 Parameters are a flat ``{name: tensor}`` dict in the reference's leaf
 order (``param_specs``); the ``enc_blocks/*`` and ``dec_blocks/*`` leaves
 are stacked ``(layers, ...)``.  Decoding keeps the self-attention's K/V
@@ -25,7 +29,7 @@ import torch
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import layers
-from repro_torch.models.transformer import ModelConfig, _attn_weights
+from repro_torch.models.transformer import ModelConfig, _attn_weights, layer
 
 Params = Dict[str, torch.Tensor]
 Spec = List[Tuple[str, Tuple[int, ...]]]
@@ -107,11 +111,26 @@ def encode(params: Params, cfg: ModelConfig,
     x = frames.to(cfg.dtype)
     x = _with_positions(x, torch.arange(x.shape[1], device=x.device), cfg)
     for l in range(cfg.n_encoder_layers):
-        x = x + _self_attention(params, ENC, l,
-                                _ln(params, ENC + "ln_attn", x, l), cfg,
-                                causal=False)
-        x = x + _mlp(params, ENC, l, _ln(params, ENC + "ln_ff", x, l))
+        x = layer(cfg, lambda x, l=l: _encoder_layer(params, l, x, cfg), x)
     return _ln(params, "enc_norm", x)
+
+
+def _encoder_layer(p: Params, l: int, x: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Encoder layer ``l``: bidirectional self-attention, then the MLP."""
+    x = x + _self_attention(p, ENC, l, _ln(p, ENC + "ln_attn", x, l), cfg,
+                            causal=False)
+    return x + _mlp(p, ENC, l, _ln(p, ENC + "ln_ff", x, l))
+
+
+def _decoder_layer(p: Params, l: int, x: torch.Tensor, enc_out: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """Decoder layer ``l``: causal self-attention, cross-attention to
+    ``enc_out`` (its K/V computed here), then the MLP."""
+    x = x + _self_attention(p, DEC, l, _ln(p, DEC + "ln_attn", x, l), cfg,
+                            causal=True)
+    x = x + _cross_attend(p, l, x, *_cross_kv(p, l, enc_out, cfg), cfg)
+    return x + _mlp(p, DEC, l, _ln(p, DEC + "ln_ff", x, l))
 
 
 def _cross_kv(p: Params, l: int, enc: torch.Tensor, cfg: ModelConfig
@@ -146,12 +165,8 @@ def decode_train(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = params["embed"][tokens].to(cfg.dtype)
     x = _with_positions(x, torch.arange(x.shape[1], device=x.device), cfg)
     for l in range(cfg.n_layers):
-        x = x + _self_attention(params, DEC, l,
-                                _ln(params, DEC + "ln_attn", x, l), cfg,
-                                causal=True)
-        x = x + _cross_attend(params, l, x, *_cross_kv(params, l, enc_out,
-                                                       cfg), cfg)
-        x = x + _mlp(params, DEC, l, _ln(params, DEC + "ln_ff", x, l))
+        x = layer(cfg, lambda x, e, l=l: _decoder_layer(params, l, x, e, cfg),
+                  x, enc_out)
     return _ln(params, "final_norm", x)
 
 

@@ -13,10 +13,21 @@ evaluation of the same model, which the reference has no counterpart of.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def const(value: float, dtype: torch.dtype,
+          device: torch.device) -> torch.Tensor:
+    """A 0-dim ``value`` in ``dtype`` on ``device``, made by a fill on the
+    device: no host-to-device copy, so no wait for the card (which
+    ``torch.tensor(value, device=...)`` makes), and an operand the card
+    truly divides by (a Python number or a CPU scalar is taken as a
+    multiplication by its reciprocal)."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 def widen(x: torch.Tensor) -> torch.Tensor:
@@ -72,9 +83,8 @@ def sinusoid(positions: torch.Tensor, d: int,
     dev = positions.device
     pos = positions.to(wide)[:, None]
     dim = torch.arange(d // 2, dtype=wide, device=dev)[None, :]
-    angle = pos / torch.pow(torch.tensor(10000.0, dtype=wide, device=dev),
-                            2 * dim / torch.tensor(float(d), dtype=wide,
-                                                   device=dev))
+    angle = pos / torch.pow(const(10000.0, wide, dev),
+                            2 * dim / const(float(d), wide, dev))
     return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
 
 
@@ -126,8 +136,137 @@ def qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
 
 
 # sequence length at and above which ``attention`` takes the blockwise
-# ``flash_attention`` (the reference's switch, models/layers.py)
-FLASH_THRESHOLD = 2048
+# ``flash_attention`` (the reference's switch, models/layers.py);
+# ``REPRO_DISABLE_FLASH=1`` at import keeps every length on the dense path
+# (the reference's override, for a baseline measurement)
+FLASH_THRESHOLD = (10 ** 12 if os.environ.get("REPRO_DISABLE_FLASH") == "1"
+                   else 2048)
+
+
+def _flash_setup(q: torch.Tensor, k: torch.Tensor):
+    """``(qs, qw, group)``: ``q`` as ``(b, t, kvh, group, hd)`` scaled by
+    ``1/sqrt(hd)`` in its own dtype, the same widened, and the group."""
+    b, t, h, hd = q.shape
+    group = h // k.shape[2]
+    qs = q.reshape(b, t, k.shape[2], group, hd) * torch.tensor(
+        1.0 / math.sqrt(hd), dtype=q.dtype)
+    return qs, widen(qs), group
+
+
+def _flash_logits(qw: torch.Tensor, kc: torch.Tensor, a: int, *,
+                  window: int, attn_softcap: Optional[float], causal: bool
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                             Optional[torch.Tensor]]:
+    """One key block's logits ``(b, kvh, g, t, kc)`` (f32 of the widened
+    operands, the softcap, -1e30 where masked), the softcap's ``tanh``
+    (``None`` without one) and the visibility mask (``None`` where not
+    ``causal``)."""
+    logits = torch.einsum("btkgd,bskd->bkgts", qw, widen(kc))
+    th = None
+    if attn_softcap is not None:
+        th = torch.tanh(logits / attn_softcap)
+        logits = attn_softcap * th
+    mask = None
+    if causal:
+        qp = torch.arange(qw.shape[1], device=qw.device)[:, None]
+        kp = torch.arange(a, a + kc.shape[1], device=qw.device)[None, :]
+        mask = (kp <= qp) & (kp > qp - window)
+        logits = logits.masked_fill(~mask, -1e30)
+    return logits, th, mask
+
+
+def _flash_forward(q, k, v, window, attn_softcap, k_chunk, causal):
+    """The chunk loop: ``(out (b, t, h, hd) in q's dtype, the f32 output
+    before the cast (b, kvh, g, t, hd), the running max m and the
+    denominator l (b, kvh, g, t, 1))``."""
+    b, t, h, hd = q.shape
+    kvh = k.shape[2]
+    _, qw, group = _flash_setup(q, k)
+    m = torch.full((b, kvh, group, t, 1), -1e30, dtype=qw.dtype,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((b, kvh, group, t, hd), dtype=qw.dtype,
+                      device=q.device)
+    for a in range(0, k.shape[1], k_chunk):
+        kc, vc = k[:, a:a + k_chunk], v[:, a:a + k_chunk]
+        logits, _, _ = _flash_logits(qw, kc, a, window=window,
+                                     attn_softcap=attn_softcap,
+                                     causal=causal)
+        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new)
+        l = alpha * l + p.sum(dim=-1, keepdim=True)
+        acc = alpha * acc + torch.einsum("bkgts,bskd->bkgtd", p, widen(vc))
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)
+    out = o.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
+    return out, o, m, l
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, window: int, attn_softcap: Optional[float],
+                          k_chunk: int = 1024, causal: bool = True
+                          ) -> torch.Tensor:
+    """``flash_attention``'s forward as plain torch, differentiated by
+    autograd through the chunks: every block's f32 logits and
+    probabilities stay alive for the backward.  The oracle of
+    ``flash_attention``'s own backward; the main path does not call it."""
+    return _flash_forward(q, k, v, window, attn_softcap, k_chunk,
+                          causal)[0]
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The blockwise attention with a backward that recomputes each key
+    block's logits and probabilities in turn.  It saves q, k, v, the f32
+    output and the per-row max and denominator: nothing of a block's
+    size."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, attn_softcap, k_chunk, causal):
+        out, o, m, l = _flash_forward(q, k, v, window, attn_softcap,
+                                      k_chunk, causal)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.args = (window, attn_softcap, k_chunk, causal)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, m, l = ctx.saved_tensors
+        window, cap, k_chunk, causal = ctx.args
+        b, t, h, hd = q.shape
+        kvh = k.shape[2]
+        _, qw, group = _flash_setup(q, k)
+        # the cast to q's dtype and the layout, backwards: dO (b, kvh, g,
+        # t, hd) in the widened dtype
+        do = widen(dout).reshape(b, t, kvh, group, hd).permute(0, 2, 3, 1, 4)
+        lc = torch.clamp(l, min=1e-30)
+        delta = (do * o).sum(dim=-1, keepdim=True)  # sum_j P_j dP_j
+        dqw = torch.zeros_like(qw)
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        for a in range(0, k.shape[1], k_chunk):
+            kc, vc = k[:, a:a + k_chunk], v[:, a:a + k_chunk]
+            logits, th, mask = _flash_logits(qw, kc, a, window=window,
+                                             attn_softcap=cap, causal=causal)
+            p = torch.exp(logits - m) / lc
+            del logits
+            dv[:, a:a + k_chunk] = torch.einsum(
+                "bkgts,bkgtd->bskd", p, do).to(v.dtype)
+            ds = p * (torch.einsum("bkgtd,bskd->bkgts", do, widen(vc))
+                      - delta)
+            del p
+            if mask is not None:
+                ds = ds.masked_fill(~mask, 0.0)
+            if th is not None:
+                ds = ds * (1 - th * th)  # d(cap tanh(z / cap)) / dz
+            dqw += torch.einsum("bkgts,bskd->btkgd", ds, widen(kc))
+            dk[:, a:a + k_chunk] = torch.einsum(
+                "bkgts,btkgd->bskd", ds, qw).to(k.dtype)
+            del ds, th
+        # q's scaling by 1/sqrt(hd), in q's dtype, as autograd takes it
+        dq = dqw.to(q.dtype) * torch.tensor(1.0 / math.sqrt(hd),
+                                            dtype=q.dtype)
+        return dq.reshape(b, t, h, hd), dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -145,35 +284,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     the widened ``v``, and ``acc / max(l, 1e-30)`` in ``q``'s dtype.  A
     ragged last block is cut short, which is the reference's zero padding
     with the padded keys masked.  At most ``(b, kvh, g, t, k_chunk)``
-    logits exist at once."""
-    b, t, h, hd = q.shape
-    s, kvh = k.shape[1], k.shape[2]
-    group = h // kvh
-    qg = q.reshape(b, t, kvh, group, hd) * torch.tensor(
-        1.0 / math.sqrt(hd), dtype=q.dtype)
-    qw = widen(qg)
-    qp = torch.arange(t, device=q.device)[:, None]
-    m = torch.full((b, kvh, group, t, 1), -1e30, dtype=qw.dtype,
-                   device=q.device)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((b, kvh, group, t, hd), dtype=qw.dtype,
-                      device=q.device)
-    for a in range(0, s, k_chunk):
-        kc, vc = k[:, a:a + k_chunk], v[:, a:a + k_chunk]
-        logits = torch.einsum("btkgd,bskd->bkgts", qw, widen(kc))
-        logits = softcap(logits, attn_softcap)
-        if causal:
-            kp = torch.arange(a, a + kc.shape[1], device=q.device)[None, :]
-            mask = (kp <= qp) & (kp > qp - window)
-            logits = logits.masked_fill(~mask, -1e30)
-        m_new = torch.maximum(m, logits.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(logits - m_new)
-        l = alpha * l + p.sum(dim=-1, keepdim=True)
-        acc = alpha * acc + torch.einsum("bkgts,bskd->bkgtd", p, widen(vc))
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, t, h, hd).to(q.dtype)
+    logits exist at once, in the forward and in the backward, which
+    recomputes each block's logits and probabilities from q, k, v and the
+    rows' max and denominator (``_FlashAttention``)."""
+    return _FlashAttention.apply(q, k, v, window, attn_softcap, k_chunk,
+                                 causal)
 
 
 def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -195,8 +310,7 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     tk, kvh = k.shape[1], k.shape[2]
     qg = q.reshape(b, tq, kvh, h // kvh, hd)
     logits = torch.einsum("btkgd,bskd->bkgts", widen(qg), widen(k))
-    logits = logits / torch.tensor(math.sqrt(hd), dtype=logits.dtype,
-                                   device=q.device)
+    logits = logits / const(math.sqrt(hd), logits.dtype, q.device)
     logits = softcap(logits, attn_softcap)
     kp = torch.arange(tk, device=q.device)[None, :]
     qp = torch.arange(tq, device=q.device)[:, None] + q_offset
@@ -261,9 +375,8 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     (1 + tanh(c (x + k x x x))))`` with the constants and every operation
     rounded to ``x``'s dtype (``F.gelu`` differs on ~43% of bf16
     elements)."""
-    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype,
-                     device=x.device)
-    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    c = const(math.sqrt(2.0 / math.pi), x.dtype, x.device)
+    k = const(0.044715, x.dtype, x.device)
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 

@@ -28,6 +28,7 @@ import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import layers, moe, rwkv, ssm
@@ -49,8 +50,14 @@ AUX_WEIGHT = 0.01
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of ``repro.models.transformer.ModelConfig`` that the
-    port's families read.  Parameters are always stored in f32 (the client
-    workspace is f32); ``dtype`` is the compute dtype."""
+    port's families read.  ``dtype`` is the compute dtype; parameters are
+    stored in ``param_dtype`` (f32 by default; the client workspace is f32
+    and holds bf16 parameters as their exact f32 values, rounded back to
+    bf16 wherever the round writes them, as the reference's round casts
+    them).  ``remat`` (on by default, as the reference's) recomputes each
+    layer's activations in the backward instead of keeping them
+    (``torch.utils.checkpoint`` where the reference takes
+    ``jax.checkpoint``)."""
 
     name: str = "model"
     family: str = "dense"  # dense | moe | rwkv | mamba_hybrid | encdec
@@ -88,6 +95,8 @@ class ModelConfig:
     n_encoder_layers: int = 0
     n_frames: int = 0  # encoder input length (stub frontend frames)
     dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = True
     xent_chunk: int = 512
     scan_chunk: int = 64  # linear-attention chunk size
     source: str = ""
@@ -244,19 +253,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     and layernorm biases zeros; RWKV's mixes 0.5, ``w_base`` -1, ``u`` 0.5 and
     ``w_lora_b`` a tenth of its ``N(0, 1/in_dim)``; Mamba2's ``conv_w``
     ``N(0, 0.01)``, ``A_log``, ``dt_bias`` and ``conv_b`` zeros, ``D``
-    ones; the shared experts' gate zeros.  ``generator`` must live on
+    ones; the shared experts' gate zeros.  Each leaf is drawn in f32 and
+    stored in ``cfg.param_dtype``.  ``generator`` must live on
     ``device``; the draws are the port's own (a reference init is carried
     over with ``repro_torch.convert``)."""
     dev = resolve_device(device)
+    pd = cfg.param_dtype
     params: Params = {}
     for name, shape in param_specs(cfg):
         if name.endswith("/scale") or name in _CONST_INIT:
             params[name] = torch.full(shape, _CONST_INIT.get(name, 1.0),
-                                      dtype=torch.float32, device=dev)
+                                      dtype=pd, device=dev)
             continue
         if name.rsplit("/", 1)[-1] in ("bq", "bk", "bv", "bias"):
-            params[name] = torch.zeros(shape, dtype=torch.float32,
-                                       device=dev)
+            params[name] = torch.zeros(shape, dtype=pd, device=dev)
             continue
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=dev)
@@ -268,8 +278,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             scale = 1.0 / math.sqrt(shape[-2])
             if name == "blocks/tm/w_lora_b":
                 scale *= 0.1
-        params[name] = w.mul_(scale)
+        params[name] = w.mul_(scale).to(pd)
     return params
+
+
+def layer(cfg: ModelConfig, fn: Callable, *args):
+    """``fn(*args)``, one layer's body: under ``cfg.remat``, while autograd
+    records, its activations are recomputed in the backward instead of
+    kept (non-reentrant checkpointing, which ``torch.autograd.grad``
+    takes; the bodies draw no random numbers, so no generator state is
+    stashed)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
 
 
 def _sub(p: Params, prefix: str, l: Optional[int] = None) -> Params:
@@ -342,6 +364,25 @@ def _shared_block(p: Params, x: torch.Tensor, cfg: ModelConfig
                           p["shared_attn/mlp/w_down"], cfg.act)
 
 
+def _rwkv_layer(p: Params, l: int, x: torch.Tensor,
+                cfg: ModelConfig) -> torch.Tensor:
+    """An RWKV-6 layer: time-mix, then channel-mix."""
+    x = x + rwkv.timemix_fwd(_sub(p, "blocks/tm/", l),
+                             layers.rmsnorm(p["blocks/ln_tm/scale"][l], x),
+                             cfg.n_heads, chunk=cfg.scan_chunk)
+    return x + rwkv.channelmix_fwd(
+        _sub(p, "blocks/cm/", l),
+        layers.rmsnorm(p["blocks/ln_cm/scale"][l], x))
+
+
+def _mamba_layer(p: Params, l: int, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """A Mamba2 layer of the hybrid."""
+    return x + ssm.mamba2_fwd(_sub(p, "blocks/mamba/", l),
+                              layers.rmsnorm(p["blocks/ln/scale"][l], x),
+                              cfg.d_state, chunk=cfg.scan_chunk)
+
+
 def _groups(cfg: ModelConfig) -> int:
     """The hybrid's groups: a shared block then ``shared_attn_every``
     Mamba2 layers each."""
@@ -357,8 +398,8 @@ def _embed(params: Params, cfg: ModelConfig,
     (rounded to the compute dtype, as the reference does) for gemma."""
     x = params["embed"][tokens].to(cfg.dtype)
     if cfg.scale_embed:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
-                             device=x.device).to(cfg.dtype)
+        x = x * layers.const(math.sqrt(cfg.d_model), torch.float32,
+                             x.device).to(cfg.dtype)
     return x
 
 
@@ -380,27 +421,21 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     auxes = []
     if cfg.family in ("dense", "moe"):
         for l, w in enumerate(cfg.layer_windows()):
-            x, aux = _block(params, l, x, cfg, w)
+            x, aux = layer(cfg, lambda x, l=l, w=w: _block(params, l, x, cfg,
+                                                           w), x)
             if aux is not None:
                 auxes.append(aux)
     elif cfg.family == "rwkv":
         for l in range(cfg.n_layers):
-            x = x + rwkv.timemix_fwd(
-                _sub(params, "blocks/tm/", l),
-                layers.rmsnorm(params["blocks/ln_tm/scale"][l], x),
-                cfg.n_heads, chunk=cfg.scan_chunk)
-            x = x + rwkv.channelmix_fwd(
-                _sub(params, "blocks/cm/", l),
-                layers.rmsnorm(params["blocks/ln_cm/scale"][l], x))
+            x = layer(cfg, lambda x, l=l: _rwkv_layer(params, l, x, cfg), x)
     else:
         every = cfg.shared_attn_every
         for g in range(_groups(cfg)):
+            # the weight-shared block is not recomputed, as in the reference
             x = _shared_block(params, x, cfg)
             for l in range(g * every, (g + 1) * every):
-                x = x + ssm.mamba2_fwd(
-                    _sub(params, "blocks/mamba/", l),
-                    layers.rmsnorm(params["blocks/ln/scale"][l], x),
-                    cfg.d_state, chunk=cfg.scan_chunk)
+                x = layer(cfg, lambda x, l=l: _mamba_layer(params, l, x, cfg),
+                          x)
     aux = (torch.stack(auxes).sum() if auxes else
            torch.zeros((), dtype=torch.float32, device=x.device))
     return layers.rmsnorm(params["final_norm/scale"], x), aux

@@ -267,8 +267,11 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         uplink.masked_sum(x, slot.cpu(), band, M, S)
     with pytest.raises(ValueError):
         fused_local_step(x.t(), x.t(), x.t(), 0.1)
+    # s > 16 is taken by the passes kernel; s > m is not
     with pytest.raises(ValueError):
-        uplink.robust_sum(x, slot, band, 32, 17, kind="median")
+        uplink.robust_sum(x, slot, band, M, M + 1, kind="median")
+    with pytest.raises(ValueError):
+        uplink.robust_sum(x, slot, band, M, S, kind="trimmed", k=1)
 
 
 def _lo(dims):
@@ -1114,3 +1117,147 @@ def test_whisper_serve_on_the_card_matches_the_cpu(dev):
     err = (card["logits"].cpu() - cpu["logits"]).abs().max()
     assert float(err) <= 1e-4 * float(cpu["logits"].abs().max())
     assert launches == {}
+
+
+# -- the kernels' whole domain: robust_sum past s = 16 (s masked-min passes
+# from global memory) and h_update past 4096 rows (slot and down read from
+# global memory); the sizes up to those keep the register and staged
+# kernels
+
+def _robust_edge(dev, s, layout, dup=False):
+    """``_edge_inputs`` for the robust UpCom at sparsity ``s``: ``s + 2``
+    template columns, a dropped and an idle row, ties, +-inf, +-0.0, an
+    owned NaN, all-+inf columns; with ``dup`` one column owned by two
+    rows, so some coordinates have more than s owners."""
+    m = s + 2
+    cols = np.random.default_rng(s).permutation(m)[:s].tolist()
+    slots = [cols[0], -1] + cols[1:] + [-1] + ([cols[1]] if dup else [])
+    x, slot, band = _edge_inputs(dev, len(slots), layout, m, slots, 40 + s)
+    act = [i for i, v in enumerate(slot.tolist()) if 0 <= v < m]
+    x[act[-1], ::7] = x[act[0], ::7]
+    x[act[0], ::101] = float("inf")
+    x[act[-1], 50::101] = float("-inf")
+    x[act[-1], 9::57] = float("nan")
+    x[act[0], 3::29] = 0.0
+    x[act[-1], 3::29] = -0.0
+    x[act, 11::211] = float("inf")
+    return x, slot, band, m
+
+
+@pytest.mark.parametrize("kind,k", [("trimmed", 0), ("trimmed", 3),
+                                    ("trimmed", 8), ("median", 0)])
+@pytest.mark.parametrize("s,layout,dup", [
+    (17, "aligned", False), (17, "outside", False), (32, "aligned", False),
+    (32, "offgrid", False), (17, "aligned", True)])
+def test_robust_sum_past_16_is_bitwise_plain(dev, s, layout, dup, kind, k):
+    x, slot, band, m = _robust_edge(dev, s, layout, dup)
+    before = dict(_build.launch_counts)
+    bar, cnt = uplink.robust_sum(x, slot, band, m, s, kind=kind, k=k)
+    assert _build.launch_counts["robust_sum_large_s"] == \
+        before["robust_sum_large_s"] + 1
+    assert _build.launch_counts["robust_sum"] == before["robust_sum"]
+    bar_p, cnt_p = ref.robust_sum(x, slot, band, m, s, kind, k)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(cnt), _bits(cnt_p))
+    if dup:
+        assert float(cnt.max()) > s
+    nan = bar.isnan()
+    assert torch.equal(nan, bar_p.isnan()) and bool(nan.any())
+    assert torch.equal(_bits(bar.masked_fill(nan, 0.0)),
+                       _bits(bar_p.masked_fill(nan, 0.0)))
+
+
+def test_robust_sum_at_16_keeps_the_register_kernel(dev):
+    x, slot, band, m = _robust_edge(dev, 16, "aligned")
+    before = dict(_build.launch_counts)
+    uplink.robust_sum(x, slot, band, m, 16, kind="median")
+    assert _build.launch_counts["robust_sum"] == before["robust_sum"] + 1
+    assert _build.launch_counts["robust_sum_large_s"] == \
+        before["robust_sum_large_s"]
+
+
+@pytest.mark.parametrize("covered", [False, True])
+@pytest.mark.parametrize("n", [4096, 4097])
+def test_h_update_past_4096_rows_is_bitwise_plain(dev, n, covered):
+    """A population of 4097 rows (64 in the cohort, a quarter downloading)
+    takes the unstaged kernel, 4096 the staged one; both bitwise."""
+    d, m, s = 2 * 4096 + 77, 64, 2
+    rng = np.random.default_rng(n)
+    slot = np.full(n, -1, np.int32)
+    members = rng.choice(n, m, replace=False)
+    slot[members] = rng.permutation(m)
+    down = (rng.random(n) < 0.25).astype(np.int32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[slot < 0] = np.nan
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    band = rng.integers(0, m, size=d).astype(np.int32)
+    x, h, slot, down, band = (torch.from_numpy(a).to(dev) for a in
+                              (x, h, slot, down, band))
+    x_bar = torch.randn(d, device=dev)
+    cov = torch.rand(d, device=dev) < 0.7 if covered else None
+    name = "h_update_covered" if covered else "h_update"
+    name += "_large_n" if n > 4096 else ""  # kHMaxRows staged rows
+    xk, hk = x.clone(), h.clone()
+    before = dict(_build.launch_counts)
+    uplink.h_update(xk, hk, x_bar, slot, band, m, s, 0.37, down=down,
+                    covered=cov)
+    assert {k for k in _build.launch_counts
+            if _build.launch_counts[k] != before[k]} == {name}
+    ref.h_update(x, h, x_bar, slot, band, m, s, 0.37, down=down,
+                 covered=cov)
+    torch.cuda.synchronize()
+    assert torch.equal(hk, h)
+    assert _same(xk, x)
+
+
+# -- the blockwise attention's backward and remat on the card --------------
+
+def test_flash_backward_on_the_card_matches_the_chunk_loop(dev):
+    """The recomputing backward against autograd through the chunk loop
+    on the card, f32 at 2500 tokens (a ragged last block), window and
+    softcap, GQA group 2: within 1e-5 of each gradient's largest entry
+    (the two sum the blocks' contributions in other orders)."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    t, h, kvh, hd = 2500, 8, 4, 64
+    q = torch.randn(1, t, h, hd, generator=g, device=dev,
+                    requires_grad=True)
+    k, v = (torch.randn(1, t, kvh, hd, generator=g, device=dev,
+                        requires_grad=True) for _ in range(2))
+    do = torch.randn(1, t, h, hd, generator=g, device=dev)
+    out = []
+    for fn in (layers.flash_attention, layers.flash_attention_plain):
+        o = fn(q, k, v, window=700, attn_softcap=50.0)
+        out.append((o, torch.autograd.grad(o, (q, k, v), do)))
+    (o1, g1), (o2, g2) = out
+    assert torch.equal(o1, o2)
+    for a, b in zip(g1, g2):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_remat_on_the_card_matches_no_remat(dev):
+    """Reduced gemma2-2b at 2304 tokens (the blockwise attention, a ragged
+    last block): the loss and gradients with remat on the card equal those
+    without it, bitwise."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.dist import model_api
+
+    cfg = registry.get_reduced_config("gemma2-2b")
+    params = model_api.init(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (1, 2304), generator=gen,
+                           device=dev)
+    labels = torch.randint(0, cfg.vocab, (1, 2304), generator=gen,
+                           device=dev)
+    out = []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        ps = {n: p.detach().requires_grad_(True) for n, p in params.items()}
+        loss, _ = model_api.loss(ps, c, tokens=tokens, labels=labels)
+        out.append((loss, torch.autograd.grad(loss, list(ps.values()))))
+    assert torch.isfinite(out[0][0]) and torch.equal(out[0][0], out[1][0])
+    for a, b in zip(out[0][1], out[1][1]):
+        assert torch.equal(a, b)

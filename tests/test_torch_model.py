@@ -68,12 +68,14 @@ def test_leaf_names_order_and_shapes_match_reference(arch, layers):
 def test_reduced_config_matches_reference_fields():
     jcfg, cfg = jgemma.REDUCED, registry.get_reduced_config("gemma2-2b")
     for f in dataclasses.fields(cfg):
-        if f.name == "dtype":
+        if f.name in ("dtype", "param_dtype"):
             continue
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
     assert cfg.layer_windows() == list(np.asarray(jcfg.layer_windows()))
     assert cfg.padded_vocab == jcfg.padded_vocab
     assert cfg.dtype == torch.float32 and jcfg.dtype == jnp.float32
+    assert cfg.param_dtype == torch.float32
+    assert jcfg.param_dtype == jnp.float32
 
 
 def test_loss_and_grads_match_reference():
