@@ -44,9 +44,10 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    ``(d,)`` f32, each bitwise;
    and the kernels' whole domain (``check_domain_kernels``):
    ``robust_sum`` at s = 17 and s = 32 (trimmed k=2 and median; the
-   masked-min passes, ``robust_sum_large_s``) and ``h_update`` in both
-   forms at n = 4097 rows (slot and down from global memory), bitwise,
-   each with its time and byte bound;
+   shared-memory lists, ``robust_sum_large_s``) and ``h_update`` in both
+   forms at n = 4097 rows and at a population of 8192 rows (the row list
+   and its tiles), bitwise, each with its time and byte bound (and the
+   row list's and the tiles' own device times);
 4. runs one round of the reduced gemma2-2b config on the card and on the
    CPU (one intra-op thread) with the same injected schedule and batches,
    and compares them:
@@ -506,10 +507,12 @@ def bound_ms(nbytes: float) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def owned_entries(slot, band, m: int, s: int) -> int:
-    """How many (row, coordinate) pairs the slots own: the x entries the
-    UpCom must read and the h entries the update must touch."""
-    per_band = torch.bincount(band, minlength=m).tolist()
+def owned_entries(slot, band, m: int, s: int, cov=None) -> int:
+    """How many (row, coordinate) pairs the slots own, on the coordinates
+    ``cov`` marks where it is given: the x entries the UpCom must read and
+    the h entries the update must touch."""
+    per_band = torch.bincount(band if cov is None else band[cov],
+                              minlength=m).tolist()
     total = 0
     for sl in slot.tolist():
         if 0 <= sl < m:
@@ -537,6 +540,36 @@ def owned_sectors(slot, band, m: int, s: int, width: int,
                 own = torch.nn.functional.pad(own, (0, pad))
             total += int(own.view(-1, per).any(dim=1).sum())
     return total
+
+
+def h_update_sector_floor_ms(slot, band, m: int, s: int, down, cov,
+                             d: int) -> float:
+    """The least time of ``h_update`` when device memory moves whole
+    32-byte sectors (rows taken on the sector grid): x_bar and band (and
+    the gate) once; each sector of an owning row that holds an owned
+    (covered) entry read in x and h and written in h; each sector of a
+    down row that holds a (covered) coordinate written, and read as well
+    where it also holds an uncovered coordinate, whose bits must stay."""
+    from repro_torch.kernels.compress import owned_from_band
+
+    live = (torch.ones(d, dtype=torch.bool, device=band.device)
+            if cov is None else cov)
+    pad = -d % 8
+    sectors = lambda t: torch.nn.functional.pad(t, (0, pad)).view(-1, 8)
+    owned = 0
+    for sl in slot.tolist():
+        if 0 <= sl < m:
+            own = owned_from_band(torch.tensor(sl, device=band.device),
+                                  band, m, s) & live
+            owned += int(sectors(own).any(dim=1).sum())
+    exists = sectors(torch.ones(d, dtype=torch.bool, device=band.device))
+    lv = sectors(live)
+    full = int((lv == exists).all(dim=1).sum())
+    partial = int((lv.any(dim=1) & ~(lv == exists).all(dim=1)).sum())
+    n_down = slot.numel() if down is None else int(down.sum())
+    nbytes = (8 * d + (0 if cov is None else d) + 96 * owned
+              + n_down * (32 * full + 64 * partial))
+    return bound_ms(nbytes)
 
 
 def with_floor(rec: dict) -> dict:
@@ -792,36 +825,26 @@ def check_fault_kernels(spec, dev):
 def check_domain_kernels(dev):
     """The kernels past the sizes their first instantiations stage:
     ``robust_sum`` at s = 17 and s = 32, trimmed (k = 2) and median, on
-    ``(s + 4, D_DOMAIN)`` with a dropped and an idle row of NaN, ties, +-inf
-    and +-0.0 (the s masked-min passes, ``robust_sum_large_s``), and
-    ``h_update`` in both forms at n = 4097 (64 in the cohort, a quarter of
-    the rows downloading; slot and down read from global memory,
-    ``h_update_large_n``, ``h_update_covered_large_n``), each bitwise
-    against its plain version, timed beside its byte bound (at s = 32 the
-    passes re-read each owned entry up to s times: the bound counts one
-    read).  Returns their records."""
-    from repro_torch.dist import comm_ws
+    ``smoke_phases.robust_domain_inputs`` at ``D_DOMAIN`` (NaN rows, ties,
+    +-inf and +-0.0; each owner read once into shared-memory lists,
+    ``robust_sum_large_s``), and ``h_update`` in both forms on
+    ``smoke_phases.h_update_domain_inputs`` at n = 4097 (64 in the cohort,
+    a quarter of the rows downloading) and at ``H_POPULATION`` (the cohort
+    downloading; the row list and its tiles, ``h_update_large_n``,
+    ``h_update_covered_large_n``), each bitwise against its plain version
+    (NaN where it is NaN), timed beside its byte bound as
+    ``smoke_phases.py --phase domain`` times any tree.  Returns their
+    records (the population's under ``population``)."""
     from repro_torch.kernels import _build, ref, uplink
+    from smoke_phases import (H_POPULATION, h_update_domain_inputs,
+                              robust_domain_inputs)
 
     d = D_DOMAIN
-    g = torch.Generator(device=dev).manual_seed(11)
     recs = []
     rb = {}
     for s in (17, 32):
-        m = s + 2
-        n = s + 4
-        # s members on columns 0..s-1 in a shuffled order, then a dropped
-        # row (NaN), an idle row (NaN) and two rows on the last columns
-        slot = torch.tensor(
-            np.random.default_rng(s).permutation(m)[:s].tolist()
-            + [-1, -1, s, s + 1], dtype=torch.int32, device=dev)
-        band = comm_ws.cyclic_band([d], m, s, dev)
-        x = torch.randn(n, d, generator=g, device=dev)
-        x[s:s + 2] = float("nan")
-        x[0, ::1000] = float("inf")
-        x[2, 500::1000] = float("-inf")
-        x[3, ::7] = x[0, ::7]
-        x[4, 3::29], x[5, 3::29] = 0.0, -0.0
+        x, slot, band, m = robust_domain_inputs(s, d, dev)
+        n = x.shape[0]
         owned = owned_entries(slot, band, m, s)
         for kind, k in (("trimmed", 2), ("median", 0)):
             before = _build.launch_counts["robust_sum_large_s"]
@@ -832,18 +855,29 @@ def check_domain_kernels(dev):
             bar_p, cnt_p = ref.robust_sum(x, slot, band, m, s, kind, k)
             torch.cuda.synchronize()
             e = max(max_abs_err(bar, bar_p), max_abs_err(cnt, cnt_p))
-            same = bool(torch.equal(bar.view(torch.int32),
-                                    bar_p.view(torch.int32)))
+            # the bits, NaN where NaN: a zero's sign is what the sorting
+            # network could get wrong, and max_abs_err cannot see it
+            nan = bar.isnan()
+            same = (bool(torch.equal(nan, bar_p.isnan()))
+                    and bool(torch.equal(
+                        bar.masked_fill(nan, 0.0).view(torch.int32),
+                        bar_p.masked_fill(nan, 0.0).view(torch.int32)))
+                    and bool(torch.equal(cnt.view(torch.int32),
+                                         cnt_p.view(torch.int32))))
             print(f"[check] robust_sum s={s} {kind} k={k} on ({n}, {d}): "
                   f"max abs err {e}, bitwise {same}, "
-                  f"{int(bar.isinf().sum())} inf outputs")
-            if e != 0.0:
+                  f"{int(bar.isinf().sum())} inf, {int(nan.sum())} NaN and "
+                  f"{int((bar == 0).sum())} zero outputs")
+            if e != 0.0 or not same:
                 raise AssertionError(f"robust_sum s={s} {kind}: max abs err "
-                                     f"{e}, want 0")
+                                     f"{e}, bitwise {same}; want 0, True")
             rb[s, kind] = (cuda_ms(lambda: uplink.robust_sum(
                 x, slot, band, m, s, kind=kind, k=k), 5),
                 cuda_ms(lambda: ref.robust_sum(x, slot, band, m, s, kind, k),
                         1), bound_ms(4 * (owned + 3 * d + n)))
+            print(f"[check] robust_sum s={s} {kind}: {rb[s, kind][0]:.4f} "
+                  f"ms, plain {rb[s, kind][1]:.3f} ms, bound "
+                  f"{rb[s, kind][2]:.4f} ms")
             del bar, cnt, bar_p, cnt_p
         del x
     recs.append({
@@ -856,57 +890,76 @@ def check_domain_kernels(dev):
         "s17_bound_ms": rb[17, "trimmed"][2],
     })
 
-    n, m, s = 4097, 64, 2
-    rng = np.random.default_rng(n)
-    slot_np = np.full(n, -1, np.int32)
-    slot_np[rng.choice(n, m, replace=False)] = rng.permutation(m)
-    slot = torch.from_numpy(slot_np).to(dev)
-    down = torch.from_numpy((rng.random(n) < 0.25).astype(np.int32)).to(dev)
-    band = comm_ws.cyclic_band([D_DOMAIN_ROWS], m, s, dev)
-    dn = D_DOMAIN_ROWS
-    x = torch.randn(n, dn, generator=g, device=dev)
-    x[torch.from_numpy(slot_np < 0).to(dev)] = float("nan")
-    h = torch.randn(n, dn, generator=g, device=dev).mul_(0.01)
-    x_bar = torch.randn(dn, generator=g, device=dev)
-    covered = torch.rand(dn, generator=g, device=dev) < 0.75
-    owned = owned_entries(slot, band, m, s)
-    n_down = int(down.sum())
-    for cov in (None, covered):
-        name = ("h_update" if cov is None else "h_update_covered") + \
-            "_large_n"
-        xk, hk = x.clone(), h.clone()
-        xp, hp = x.clone(), h.clone()
-        before = _build.launch_counts[name]
-        uplink.h_update(xk, hk, x_bar, slot, band, m, s, 0.37, down=down,
-                        covered=cov)
-        if _build.launch_counts[name] != before + 1:
-            raise AssertionError(f"h_update at n={n} did not take {name}")
-        ref.h_update(xp, hp, x_bar, slot, band, m, s, 0.37, down=down,
-                     covered=cov)
-        torch.cuda.synchronize()
-        err = max(max_abs_err(xk, xp), max_abs_err(hk, hp))
-        print(f"[check] {name} at n={n} ({m} owners' slots, {n_down} down "
-              f"rows) on ({n}, {dn}): max abs err {err}")
-        if err != 0.0:
-            raise AssertionError(f"{name}: max abs err {err}, want 0")
-        nc = dn if cov is None else int(cov.sum())
-        recs.append({
-            "name": name, "shape": [n, dn], "max_abs_err": err,
-            "tolerance": 0.0,
-            "ms": cuda_ms(lambda: uplink.h_update(
+    by_name = {}
+    pop = H_POPULATION
+    for n, dn, m, s, population in (
+            (4097, D_DOMAIN_ROWS, 64, 2, False),
+            (pop["n"], pop["d"], pop["cohort"], pop["s"], True)):
+        for form in ("h_update", "h_update_covered"):
+            name = form + "_large_n"
+            # the kernel's operands (made anew for each form), then the
+            # plain version's (a copy)
+            a = h_update_domain_inputs(n, dn, m, s, population, dev)
+            xk, hk, x_bar, slot, down, band = (
+                a["x"], a["h"], a["x_bar"], a["slot"], a["down"], a["band"])
+            cov = None if form == "h_update" else a["covered"]
+            del a
+            xp, hp = xk.clone(), hk.clone()
+            before = _build.launch_counts[name]
+            uplink.h_update(xk, hk, x_bar, slot, band, m, s, 0.37,
+                            down=down, covered=cov)
+            if _build.launch_counts[name] != before + 1:
+                raise AssertionError(f"h_update at n={n} did not take "
+                                     f"{name}")
+            ref.h_update(xp, hp, x_bar, slot, band, m, s, 0.37, down=down,
+                         covered=cov)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(xk, xp), max_abs_err(hk, hp))
+            n_down = int(down.sum())
+            print(f"[check] {name} at n={n} ({m} owners' slots, {n_down} "
+                  f"down rows) on ({n}, {dn}): max abs err {err}")
+            if err != 0.0:
+                raise AssertionError(f"{name}: max abs err {err}, want 0")
+            nc = dn if cov is None else int(cov.sum())
+            owned = owned_entries(slot, band, m, s, cov)
+            call = (lambda: uplink.h_update(
                 xk, hk, x_bar, slot, band, m, s, 0.37, down=down,
-                covered=cov), 5),
-            "plain_ms": cuda_ms(lambda: ref.h_update(
-                xp, hp, x_bar, slot, band, m, s, 0.37, down=down,
-                covered=cov), 1),
-            # (the gate read,) x_bar and band read and the down rows of x
-            # written on the (covered) coordinates, owned x read and owned
-            # h read and written, slot and down read
-            "bound_ms": bound_ms((0 if cov is None else dn) + 4 * (
-                2 * nc + n_down * nc + 3 * owned + 2 * n)),
-        })
-        del xk, hk, xp, hp
-    return recs
+                covered=cov))
+            rec = {
+                "name": name, "shape": [n, dn], "max_abs_err": err,
+                "tolerance": 0.0, "ms": cuda_ms(call, 5),
+                "plain_ms": cuda_ms(lambda: ref.h_update(
+                    xp, hp, x_bar, slot, band, m, s, 0.37, down=down,
+                    covered=cov), 1),
+                # (the gate read,) x_bar and band read and the down rows of
+                # x written on the (covered) coordinates, x read and h read
+                # and written where a row owns a (covered) coordinate, slot
+                # and down read
+                "bound_ms": bound_ms((0 if cov is None else dn) + 4 * (
+                    2 * nc + n_down * nc + 3 * owned + 2 * n)),
+                "sector_floor_ms": h_update_sector_floor_ms(
+                    slot, band, m, s, down, cov, dn),
+            }
+            # the row list's and the tiles' own device times; the rest of
+            # ms is the two launches' gaps
+            for part, kernel in (("list", "h_update_row_list_kernel"),
+                                 ("tiles", "h_update_tiles_kernel")):
+                rec[f"{part}_ms"], rec["parts_by"] = kernel_only_ms(
+                    call, kernel)
+            print(f"[check] {name} on ({n}, {dn}): {rec['ms']:.4f} ms "
+                  f"({rec['bound_ms'] / rec['ms']:.1%} of the bound "
+                  f"{rec['bound_ms']:.4f} ms, "
+                  f"{rec['sector_floor_ms'] / rec['ms']:.1%} of the sector "
+                  f"floor {rec['sector_floor_ms']:.4f} ms); row list "
+                  f"{rec['list_ms']:.4f} ms, tiles {rec['tiles_ms']:.4f} ms "
+                  f"({rec['parts_by']})")
+            if population:
+                by_name[name]["population"] = rec
+            else:
+                by_name[name] = rec
+            del xk, hk, xp, hp
+            torch.cuda.empty_cache()
+    return recs + list(by_name.values())
 
 
 def check_wire_kernels(spec, dev):

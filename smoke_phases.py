@@ -5,10 +5,11 @@ device: to compare two trees on one card (parent, change, change, parent)
 or to rerun a phase alone.  Each checkout builds its kernels under its own
 tree at its first process.  Each process prints the phases' own lines;
 a summary of every ``[tag] N decode steps`` reading (prefill and
-generation ms per step) and of every training path's L=1 round seconds
-and peak memory by process follows.  The environment passes on, so
-``REPRO_DISABLE_FLASH=1 python3 smoke_phases.py --tree . --phase
-memory_dense`` gives the memory table's dense rows.
+generation ms per step), of every ``[domain]`` kernel time and of every
+training path's L=1 round seconds and peak memory by process follows.
+The environment passes on, so ``REPRO_DISABLE_FLASH=1 python3
+smoke_phases.py --tree . --phase memory_dense`` gives the memory table's
+dense rows.
 
   python3 smoke_phases.py --tree _checkout/parent --tree . --tree . \\
       --tree _checkout/parent --phase serve --phase serve_rwkv
@@ -40,7 +41,106 @@ PHASES = {
     # the memory table's rows of the attention this process's switch gives
     # (the dense path under REPRO_DISABLE_FLASH=1)
     "memory_dense": 'memory_rows(dev, ("dense",))',
+    # the kernels past the staged limits, timed on this file's inputs
+    # (time_domain below): any tree's wrappers, parent or change
+    "domain": "time_domain(dev)",
 }
+
+# h_update past 4096 rows at a population's size: 8192 clients, a cohort
+# of 64 at s = 2 downloading (x and h 8.6 GB each)
+H_POPULATION = dict(n=8192, d=(1 << 18) + 3, cohort=64, s=2)
+# robust_sum's s past the register kernel's 16 that time_domain reads:
+# chip_smoke.check_domain_kernels' two, and the 64-value network's ends
+DOMAIN_S = (17, 32, 33, 64)
+
+
+def robust_domain_inputs(s: int, d: int, dev):
+    """``robust_sum``'s inputs past s = 16 on ``(s + 4, d)``: s members on
+    s of the m = s + 2 columns in a shuffled order, then a dropped and an
+    idle row (NaN) and two rows on the last columns, which the members
+    hold too at s = 17 and 32 (those columns' coordinates have up to
+    s + 2 owners), with +-inf, ties and a +0/-0 tie.  Returns
+    ``(x, slot, band, m)``, made from the seed s."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import comm_ws
+
+    m, n = s + 2, s + 4
+    g = torch.Generator(device=dev).manual_seed(s)
+    slot = torch.tensor(
+        np.random.default_rng(s).permutation(m)[:s].tolist()
+        + [-1, -1, s, s + 1], dtype=torch.int32, device=dev)
+    band = comm_ws.cyclic_band([d], m, s, dev)
+    x = torch.randn(n, d, generator=g, device=dev)
+    x[s:s + 2] = float("nan")
+    x[0, ::1000] = float("inf")
+    x[2, 500::1000] = float("-inf")
+    x[3, ::7] = x[0, ::7]
+    x[4, 3::29], x[5, 3::29] = 0.0, -0.0
+    return x, slot, band, m
+
+
+def h_update_domain_inputs(n: int, d: int, m: int, s: int, population: bool,
+                           dev) -> dict:
+    """``h_update``'s inputs past 4096 rows on ``(n, d)``: m owners' slots
+    on shuffled rows, the idle rows' x NaN, h at 0.01 of x's scale, 75% of
+    the coordinates covered; a quarter of the rows download, or at a
+    population the cohort.  Keys x, h, x_bar, slot, down, band, covered;
+    made from the seed n."""
+    import numpy as np
+    import torch
+    from repro_torch.dist import comm_ws
+
+    rng = np.random.default_rng(n)
+    g = torch.Generator(device=dev).manual_seed(n)
+    slot_np = np.full(n, -1, np.int32)
+    slot_np[rng.choice(n, m, replace=False)] = rng.permutation(m)
+    down_np = (slot_np >= 0) if population else rng.random(n) < 0.25
+    x = torch.randn(n, d, generator=g, device=dev)
+    x[torch.from_numpy(slot_np < 0).to(dev)] = float("nan")
+    return {
+        "x": x,
+        "h": torch.randn(n, d, generator=g, device=dev).mul_(0.01),
+        "x_bar": torch.randn(d, generator=g, device=dev),
+        "covered": torch.rand(d, generator=g, device=dev) < 0.75,
+        "slot": torch.from_numpy(slot_np).to(dev),
+        "down": torch.from_numpy(down_np.astype(np.int32)).to(dev),
+        "band": comm_ws.cyclic_band([d], m, s, dev),
+    }
+
+
+def time_domain(smoke: dict, dev) -> None:
+    """``robust_sum`` at each s of DOMAIN_S, trimmed (k = 2) and median, on
+    ``robust_domain_inputs``, and ``h_update`` in both forms at 4097 rows
+    (64 owners, ``chip_smoke.D_DOMAIN_ROWS`` columns) and at H_POPULATION,
+    through the wrappers of the tree whose ``chip_smoke.py`` gave
+    ``smoke``: ms per call (CUDA events, 5 calls after a warm-up), the
+    timing ``chip_smoke.check_domain_kernels`` reports."""
+    import torch
+    from repro_torch.kernels import uplink
+
+    cuda_ms = smoke["cuda_ms"]
+    d = smoke["D_DOMAIN"]
+    for s in DOMAIN_S:
+        x, slot, band, m = robust_domain_inputs(s, d, dev)
+        for kind, k in (("trimmed", 2), ("median", 0)):
+            ms = cuda_ms(lambda: uplink.robust_sum(x, slot, band, m, s,
+                                                   kind=kind, k=k), 5)
+            print(f"[domain] robust_sum s={s} {kind} ({s + 4}, {d}): "
+                  f"{ms:.4f} ms", flush=True)
+        del x
+    pop = H_POPULATION
+    for n, dn, m, s in ((4097, smoke["D_DOMAIN_ROWS"], 64, 2),
+                        (pop["n"], pop["d"], pop["cohort"], pop["s"])):
+        a = h_update_domain_inputs(n, dn, m, s, n == pop["n"], dev)
+        for name, c in (("h_update", None), ("h_update_covered",
+                                              a["covered"])):
+            ms = cuda_ms(lambda: uplink.h_update(
+                a["x"], a["h"], a["x_bar"], a["slot"], a["band"], m, s,
+                0.37, down=a["down"], covered=c), 5)
+            print(f"[domain] {name} ({n}, {dn}): {ms:.4f} ms", flush=True)
+        del a
+        torch.cuda.empty_cache()
 
 CHILD = r"""
 import os, runpy, sys
@@ -54,12 +154,15 @@ from repro_torch.dist import tamuna_dp
 smoke["tamuna_dp"] = tamuna_dp
 smoke["TWO_LAYERS"] = dataclasses.replace(gemma2_2b.CONFIG, n_layers=2)
 from repro_torch.kernels import _build
+
+phases = runpy.run_path(sys.argv[1], run_name="phases")
+smoke["time_domain"] = lambda dev: phases["time_domain"](smoke, dev)
 path, secs, _ = _build.build()
 print(f"[build] {os.path.relpath(path, tree)} in {secs:.1f} s", flush=True)
 _build.load()
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-for call in sys.argv[1:]:
+for call in sys.argv[2:]:
     eval(call, smoke, {"dev": torch.device("cuda", 0)})
     sys.stdout.flush()
 """
@@ -68,6 +171,7 @@ ROUND = re.compile(r"^\[(\w+)\] round (\d+): L=(\d+) loss \S+ wall "
                    r"([\d.]+) s")
 PEAK = re.compile(r"^\[(\w+)\] max_memory_allocated \d+ B \(([\d.]+) "
                   r"GiB\)")
+DOMAIN = re.compile(r"^\[domain\] (.*): ([\d.]+) ms$")
 STEPS = re.compile(r"^\[(\w+)\] \d+ decode steps: prefill .*?\(([\d.]+) ms "
                    r"per step\), generation .*?\(([\d.]+) ms per step")
 
@@ -85,11 +189,11 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True)
     print(f"[card] {card.stdout.strip()}", flush=True)
     rows, rc = [], 0
-    trains, peaks = {}, {}
+    trains, peaks, domain = {}, {}, []
     for i, tree in enumerate(args.tree):
         print(f"[process {i}] {tree}: {' '.join(args.phase)}", flush=True)
         proc = subprocess.run(
-            [sys.executable, "-c", CHILD,
+            [sys.executable, "-c", CHILD, os.path.abspath(__file__),
              *(PHASES[p] for p in args.phase)],
             cwd=os.path.abspath(tree), capture_output=True, text=True)
         sys.stdout.write(proc.stdout)
@@ -106,9 +210,14 @@ def main(argv=None) -> int:
                     m.group(4))
         for m in filter(None, map(PEAK.match, lines)):
             peaks[i, tree, m.group(1)] = m.group(2)
+        domain += [(i, tree, *m.groups()) for m in map(DOMAIN.match, lines)
+                   if m]
     print("[summary] process, tree, path, prefill ms per step, generation "
           "ms per step")
     for row in rows:
+        print("[summary] " + ", ".join(map(str, row)))
+    print("[summary] process, tree, kernel and shape, ms per call")
+    for row in domain:
         print("[summary] " + ", ".join(map(str, row)))
     print("[summary] process, tree, path, L=1 round seconds, peak GiB")
     for key in sorted(set(trains) | set(peaks)):

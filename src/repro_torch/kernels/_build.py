@@ -115,11 +115,15 @@ def load() -> ctypes.CDLL:
                                          p, i32, p]
     pi = ctypes.POINTER(ctypes.c_int)
     lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
-                                      i32, i32, i32, p, pi]
+                                      i32, i32, i32, p, i64, p, pi]
+    lib.tamuna_robust_sum_scratch.argtypes = [i64, i64, i32]
+    lib.tamuna_robust_sum_scratch.restype = i64
+    lib.tamuna_h_update_scratch.argtypes = [i64]
+    lib.tamuna_h_update_scratch.restype = i64
     lib.tamuna_h_update.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32,
-                                    i32, f32, p, pi]
+                                    i32, f32, p, p, pi]
     lib.tamuna_h_update_covered.argtypes = [p, p, p, p, p, p, p, i64, i64,
-                                            i64, i32, i32, f32, p, pi]
+                                            i64, i32, i32, f32, p, p, pi]
     lib.tamuna_local_step.argtypes = [p, p, p, p, i64, f32, p]
     lib.tamuna_compress.argtypes = [p, i32, p, p, i64, i64, i32, i32, p]
     lib.tamuna_decode_attention.argtypes = [p, i32, p, p, i32, p, p, p, i32,

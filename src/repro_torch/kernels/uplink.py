@@ -34,9 +34,15 @@ it never waits for the card.
 median of the owned values.  It moves the bytes of the counts kernel, in
 the same layout; its order statistics stay in registers, S per column, so
 a lane takes 16 columns for s <= 4, 8 for s <= 8 and 4 for s <= 16.  For
-``s > 16`` a second kernel runs the Pallas body's s passes
-of masked-min extraction, a thread per coordinate reading the owners from
-global memory in every pass (``robust_sum_large_s``).
+``s > 16`` a second kernel (``robust_sum_large_s``) also reads each owned
+entry once, in one walk over the rows with a column per thread, and
+appends it to its column's list in shared memory (up to ``min(s + 8,
+n)`` values per column, rank-major so a warp's accesses hit distinct
+banks; 256 columns per block, 128 where the lists need it); each thread
+then sorts its column, through a bitonic network in registers for s up
+to 64, and combines.  Past what 128 columns' lists fit in one block's
+shared memory the lists live in a global scratch buffer that the wrapper
+allocates.
 
 ``h_update`` replaces ``repro.kernels.uplink.h_update`` (``_h_update_kernel``,
 uplink.py:153): ``h += scale (x_bar - x)`` on owned coordinates and the
@@ -45,11 +51,17 @@ and write h on owned entries, read x_bar and the band, and write the
 ``down`` rows of x: 4 B x (3 s + 2 + n_down) per coordinate.  With
 ``covered`` it replaces ``_h_update_covered_kernel`` (uplink.py:167): both
 updates gated by a ``(d,)`` bool, 1 B per coordinate more, and nothing
-touched where the gate is off.  The kernel makes one pass over the
-coordinates, 4 per thread, reading x_bar, the band and the gate once and
-then every row that owns or downloads any of the 4.  Up to 4096 rows it
-stages slot and down in shared memory; above, an instantiation reads them
-from global memory (``h_update_large_n``, ``h_update_covered_large_n``).
+touched where the gate is off.  A thread takes 4 coordinates, reads
+x_bar, the band and the gate once and then each row that owns or
+downloads any of the 4.  Up to 4096 rows the kernel stages slot and down
+in shared memory and walks every row per quad; above
+(``h_update_large_n``, ``h_update_covered_large_n``) one block first
+lists, on the stream, the rows whose slot lies in ``[0, m)`` or that
+download (into an ``n + 1`` int scratch buffer the wrapper allocates;
+the length stays on the card), and a persistent grid then walks (16
+listed rows) x (1024 columns) tiles, a warp's lanes on consecutive
+columns, so only those rows are visited, a partly covered or ragged row
+still moves whole sectors, and a small ``d`` still fills the card.
 The C entries pick the kernel by size (``kMaxRobustS``, ``kHMaxRows`` in
 the source) and report which one they launched, which names the count.
 
@@ -220,11 +232,17 @@ def robust_sum(x: torch.Tensor, slot: torch.Tensor, band: torch.Tensor,
     n, d = x.shape
     bar = torch.empty(d, dtype=torch.float32, device=x.device)
     cnt = torch.empty(d, dtype=torch.float32, device=x.device)
+    lib = _build.load()
+    # the lists of a very large s live in global memory (0 bytes otherwise)
+    nbytes = lib.tamuna_robust_sum_scratch(n, d, s)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+               if nbytes else None)
     variant = ctypes.c_int(-1)
-    rc = _build.load().tamuna_robust_sum(
+    rc = lib.tamuna_robust_sum(
         x.data_ptr(), slot.data_ptr(), band.data_ptr(), bar.data_ptr(),
         cnt.data_ptr(), n, d, x.stride(0), m, s, int(k),
-        int(kind == "median"), _build.stream_of(x), ctypes.byref(variant))
+        int(kind == "median"), None if scratch is None else scratch.data_ptr(),
+        nbytes, _build.stream_of(x), ctypes.byref(variant))
     _build.check_variant_launch(("robust_sum", "robust_sum_large_s"), rc,
                                 variant)
     return bar, cnt
@@ -252,8 +270,13 @@ def h_update(x: torch.Tensor, h: torch.Tensor, x_bar: torch.Tensor,
     lib = _build.load()
     args = (x.data_ptr(), h.data_ptr(), x_bar.data_ptr(), slot.data_ptr(),
             down.data_ptr(), band.data_ptr())
+    # past the rows it stages, the kernel lists the rows it touches
+    nrows = lib.tamuna_h_update_scratch(n)
+    rows = (torch.empty(nrows, dtype=torch.int32, device=x.device)
+            if nrows else None)
     variant = ctypes.c_int(-1)
-    tail = (n, d, x.stride(0), m, s, float(scale), _build.stream_of(x),
+    tail = (n, d, x.stride(0), m, s, float(scale),
+            None if rows is None else rows.data_ptr(), _build.stream_of(x),
             ctypes.byref(variant))
     if covered is None:
         name = "h_update"

@@ -267,7 +267,7 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         uplink.masked_sum(x, slot.cpu(), band, M, S)
     with pytest.raises(ValueError):
         fused_local_step(x.t(), x.t(), x.t(), 0.1)
-    # s > 16 is taken by the passes kernel; s > m is not
+    # s > 16 is taken by the shared-memory kernel; s > m is not
     with pytest.raises(ValueError):
         uplink.robust_sum(x, slot, band, M, M + 1, kind="median")
     with pytest.raises(ValueError):
@@ -1119,10 +1119,10 @@ def test_whisper_serve_on_the_card_matches_the_cpu(dev):
     assert launches == {}
 
 
-# -- the kernels' whole domain: robust_sum past s = 16 (s masked-min passes
-# from global memory) and h_update past 4096 rows (slot and down read from
-# global memory); the sizes up to those keep the register and staged
-# kernels
+# -- the kernels' whole domain: robust_sum past s = 16 (each column's
+# owners in a shared-memory list) and h_update past 4096 rows (the rows that
+# own or download listed, then walked in tiles); the sizes up to those keep
+# the register and staged kernels
 
 def _robust_edge(dev, s, layout, dup=False):
     """``_edge_inputs`` for the robust UpCom at sparsity ``s``: ``s + 2``
@@ -1208,6 +1208,137 @@ def test_h_update_past_4096_rows_is_bitwise_plain(dev, n, covered):
     torch.cuda.synchronize()
     assert torch.equal(hk, h)
     assert _same(xk, x)
+
+
+# -- the redesigned bodies past the staged limits: robust_sum's lists in
+# shared memory (fewer columns per block as s grows, global memory past
+# 32 threads' worth) and h_update's row list and tiles
+
+def _robust_large(dev, x, slot, band, m, s, kind, k):
+    before = dict(_build.launch_counts)
+    bar, cnt = uplink.robust_sum(x, slot, band, m, s, kind=kind, k=k)
+    assert {n for n in _build.launch_counts
+            if _build.launch_counts[n] != before[n]} == {"robust_sum_large_s"}
+    bar_p, cnt_p = ref.robust_sum(x, slot, band, m, s, kind, k)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(cnt), _bits(cnt_p))
+    nan = bar.isnan()
+    assert torch.equal(nan, bar_p.isnan())
+    assert torch.equal(_bits(bar.masked_fill(nan, 0.0)),
+                       _bits(bar_p.masked_fill(nan, 0.0)))
+    return bar
+
+
+@pytest.mark.parametrize("kind,k", [("trimmed", 2), ("median", 0)])
+@pytest.mark.parametrize("s", [33, 64])
+def test_robust_sum_large_s_is_bitwise_plain(dev, s, kind, k):
+    """s = 33 and 64: the 64-value network in registers."""
+    x, slot, band, m = _robust_edge(dev, s, "aligned")
+    bar = _robust_large(dev, x, slot, band, m, s, kind, k)
+    assert bool(bar.isnan().any()) and bool(bar.isinf().any())
+
+
+@pytest.mark.parametrize("kind,k", [("trimmed", 3), ("median", 0)])
+@pytest.mark.parametrize("s", [17, 33])
+def test_robust_sum_large_s_past_its_list(dev, s, kind, k):
+    """Twelve more rows on the first twelve slots: columns with up to s +
+    12 owners, past the list's s + 8 slots (sorted in the buffer, then
+    each later value inserted, the largest falling off)."""
+    m = s + 2
+    cols = np.random.default_rng(s).permutation(m)[:s].tolist()
+    slots = cols + [-1, -1] + cols[:12]
+    x, slot, band = _edge_inputs(dev, len(slots), "aligned", m, slots, 60 + s)
+    x[0, 3::29], x[s + 2, 3::29] = 0.0, -0.0  # a zero tie, row order
+    x[1, 5::31] = float("nan")
+    _, cnt = ref.robust_sum(x, slot, band, m, s, kind, k)
+    assert float(cnt.max()) > s + 8
+    _robust_large(dev, x, slot, band, m, s, kind, k)
+
+
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("threads", [256, 128])
+def test_robust_sum_large_s_at_each_block_size_edge(dev, threads, side):
+    """n = s + 2 rows, so a column's list holds s + 2 values (its length
+    is min(s + 8, n)): the largest s whose lists fit a block of
+    ``threads`` columns (4 T (s + 2) bytes of shared memory within the
+    per-block limit), then one more (128 columns; past 128 the lists in
+    global memory).  These s sort by insertion."""
+    props = torch.cuda.get_device_properties(dev)
+    optin = getattr(props, "shared_memory_per_block_optin", 232448)
+    s = optin // (4 * threads) - 2 + side
+    x, slot, band, m = _robust_edge(dev, s, "aligned")
+    _robust_large(dev, x, slot, band, m, s, "trimmed", 1)
+
+
+@pytest.mark.parametrize("extra", [37, 64])
+def test_robust_sum_large_s_on_a_row_pitch(dev, extra):
+    """The first d columns of a wider workspace: a pitch off the 16-byte
+    grid (scalar loads) and on it (16-byte loads)."""
+    s = 33
+    x, slot, band, m = _robust_edge(dev, s, "aligned")
+    n, d = x.shape
+    ws = torch.full((n, d + extra), float("nan"), device=dev)
+    ws[:, :d] = x
+    for kind, k in (("trimmed", 3), ("median", 0)):
+        _robust_large(dev, ws[:, :d], slot, band, m, s, kind, k)
+
+
+def _h_large(dev, case, covered):
+    """Inputs past 4096 rows: a cohort of m rows on slots 0..m-1 (s = 2),
+    idle rows NaN, ``down`` a quarter of the rows (``cohort``: the cohort,
+    ``None``: every row)."""
+    n, d, m, down_kind, pitch = {
+        "pop8192": (8192, 2 * 4096 + 77, 64, "cohort", 0),
+        "down_none": (4097, 4096 + 260, 64, None, 0),
+        "rem1": (4097, 4096 + 1, 64, "quarter", 0),
+        "rem3": (4097, 4096 + 3, 64, "quarter", 0),
+        "pitch": (4097, 4096 + 260, 64, "quarter", 37),
+        "list17": (5000, 4096 + 260, 17, "cohort", 0),
+        "list_empty": (5000, 4096 + 260, 17, "none", 0),
+    }[case]
+    rng = np.random.default_rng(n + d)
+    slot = np.full(n, -1, np.int32)
+    members = rng.choice(n, m, replace=False)
+    slot[members] = rng.permutation(m)
+    if case == "list_empty":
+        slot[:] = -1
+    down = {"cohort": (slot >= 0).astype(np.int32),
+            "quarter": (rng.random(n) < 0.25).astype(np.int32),
+            "none": np.zeros(n, np.int32), None: None}[down_kind]
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[slot < 0] = np.nan
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    band = rng.integers(0, m, size=d).astype(np.int32)
+    band[::97] = -3  # outside [0, m): the general modulo
+    x_bar = rng.normal(size=d).astype(np.float32)
+    cov = rng.random(d) < 0.7 if covered else None
+    to = lambda a: None if a is None else torch.from_numpy(a).to(dev)
+    ws = torch.full((2, n, d + pitch), float("nan"), device=dev)
+    ws[0, :, :d], ws[1, :, :d] = to(x), to(h)
+    return (ws[0, :, :d], ws[1, :, :d], to(x_bar), to(slot), to(band), m,
+            to(down), to(cov))
+
+
+@pytest.mark.parametrize("covered", [False, True])
+@pytest.mark.parametrize("case", ["pop8192", "down_none", "rem1", "rem3",
+                                  "pitch", "list17", "list_empty"])
+def test_h_update_row_list_is_bitwise_plain(dev, case, covered):
+    """Past 4096 rows in both forms: a population of 8192 with ``down`` the
+    cohort, ``down=None``, d % 4 of 1 and 3, a row pitch off the 16-byte
+    grid, a list one row longer than a 16-row tile and an empty list."""
+    xk, hk, x_bar, slot, band, m, down, cov = _h_large(dev, case, covered)
+    xp, hp = xk.clone(), hk.clone()
+    name = ("h_update_covered" if covered else "h_update") + "_large_n"
+    before = dict(_build.launch_counts)
+    uplink.h_update(xk, hk, x_bar, slot, band, m, 2, 0.37, down=down,
+                    covered=cov)
+    assert {n for n in _build.launch_counts
+            if _build.launch_counts[n] != before[n]} == {name}
+    ref.h_update(xp, hp, x_bar, slot, band, m, 2, 0.37, down=down,
+                 covered=cov)
+    torch.cuda.synchronize()
+    assert torch.equal(hk, hp)
+    assert _same(xk, xp)
 
 
 # -- the blockwise attention's backward and remat on the card --------------

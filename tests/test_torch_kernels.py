@@ -2,7 +2,9 @@
 against the reference's Pallas kernels in interpret mode, on the same
 seeded numpy inputs: a ragged width, an idle client (slot -1) whose row
 holds NaN, and the DownCom both to every row and to a row mask;
-``masked_sum`` also at n = 1, 5 and 9 rows with bands outside [0, m).
+``masked_sum`` also at n = 1, 5 and 9 rows with bands outside [0, m);
+``h_update`` in both forms also at 4097 rows, past the kernel's staged
+4096.
 
 Tolerances: ``h_update`` and ``fused_local_step`` repeat the reference's
 arithmetic operation for operation, so they agree bitwise; ``masked_sum``
@@ -119,6 +121,39 @@ def test_h_update_matches_pallas_interpret_bitwise(down):
         assert xt.numpy()[keep].tobytes() == x[keep].tobytes()
     # the idle row owns nothing: its h is untouched
     assert ht.numpy()[1].tobytes() == h[1].tobytes()
+
+
+@pytest.mark.parametrize("covered", [False, True], ids=["plain", "covered"])
+def test_h_update_past_4096_rows_matches_pallas_interpret_bitwise(covered):
+    """A population of 4097 rows (past the kernel's 4096 staged rows): 64
+    rows in the cohort, a quarter of the rows downloading, the idle rows
+    NaN, at d = 77 (d % 4 != 0); the covered form with 70% of the
+    coordinates covered."""
+    n, d, m, s = 4097, 77, 64, 2
+    rng = np.random.default_rng(n)
+    slot = np.full(n, -1, np.int32)
+    slot[rng.choice(n, m, replace=False)] = rng.permutation(m)
+    down = (rng.random(n) < 0.25).astype(np.int32)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[slot < 0] = np.nan
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    x_bar = rng.normal(size=(d,)).astype(np.float32)
+    band = rng.integers(0, m, size=(d,)).astype(np.int32)
+    cov = rng.random(d) < 0.7 if covered else None
+    h_want, x_want = juplink.h_update(
+        jnp.asarray(x), jnp.asarray(h), jnp.asarray(x_bar),
+        jnp.asarray(slot), jnp.asarray(band), m, s, 0.37,
+        down=jnp.asarray(down),
+        covered=None if cov is None else jnp.asarray(cov), interpret=True)
+    xt, ht = torch.from_numpy(x.copy()), torch.from_numpy(h.copy())
+    uplink.h_update(xt, ht, torch.from_numpy(x_bar), torch.from_numpy(slot),
+                    torch.from_numpy(band), m, s, 0.37,
+                    down=torch.from_numpy(down),
+                    covered=None if cov is None else torch.from_numpy(cov))
+    np.testing.assert_array_equal(ht.numpy(), np.asarray(h_want))
+    np.testing.assert_array_equal(xt.numpy(), np.asarray(x_want))
+    keep = down == 0
+    assert xt.numpy()[keep].tobytes() == x[keep].tobytes()
 
 
 @pytest.mark.parametrize("shape", [(D,), (37, 129), (2, 64, 96)])

@@ -5,10 +5,11 @@
 * the plain ``robust_sum`` against the Pallas kernel in interpret mode on a
   ragged width, trimmed (k=1) and median at s=3 and s=4, with tied owner
   values, owned +inf and -inf payloads and NaN in dropped and idle rows,
-  and at s = 1, 2, 8 and 16 with n = s + 2 rows, all-+inf columns, an
-  owned NaN and bands outside [0, m) (the CUDA kernel's scalar path):
-  bitwise (both take the same order statistics, and the combine repeats
-  the body's operations in order);
+  and at s = 1, 2, 8, 16, 17 and 32 with n = s + 2 rows, all-+inf
+  columns, an owned NaN and bands outside [0, m) (the CUDA kernel's scalar
+  path), and at s = 17 with a duplicated slot (s + 1 owners): bitwise
+  (both take the same order statistics, and the combine repeats the
+  body's operations in order);
 * ``adversarial_rows`` (every mode), ``payload_norms`` and
   ``magnitude_outliers`` on the workspace against the reference's tree
   versions (the inlier mean and the norms to 1e-5 relative: the reference
@@ -68,17 +69,23 @@ def test_normalize_robust_matches_reference(kind, k, s):
 D, M = 3 * 4096 + 77, 4
 
 
-def _robust_edge_inputs(s):
+def _robust_edge_inputs(s, dup=False):
     """n = s + 2 rows over m = s + 2 template columns, D % 4 != 0: s
     active rows, row 1 dropped and the last row idle (both NaN); ties,
     +-inf, an owned NaN, columns whose every entry is +inf, and bands
-    outside [0, m), both negative and >= m (the kernel's scalar path)."""
+    outside [0, m), both negative and >= m (the kernel's scalar path).
+    ``dup`` takes the slots 0..s-1 (in a shuffled order) and adds a last
+    row on the second active row's slot, so the coordinates that every
+    slot and that row own have s + 1 owners (the s smallest are kept)."""
     rng = np.random.default_rng(100 + s)
-    n = m = s + 2
-    cols = rng.permutation(m)[:s].tolist()
-    slot = np.array([cols[0], -1] + cols[1:] + [-1], np.int32)
+    m = s + 2
+    perm = rng.permutation(m)
+    cols = [int(c) for c in perm if c < s] if dup else perm[:s].tolist()
+    slot = np.array([cols[0], -1] + cols[1:] + [-1]
+                    + (cols[1:2] if dup else []), np.int32)
+    n = len(slot)
     x = rng.normal(size=(n, D)).astype(np.float32)
-    x[1] = x[-1] = np.nan
+    x[slot < 0] = np.nan
     act = [i for i in range(n) if slot[i] >= 0]
     x[act[-1], ::7] = x[act[0], ::7]  # tied owner values
     x[act[0], ::101] = np.inf
@@ -100,11 +107,16 @@ def _robust_edge_inputs(s):
     *[pytest.param(kind, k, s, True, id=f"edges-{kind}-{k}-{s}")
       for s in (1, 2, 8, 16)
       for kind, k in (("trimmed", (s - 1) // 2), ("median", 0))],
+    # past the register kernel's s <= 16: the shared-memory lists
+    *[pytest.param(kind, k, s, True, id=f"edges-{kind}-{k}-{s}")
+      for s in (17, 32)
+      for kind, k in (("trimmed", (s - 1) // 2), ("median", 0))],
+    pytest.param("trimmed", 2, 17, "dup", id="dup-trimmed-2-17"),
 ])
 def test_robust_sum_matches_pallas_interpret_bitwise(kind, k, s, edges):
     m = M
     if edges:
-        x, slot, band, m = _robust_edge_inputs(s)
+        x, slot, band, m = _robust_edge_inputs(s, dup=edges == "dup")
     else:
         rng = np.random.default_rng(s)
         # rows 1 (dropped) and 5 (idle) own nothing and hold NaN
@@ -124,6 +136,8 @@ def test_robust_sum_matches_pallas_interpret_bitwise(kind, k, s, edges):
                                  torch.from_numpy(band), m, s, kind=kind,
                                  k=k)
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_w))
+    if edges == "dup":
+        assert cnt.numpy().max() == s + 1
     bar_w = np.asarray(bar_w)
     assert np.isinf(bar.numpy()).any()
     assert np.isnan(bar.numpy()).any() or not edges
