@@ -29,7 +29,8 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    f16 group (the small leaves), and the
    quantizer ``wire_quantize`` in int8, int4 and DownCom modes on rows
    with +inf, -inf, NaN and an all-zero chunk, each form with its share of
-   its bound;
+   its bound, and in int8 and int4 on rows 2-3 alone with ``row0`` = 2 (a
+   rank's rows: the whole pack's rows, bitwise);
    every UpCom (``masked_sum`` in both forms and every lane,
    ``robust_sum``, ``masked_sum_dequant``) with its share of the byte bound
    and of the sector floor (the owning rows' entries in whole 32-byte
@@ -78,6 +79,36 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    ``[faults]`` the survivor round, n=5, c=4, s=3, a ``CohortPlan``,
                 25% uplink drops and 20% NaN payloads, quorum policy,
                 quarantine of 2 rounds;
+   then data parallelism (``run_dp_paths``): two ranks on the one card
+   over gloo (``sharding.spawn``, the kernels built once before), each
+   rank's launch counts, peak, collective sizes and host seconds written
+   to a file and summed by the parent, the card's memory in use sampled
+   with ``nvidia-smi`` while they run:
+   ``[train_dp]`` ``[train]`` over the 2 ranks (2 rows each, the shard
+                engine's one d-sized sum per round): x, h (row digests)
+                and every round's loss bitwise ``[train]``'s, |sum_i h_i|
+                / max|h| over the ranks <= 1e-4; host and device seconds
+                per round and each sum's host seconds;
+   ``[comm_dp]`` four comm steps in turn from ``[train_dp]``'s state
+                (n=4): ``auto`` with ``wire_down``, int8 with a dropped
+                member, trimmed k=1 and median at c=4, s=3, each bitwise
+                the one-process kernel steps' in turn from ``[train]``'s
+                (the robust ones, last, up to the sign of zero), the
+                largest collective against ``d_total`` (``s`` x the
+                column chunk on robust);
+   ``[faults_dp]`` ``[faults]`` over the 2 ranks (3 and 2 rows), as 2 +
+                1 rounds: after round 1 the rows that did not download
+                bitwise ``[faults]``' (a one-process run of rounds 0-1)
+                and the downloaded x_bar within 2 ulps of each leaf's
+                max|x| (the survivor partials reassociate the three-term
+                owner sums; the local steps then carry those ulps into
+                every leaf), the losses of rounds 0-1 bitwise; over the 3
+                rounds arrivals, guard verdicts, retries and quarantine
+                windows equal, |sum_i h_i| / max|h| <= 1e-4, the losses'
+                distance printed;
+   ``[dp_nccl]`` the reduced round through a one-rank nccl group against
+                one process, bitwise (the nccl path launches and takes
+                its tensors; one rank partitions nothing);
    ``[robust]`` the robust round, n=5, c=4, s=3, 20% drops, one
                 sign-flipping Byzantine client, quorum, trimmed mean k=1
                 behind the adaptive payload guard;
@@ -371,6 +402,23 @@ TALL = dict(n=40, c=40, s=2)
 PIPE = dict(n=6, c=3, s=2)
 PIPE_ROUNDS = 6
 PIPE_LATENCY = "benchmarks/artifacts/latency_dist.json"
+# data parallelism (ROADMAP A9a): two ranks on the one card over gloo
+# (nccl takes one card per rank); [comm_dp]'s steps on [train]'s state at
+# n = N: (tag, c, s, the step's options, cohort, permutation, the
+# members that arrive (None: all)), the DownCom rows and the wire seed
+DP_WORLD = 2
+COMM_DP = (
+    ("auto_down", 3, 2, dict(wire_precision="auto", wire_down=True),
+     [0, 2, 3], [2, 0, 1], None),
+    ("int8_arrivals", 3, 2, dict(wire_precision="int8"), [0, 2, 3],
+     [2, 0, 1], [True, False, False, True]),
+    ("trimmed", 4, 3, dict(robust_agg="trimmed", trim_k=1), [0, 1, 2, 3],
+     [3, 0, 2, 1], None),
+    ("median", 4, 3, dict(robust_agg="median"), [0, 1, 2, 3], [3, 0, 2, 1],
+     None),
+)
+COMM_DP_DOWN = [True, True, False, True]
+COMM_DP_SEED = 0x5EED
 # AdamW's reduced round runs one local step (see check_reduced_adamw_round)
 # and gates columns whose g - h lies within ADAM_NEAR0 of 0 at 2 gamma
 ADAM_NEAR0 = 1e-5
@@ -1139,7 +1187,26 @@ def check_wire_kernels(spec, dev):
         if err != 0.0 or n_bad == 0:
             raise AssertionError(f"wire_quantize {kind}: max abs err {err}, "
                                  f"{n_bad} poisoned chunks")
-        del codes, scales, codes_p, scales_p
+        del codes_p, scales_p
+        # a rank's rows: rows 2-3 packed alone with row0 = 2 are those
+        # rows of the whole pack, and the plain version's with that row0
+        codes_r, scales_r = wire_pack.pack_int(x[2:], leaves, kind, 0x5EED,
+                                               row0=2)
+        codes_p, scales_p = ref.wire_pack(x[2:], leaves, kind, 0x5EED, 2)
+        torch.cuda.synchronize()
+        err_r = max(max_abs_err(codes_r, codes_p),
+                    max_abs_err(scales_r, scales_p))
+        same_r = (torch.equal(codes_r, codes[2:])
+                  and torch.equal(scales_r.view(torch.int32),
+                                  scales[2:].view(torch.int32)))
+        print(f"[check] wire_quantize {kind} with row0 = 2 on rows 2-3: max "
+              f"abs err {err_r} against the plain version, the whole "
+              f"pack's rows 2-3 bitwise {same_r}")
+        if err_r != 0.0 or not same_r:
+            raise AssertionError(f"wire_quantize {kind} row0: max abs err "
+                                 f"{err_r}, whole pack's rows {same_r}")
+        err = max(err, err_r)
+        del codes, scales, codes_p, scales_p, codes_r, scales_r
         q[kind] = (err, cuda_ms(lambda: wire_pack.pack_int(
             x, leaves, kind, 0x5EED), 5), cuda_ms(lambda: ref.wire_pack(
                 x, leaves, kind, 0x5EED), 2), n_bad)
@@ -2938,12 +3005,14 @@ def run_checkpoint(dev, root: str) -> dict:
     return launches
 
 
-def row_digests(ws: torch.Tensor, chunk: int = 1 << 25) -> np.ndarray:
+def row_digests(ws: torch.Tensor, chunk: int = 1 << 25,
+                zero_sign: bool = False) -> np.ndarray:
     """``(n, 2)`` int64 digest of each row's bits: two sums, wrapping mod
     2**64, of the row's int32 bit patterns times fixed random odd int64
     weights.  Wrapping addition does not depend on the order of the adds,
     so equal rows give equal digests on any run; two rows that differ in
-    any bit give equal digests with probability about 2**-128."""
+    any bit give equal digests with probability about 2**-128.  With
+    ``zero_sign`` -0 digests as +0 (bitwise up to the sign of zero)."""
     n, d = ws.shape
     g = torch.Generator(device=ws.device).manual_seed(2024)
     w = torch.randint(-(1 << 62), 1 << 62, (2, chunk), generator=g,
@@ -2951,7 +3020,10 @@ def row_digests(ws: torch.Tensor, chunk: int = 1 << 25) -> np.ndarray:
     out = torch.zeros(n, 2, dtype=torch.int64, device=ws.device)
     for a in range(0, d, chunk):
         b = min(a + chunk, d)
-        v = ws[:, a:b].view(torch.int32).to(torch.int64)
+        v = ws[:, a:b]
+        if zero_sign:
+            v = v + 0.0  # -0 + 0 = +0; every other value unchanged
+        v = v.view(torch.int32).to(torch.int64)
         out[:, 0] += (v * w[0, :b - a]).sum(1)
         out[:, 1] += (v * w[1, :b - a]).sum(1)
         del v
@@ -4082,9 +4154,9 @@ def run_sync_check(cfg, dev) -> dict:
         warnings.simplefilter("always")
         warnings.showwarning = show
 
-        def marked(pending):
+        def marked(pending, *rest):
             a = len(caught)
-            drain(pending)
+            drain(pending, *rest)
             marks.append((a, len(caught)))
 
         rounds._drain = marked
@@ -4161,6 +4233,425 @@ def run_examples() -> dict:
     if failed:
         raise AssertionError(f"[examples] non-zero exits: {failed}")
     return counts
+
+
+# --------------------------------------------------------------------------
+# data parallelism: [train_dp], [comm_dp], [faults_dp] on two gloo ranks on
+# the one card, [dp_nccl] on a one-rank nccl group (ROADMAP A9a)
+# --------------------------------------------------------------------------
+
+
+class smi_peak:
+    """Inside the block, a thread reads the card's memory in use
+    (``nvidia-smi``) every half second; ``peak`` is the largest reading,
+    MiB, every process's on the card included."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self.done = 0, threading.Event()
+        self.thread = threading.Thread(target=self._sample, daemon=True)
+        self.thread.start()
+        return self
+
+    def _sample(self):
+        while not self.done.is_set():
+            out = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used",
+                 "--format=csv,noheader,nounits"], capture_output=True,
+                text=True)
+            if out.returncode == 0 and out.stdout.strip():
+                self.peak = max(self.peak, int(out.stdout.split()[0]))
+            self.done.wait(0.5)
+
+    def __exit__(self, *exc):
+        self.done.set()
+        self.thread.join()
+
+
+def finite_absmax(ws: torch.Tensor, chunk: int = 1 << 25) -> float:
+    """max |ws| over its finite entries, in column chunks."""
+    top = 0.0
+    for a in range(0, ws.shape[1], chunk):
+        v = ws[:, a:a + chunk].abs()
+        top = max(top, float(torch.where(torch.isfinite(v), v, 0.0).max()))
+    return top
+
+
+def f32_ulp(v: float) -> float:
+    return 2.0 ** (math.floor(math.log2(v)) - 23) if v > 0 else 2.0 ** -149
+
+
+def comm_dp_steps(cfg, x, h, dev, group=None) -> dict:
+    """``[comm_dp]``'s comm steps (``COMM_DP``, in order, the robust ones
+    last) in place on the rows ``x``/``h`` hold (a rank's under
+    ``group``), each from the state the one before left (the first from
+    ``[train]``'s; no copy of the state is kept): ``{tag: (x digests, h
+    digests, seconds, largest collective)}``, the robust steps' digests up
+    to the sign of zero."""
+    from repro_torch.dist import tamuna_dp
+
+    out = {}
+    for tag, c, s, kw, cohort_, perm, arrived in COMM_DP:
+        tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P, **kw)
+        step = tamuna_dp.make_comm_step(cfg, tcfg, N, device=dev,
+                                        group=group)
+        state = tamuna_dp.DistTamunaState(
+            x=x, h=h, spec=tamuna_dp.state_spec(cfg, tcfg))
+        n_sums = 0 if group is None else len(group.sizes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, cohort_, perm, np.asarray(COMM_DP_DOWN),
+             None if arrived is None else np.asarray(arrived), True,
+             COMM_DP_SEED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del step  # its band tables
+        zs = tcfg.robust_() is not None
+        out[tag] = (row_digests(x, zero_sign=zs), row_digests(h, zero_sign=zs),
+                    secs, 0 if group is None else max(group.sizes[n_sums:]))
+    return out
+
+
+def faults_dp_reference(cfg, dev, rows3, plan3) -> dict:
+    """What ``[faults_dp]`` is held to: ``[faults]``' rows and quarantine
+    windows (``rows3``, ``plan3``), and its state after round 1 from a
+    one-process run of rounds 0-1: the rows' digests, each leaf's max|x|
+    and the x_bar round 1 downloaded (one row, kept on the card for the
+    ranks, which map it: every coordinate has an arrived owner in that
+    round, so every downloaded row holds all of it; checked)."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import cohort, faults, rounds, tamuna_dp
+
+    tcfg_f = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=CF, s=SF, p=P)
+    fplan = faults.FaultPlan(seed=0, n=NF, p_drop=0.25, p_corrupt=0.2,
+                             corrupt_mode="nan")
+    state = tamuna_dp.init_state(cfg, tcfg_f, NF, seed=0, device=dev)
+    pipe = SyntheticTokenPipeline(
+        DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=0,
+                   n_clients=NF), cfg, dev)
+    plan = cohort.CohortPlan(0, NF, CF)
+    state, _ = rounds.run_rounds(
+        state, cfg=cfg, tcfg=tcfg_f, pipe=pipe, rounds=2,
+        rng=np.random.default_rng(0),
+        generator=torch.Generator().manual_seed(1), max_L=4, flush_every=1,
+        plan=plan, faults=fplan, policy="quorum", quarantine_rounds=2)
+    # round 1's DownCom rows: round 2's cohort as the driver resolved it,
+    # after round 0's quarantine
+    resolve = rounds._make_fault_resolver(
+        fplan, n=NF, policy="quorum", q=CF // 2 + 1, max_retries=3,
+        backoff0=1.0, deadline=None,
+        host_cohort=rounds._host_cohort(plan, 1, NF, CF))
+    down = np.flatnonzero(resolve(2)["member"])
+    xd = row_digests(state.x)
+    if not all(np.array_equal(xd[i], xd[down[0]]) for i in down):
+        raise AssertionError("[faults_dp] round 1 left a coordinate "
+                             "uncovered: its downloaded rows differ")
+    leaves = list(zip(state.spec.offsets, state.spec.dims))
+    out = {"x0": xd, "h0": row_digests(state.h),
+           "xbar": state.x[int(down[0])].clone(), "leaves": leaves,
+           "leaf_max": [finite_absmax(state.x[:, o:o + D])
+                        for o, D in leaves],
+           "loss": [r["loss"] for r in rows3],
+           "counts": [(r["arrivals"], r["corrupted"], r["retries"])
+                      for r in rows3],
+           "windows": [(ids.tolist(), a, b)
+                       for ids, a, b in plan3._quarantine]}
+    print(f"[faults_dp] [faults]' rounds 0-1 in one process: rows "
+          f"{down.tolist()} downloaded x_bar, kept for the ranks "
+          f"({out['xbar'].numel() * 4 / 2**30:.2f} GiB)")
+    del state, pipe
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_h_sum_ratio(h: torch.Tensor, g) -> float:
+    """|sum_i h_i| / max|h| over every rank's rows: the column sums in
+    chunks and each rank's max|h|, summed over the ranks through ``g``."""
+    hsum = 0.0
+    for a in range(0, h.shape[1], 1 << 27):
+        col = h[:, a:a + (1 << 27)].sum(0)
+        hsum = max(hsum, float(g.all_reduce(col).abs().max()))
+    top = torch.zeros(g.world, dtype=torch.float32, device=h.device)
+    top[g.rank] = h.abs().max()
+    hmax = float(g.all_reduce(top).max())
+    return hsum / hmax if hmax > 0 else math.inf
+
+
+def dp_rank(rank: int, dev, cfg, job: dict, out_dir: str) -> None:
+    """One of the ``DP_WORLD`` ranks of the data-parallel paths, on
+    ``dev`` (cuda:0 for both) in a gloo group: ``[train_dp]`` (``[train]``
+    over the ranks), ``[comm_dp]`` (``COMM_DP``'s comm steps on the state
+    ``[train_dp]`` leaves), ``[faults_dp]`` (``[faults]`` over the ranks).
+    Each gate compares the rank's rows with the one-process path's, from
+    ``job`` (the parent's digests and rows; ``[faults]``'s state in shared
+    host memory), and raises on a miss, which fails the spawn.  Writes its
+    launch counts, peaks and collective sizes to ``out_dir``."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import cohort, faults, rounds, sharding, tamuna_dp
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    res = {"launches": {}, "peak": {}, "sums": {}}
+    spec = tamuna_dp.state_spec(
+        cfg, tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P))
+
+    def drive(tag, tcfg, n, calls=(3,), between=None, **kw):
+        """``run_rounds`` on this rank's rows in calls of ``calls`` rounds
+        (the state, streams and plans carried over; ``between(state,
+        rows)`` after the first of two), as ``run_path`` drives it."""
+        g = sharding.RankRows.of_group(n)
+        state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device=dev,
+                                     rows=g)
+        pipe = SyntheticTokenPipeline(
+            DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=0,
+                       n_clients=n), cfg, dev)
+        common = dict(cfg=cfg, tcfg=tcfg, pipe=pipe,
+                      rng=np.random.default_rng(0),
+                      generator=torch.Generator().manual_seed(1), max_L=4,
+                      flush_every=1, group=g, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        rows, secs = [], []
+        for i, k in enumerate(calls):
+            with round_events() as evs:
+                evs.start()
+                state, more = rounds.run_rounds(state, rounds=k, **common)
+            secs += evs.seconds()
+            for row in more:  # each call counts its own local steps
+                row["local_steps"] += rows[-1]["local_steps"] if rows else 0
+            rows += more
+            if between is not None and i == 0 and len(calls) > 1:
+                between(state, rows)  # launches no kernel
+        res["launches"][tag] = dict(_build.launch_counts)
+        res["peak"][tag] = torch.cuda.max_memory_allocated()
+        res["sums"][tag] = [list(g.sizes), list(g.seconds)]
+        for row, sec in zip(rows, secs):
+            extra = " ".join(f"{k} {row[k]:.6g}" for k in (
+                "arrivals", "corrupted", "retries") if k in row)
+            print(f"[{tag} rank {rank}] round {row['round']}: L={row['L']} "
+                  f"loss {row['loss']:.6f} wall {row['seconds']:.3f} s "
+                  f"device {sec:.3f} s {extra}", flush=True)
+        print(f"[{tag} rank {rank}] rows {g.row0}..{g.stop - 1} of {n}; "
+              f"all_reduce (elements, host s): "
+              f"{[(z, round(t, 3)) for z, t in zip(g.sizes, g.seconds)]}; "
+              f"peak {res['peak'][tag] / 2**30:.2f} GiB; launches "
+              f"{ {k: v for k, v in res['launches'][tag].items() if v} }",
+              flush=True)
+        if max(g.sizes) > spec.d_total:
+            raise AssertionError(f"[{tag}] a collective of {max(g.sizes)} "
+                                 f"elements > d_total {spec.d_total}")
+        del pipe
+        return state, rows, g
+
+    # [train_dp]: bitwise [train] (row digests, every round's loss)
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
+    state, rows, g = drive("train_dp", tcfg, N)
+    mine = slice(g.row0, g.stop)
+    ref = job["train"]
+    same = (np.array_equal(row_digests(state.x), ref["x"][mine])
+            and np.array_equal(row_digests(state.h), ref["h"][mine]))
+    losses = [r["loss"] for r in rows]
+    ratio = dp_h_sum_ratio(state.h, sharding.RankRows.of_group(N))
+    print(f"[train_dp rank {rank}] x and h bitwise [train]'s rows "
+          f"{g.row0}..{g.stop - 1} {same}; losses {losses} equal "
+          f"{losses == ref['loss']}; |sum_i h_i| / max|h| over the ranks "
+          f"{ratio:.3e} (limit 1e-4)", flush=True)
+    if not (same and losses == ref["loss"] and ratio <= 1e-4):
+        raise AssertionError(f"[train_dp] rank {rank} differs from [train]")
+
+    # [comm_dp]: each step bitwise the one-process kernel step's
+    g = sharding.RankRows.of_group(N)
+    torch.cuda.empty_cache()  # the rounds' cached blocks
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    got = comm_dp_steps(cfg, state.x, state.h, dev, group=g)
+    res["launches"]["comm_dp"] = dict(_build.launch_counts)
+    res["peak"]["comm_dp"] = torch.cuda.max_memory_allocated()
+    res["sums"]["comm_dp"] = [list(g.sizes), list(g.seconds)]
+    for tag, c, s, _, _, _, _ in COMM_DP:
+        gx, gh, secs, top = got[tag]
+        wx, wh, ref_secs, _ = job["comm"][tag]
+        ok = (np.array_equal(gx, wx[mine]) and np.array_equal(gh, wh[mine]))
+        robust = tag in ("trimmed", "median")
+        bound = s * min(spec.d_total, 1 << 24) if robust else spec.d_total
+        print(f"[comm_dp rank {rank}] {tag} (c={c} s={s}): x and h bitwise "
+              f"the one-process kernel step's"
+              f"{' up to the sign of zero' if robust else ''} {ok}; "
+              f"{secs:.3f} s (one process {ref_secs:.3f} s); largest "
+              f"collective {top} elements (bound "
+              f"{'s x chunk' if robust else 'd_total'} {bound}, d_total "
+              f"{spec.d_total})", flush=True)
+        if not ok or top > bound:
+            raise AssertionError(f"[comm_dp] {tag} rank {rank} differs")
+    print(f"[comm_dp rank {rank}] peak "
+          f"{res['peak']['comm_dp'] / 2**30:.2f} GiB", flush=True)
+    del state, got
+    torch.cuda.empty_cache()
+
+    # [faults_dp]: [faults] over the ranks, as 2 + 1 rounds.  Round 1's
+    # comm step sums the ranks' survivor partials, which reassociates each
+    # coordinate's three-term owner sum at s = 3 (round 0's has at most
+    # two arrived owners a coordinate): rows that did not download are
+    # bitwise, the downloaded x_bar within 2 ulps of each leaf's max|x|.
+    # The local steps carry those ulps into every leaf, so round 2 is held
+    # on its decisions and sum_i h_i = 0.
+    ref = job["faults"]
+    tcfg_f = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=CF, s=SF, p=P)
+    plan = cohort.CohortPlan(0, NF, CF)
+    first = {}
+
+    def round1(state, rows):
+        g0 = sharding.RankRows(NF, DP_WORLD, rank)
+        xd, hd = row_digests(state.x), row_digests(state.h)
+        same, ulps = [], 0.0
+        for j in range(g0.local):
+            i = g0.row0 + j
+            if np.array_equal(xd[j], ref["x0"][i]):
+                same.append(i)
+                continue
+            for (o, D), top in zip(ref["leaves"], ref["leaf_max"]):
+                d = (state.x[j, o:o + D] - ref["xbar"][o:o + D]).abs()
+                ulps = max(ulps, float(d.max()) / f32_ulp(top))
+        hsame = [g0.row0 + j for j in range(g0.local)
+                 if np.array_equal(hd[j], ref["h0"][g0.row0 + j])]
+        first.update(same=same, ulps=ulps, hsame=hsame,
+                     loss=[r["loss"] for r in rows])
+
+    state, rows, g = drive(
+        "faults_dp", tcfg_f, NF, calls=(2, 1), between=round1, plan=plan,
+        faults=faults.FaultPlan(seed=0, n=NF, p_drop=0.25, p_corrupt=0.2,
+                                corrupt_mode="nan"),
+        policy="quorum", quarantine_rounds=2)
+    counts = [(r["arrivals"], r["corrupted"], r["retries"]) for r in rows]
+    windows = [(ids.tolist(), a, b) for ids, a, b in plan._quarantine]
+    rel = [abs(r["loss"] - w) / abs(w) for r, w in zip(rows, ref["loss"])]
+    ratio = dp_h_sum_ratio(state.h, sharding.RankRows.of_group(NF))
+    print(f"[faults_dp rank {rank}] after round 1: rows {first['same']} "
+          f"bitwise [faults]', the downloaded rows' x_bar within "
+          f"{first['ulps']:.2f} ulps of each leaf's max|x| (limit 2), h "
+          f"bitwise on rows {first['hsame']}, losses of rounds 0-1 bitwise "
+          f"{first['loss'] == ref['loss'][:2]}; rounds 0-2: arrivals, guard verdicts, retries {counts} equal "
+          f"{counts == ref['counts']}, quarantine windows {windows} equal "
+          f"{windows == ref['windows']}, losses {[r['loss'] for r in rows]} "
+          f"relative to [faults]' {[f'{v:.3e}' for v in rel]} (not gated), "
+          f"|sum_i h_i| / max|h| over the ranks {ratio:.3e} (limit 1e-4)",
+          flush=True)
+    if not (first["ulps"] <= 2 and first["loss"] == ref["loss"][:2]
+            and counts == ref["counts"] and windows == ref["windows"]
+            and ratio <= 1e-4):
+        raise AssertionError(f"[faults_dp] rank {rank} differs from "
+                             "[faults]")
+    del state
+    torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def dp_nccl_rank(rank: int, dev, out_dir: str) -> None:
+    """``[dp_nccl]``: the reduced gemma2-2b round (n=4, c=3, s=2, 3
+    rounds, 64 tokens, 2 sequences, max_L 4) in one process and through a
+    one-rank nccl group (``run_rounds(group=)``, the shard engine's sums
+    on nccl), on the card: x, h (row digests) and every row bitwise.  It
+    shows that the nccl path launches and takes its tensors; with one rank
+    it partitions nothing."""
+    from repro_torch.configs import registry
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import rounds, sharding, tamuna_dp
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    cfg = registry.get_reduced_config("gemma2-2b")
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
+
+    def run(group):
+        state = tamuna_dp.init_state(cfg, tcfg, N, seed=0, device=dev,
+                                     rows=group)
+        pipe = SyntheticTokenPipeline(
+            DataConfig(seq_len=64, per_client_batch=2, vocab=512, seed=0,
+                       n_clients=N), cfg, dev)
+        _build.reset_launch_counts()
+        state, rows = rounds.run_rounds(
+            state, cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=3,
+            rng=np.random.default_rng(0),
+            generator=torch.Generator().manual_seed(1), max_L=4,
+            flush_every=2, group=group)
+        keys = ("round", "L", "loss", "local_steps", "up_floats",
+                "down_floats", "up_bytes", "down_bytes")
+        return (row_digests(state.x), row_digests(state.h),
+                [[r[k] for k in keys] for r in rows],
+                dict(_build.launch_counts))
+
+    one = run(None)
+    g = sharding.RankRows.of_group(N)
+    grp = run(g)
+    same = all(np.array_equal(a, b) for a, b in zip(one[:2], grp[:2]))
+    print(f"[dp_nccl] reduced gemma2-2b, one rank on nccl: x and h bitwise "
+          f"the one-process run {same}, rows equal {one[2] == grp[2]}; "
+          f"all_reduce sizes {g.sizes}; launches "
+          f"{ {k: v for k, v in grp[3].items() if v} } (it shows the nccl "
+          f"path launches and takes the tensors; one rank partitions "
+          f"nothing)", flush=True)
+    if not (same and one[2] == grp[2] and g.sizes):
+        raise AssertionError("[dp_nccl] the one-rank nccl run differs")
+    with open(os.path.join(out_dir, "nccl.json"), "w") as f:
+        json.dump({"launches": grp[3]}, f)
+
+
+def run_dp_paths(cfg, dev, here: str, job: dict) -> dict:
+    """Spawn the ``DP_WORLD`` gloo ranks of ``dp_rank`` on the card (the
+    parent holds no tensor on it), then the one nccl rank of
+    ``dp_nccl_rank``; a rank's failure fails the run.  Returns each path's
+    launch counts summed over its ranks."""
+    from repro_torch.dist import sharding
+
+    import gc
+
+    out_dir = os.path.join(here, "_smoke", "dp")
+    gc.collect()  # the paths' states, some held in reference cycles
+    torch.cuda.empty_cache()
+    print(f"[train_dp] {DP_WORLD} ranks on {torch.cuda.get_device_name(0)} "
+          f"over gloo: [train] (n={N} c={C} s={S}), [comm_dp] "
+          f"{[t[0] for t in COMM_DP]}, [faults_dp] (n={NF} c={CF} "
+          f"s={SF}); the parent holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    t0 = time.perf_counter()
+    with smi_peak() as mem:
+        sharding.spawn(dp_rank, DP_WORLD, backend="gloo", device="cuda",
+                       init_method=sharding.file_init_method(out_dir),
+                       args=(cfg, job, out_dir))
+    secs = time.perf_counter() - t0
+    res = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    out = {}
+    for tag in ("train_dp", "comm_dp", "faults_dp"):
+        out[tag] = {k: sum(x["launches"][tag][k] for x in res)
+                    for k in res[0]["launches"][tag]}
+        peaks = [x["peak"][tag] / 2**30 for x in res]
+        print(f"[{tag}] peak per rank {[round(p, 2) for p in peaks]} GiB; "
+              f"launches summed over the ranks "
+              f"{ {k: v for k, v in out[tag].items() if v} }")
+    print(f"[train_dp] the three gloo paths in {secs:.1f} s (spawn, "
+          f"imports and builds included); the card's memory in use peaked "
+          f"at {mem.peak} MiB (nvidia-smi, both ranks and this process)")
+    t0 = time.perf_counter()
+    sharding.spawn(dp_nccl_rank, 1, backend="nccl", device="cuda",
+                   init_method=sharding.file_init_method(out_dir, "nccl"),
+                   args=(out_dir,))
+    with open(os.path.join(out_dir, "nccl.json")) as f:
+        out["dp_nccl"] = json.load(f)["launches"]
+    print(f"[dp_nccl] {time.perf_counter() - t0:.1f} s")
+    import shutil
+
+    shutil.rmtree(out_dir)
+    return out
 
 
 def main(argv=None) -> int:
@@ -4263,23 +4754,38 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- the paths: 3 rounds of full-width 2-layer gemma2-2b each --------
-    by_path["train"] = run_path(
+    by_path["train"], state, rows = run_path(
         "train", cfg, tcfg, N, dev,
         need=("masked_sum", "h_update", "fused_local_step"),
-        check_h_sum=True)
+        check_h_sum=True, keep=True)
+    # what the data-parallel paths are held to: [train]'s rows, and
+    # [comm_dp]'s one-process kernel steps in turn from [train]'s state
+    dp_job = {"train": {"x": row_digests(state.x),
+                        "h": row_digests(state.h),
+                        "loss": [r["loss"] for r in rows]}}
+    dp_job["comm"] = comm_dp_steps(cfg, state.x, state.h, dev)
+    for tag, (_, _, secs, _) in dp_job["comm"].items():
+        print(f"[comm_dp] one-process kernel step {tag}: {secs:.3f} s")
+    del state, rows
+    torch.cuda.empty_cache()
     sync = run_sync_check(cfg, dev)
     by_path["train_long"] = run_train_long(dev)
     torch.cuda.empty_cache()
     memory = run_memory_table(dev, here)
     tcfg_f = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=CF, s=SF, p=P)
-    by_path["faults"] = run_path(
+    plan_f = cohort.CohortPlan(0, NF, CF)
+    by_path["faults"], state, rows = run_path(
         "faults", cfg, tcfg_f, NF, dev,
         need=("masked_sum_counts", "h_update_covered", "fused_local_step"),
-        check_h_sum=True,
-        plan=cohort.CohortPlan(0, NF, CF),
+        check_h_sum=True, keep=True,
+        plan=plan_f,
         faults=faults.FaultPlan(seed=0, n=NF, p_drop=0.25, p_corrupt=0.2,
                                 corrupt_mode="nan"),
         policy="quorum", quarantine_rounds=2)
+    dp_job["faults"] = faults_dp_reference(cfg, dev, rows, plan_f)
+    del state, rows
+    by_path.update(run_dp_paths(cfg, dev, here, dp_job))
+    del dp_job
     # a robust combine breaks sum_i h_i = 0 by design: not checked
     tcfg_r = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=CF, s=SF, p=P,
                                         robust_agg="trimmed", trim_k=1)

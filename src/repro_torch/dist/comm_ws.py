@@ -36,6 +36,12 @@ the others, the kernels run over the columns before them (a row pitch of
 ``d_total``), and ``cyclic_comm(tall=)`` takes each of them through the
 dense per-leaf closed form, as the reference's kernel branch does.
 
+``shard_comm`` is the same step on one rank's rows under data
+parallelism (the reference's shard-resident ``_shard_comm`` on the data
+axis, ``sharding.RankRows``): the kernels run on the rank's rows, the
+ranks' d-sized partials are summed (``torch.distributed.all_reduce``),
+and the robust combines exchange ``(s, chunk)`` owner-value stacks.
+
 ``cyclic_comm_leaves`` and ``blocked_comm_leaves`` are the reference's
 two plain implementations of each template, ``impl="ws"`` (the sparse
 UpCom: ``s`` owner-row gathers per leaf, or ``s`` contiguous chunk gathers
@@ -258,14 +264,26 @@ def _group_cols(leaves) -> Iterator[Tuple[int, int, int]]:
 
 def _wire_upcom(xw: torch.Tensor, slot: torch.Tensor, c: int, s: int,
                 grp: WireGroup, seed: int, survivor: bool,
-                robust: Optional[Tuple[str, int]]):
+                robust: Optional[Tuple[str, int]],
+                shard: Optional["_Shard"] = None):
     """One kind group's UpCom from its wire payload: ``(x_bar_g,
     covered_g)`` over the group's columns, ``covered_g`` ``None`` unless
     ``survivor``.  Robust combines run on dequantized f32 values, in
-    column chunks (the combine is per coordinate)."""
+    column chunks (the combine is per coordinate).  With ``shard`` the
+    workspace holds a rank's rows: the payload is packed from them with
+    their global row ids, and the partials are summed over the ranks
+    (``_over_ranks``) or the owner values exchanged (robust)."""
     n = xw.shape[0]
     d_g = grp.leaf_lo[-1]
-    if grp.kind in wire_mod.F_DTYPES:
+    row0 = 0 if shard is None else shard.row0
+    if n == 0:
+        # a rank holding no rows: no payload, zero partials
+        f32_cols = None
+
+        def upcom(counts):
+            z = torch.zeros(d_g, dtype=torch.float32, device=xw.device)
+            return (z, torch.zeros_like(z)) if counts else z
+    elif grp.kind in wire_mod.F_DTYPES:
         lanes = torch.empty(n, d_g, dtype=wire_mod.F_DTYPES[grp.kind],
                             device=xw.device)
         for g, o, w in _group_cols(grp.leaves):
@@ -278,7 +296,8 @@ def _wire_upcom(xw: torch.Tensor, slot: torch.Tensor, c: int, s: int,
             return uplink.masked_sum(lanes, slot, grp.band, c, s,
                                      counts=counts)
     else:
-        codes, scales = wire_pack.pack_int(xw, grp.leaves, grp.kind, seed)
+        codes, scales = wire_pack.pack_int(xw, grp.leaves, grp.kind, seed,
+                                           row0)
 
         def f32_cols(a, b):
             lo = torch.tensor(grp.leaf_lo, dtype=torch.int64,
@@ -292,7 +311,11 @@ def _wire_upcom(xw: torch.Tensor, slot: torch.Tensor, c: int, s: int,
                                              slot, grp.band, c, s,
                                              counts=counts)
     covered = None
-    if robust is not None:
+    if robust is not None and shard is not None:
+        x_bar, covered = shard.robust_exchange(
+            f32_cols, d_g, lambda t, cols: torch.remainder(
+                t - grp.band[cols].to(torch.int64), c), s, robust, survivor)
+    elif robust is not None:
         x_bar = torch.empty(d_g, dtype=torch.float32, device=xw.device)
         cnt = torch.empty(d_g, dtype=torch.float32, device=xw.device)
         for cols in ref.column_chunks(d_g):
@@ -302,11 +325,11 @@ def _wire_upcom(xw: torch.Tensor, slot: torch.Tensor, c: int, s: int,
         if survivor:
             covered = cnt > 0
     elif survivor:
-        x_bar, cnt = upcom(True)
+        x_bar, cnt = _over_ranks(shard, upcom(True))
         covered = cnt > 0
         x_bar.div_(cnt.clamp_(min=1.0))
     else:
-        x_bar = upcom(False)
+        x_bar = _over_ranks(shard, upcom(False))
     return x_bar, covered
 
 
@@ -328,16 +351,25 @@ def _kernel_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
                  down: Optional[torch.Tensor], survivor: bool,
                  robust: Optional[Tuple[str, int]],
                  wire: Optional[Tuple[WireGroup, ...]], seed: int,
-                 wire_down: bool) -> torch.Tensor:
+                 wire_down: bool,
+                 shard: Optional["_Shard"] = None) -> torch.Tensor:
     """The kernel path over the first ``d = band.numel()`` columns of the
     workspaces (``comm_ws._pallas_comm``), in place; ``slot`` is already
-    demoted where rows did not arrive.  Returns ``x_bar`` ``(d,)``."""
+    demoted where rows did not arrive.  Returns ``x_bar`` ``(d,)``.
+
+    ``shard`` (``shard_comm``): the workspaces, ``slot`` and ``down`` are
+    a rank's rows, and the rebuild combines the ranks' partials as the
+    reference's ``_shard_comm`` does: the ``1/s``-folded ``masked_sum``
+    summed over the ranks (one sum per wire kind group), or the survivor's
+    numerator and count summed and divided after, or the robust
+    combine's owner values exchanged; the h update and DownCom then run
+    on the rank's rows."""
     d = band.numel()
     xm, hm = xw[:, :d], hw[:, :d]
     covered = None
     if wire is not None:
         parts = [(grp, *_wire_upcom(xw, slot, m, s, grp, seed, survivor,
-                                    robust)) for grp in wire]
+                                    robust, shard)) for grp in wire]
         if len(parts) == 1 and parts[0][0].whole:
             _, x_bar, covered = parts[0]
         else:
@@ -354,22 +386,34 @@ def _kernel_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
         del parts
         if wire_down:
             _wire_downcom(x_bar, wire, seed)
+    elif robust is not None and shard is not None:
+        x_bar, covered = shard.robust_exchange(
+            lambda a, b: xm[:, a:b], d, lambda t, cols: torch.remainder(
+                t - band[cols].to(torch.int64), m), s, robust, survivor)
     elif robust is not None:
         x_bar, cnt = uplink.robust_sum(xm, slot, band, m, s, kind=robust[0],
                                        k=robust[1])
         if survivor:
             covered = cnt > 0
         del cnt
-    elif survivor:
-        # comm_ws._survivor_bar, in place on the sum
-        x_bar, cnt = uplink.masked_sum(xm, slot, band, m, s, counts=True)
-        covered = cnt > 0
-        x_bar.div_(cnt.clamp_(min=1.0))
-        del cnt
     else:
-        x_bar = uplink.masked_sum(xm, slot, band, m, s)
-    uplink.h_update(xm, hm, x_bar, slot, band, m, s, scale, down=down,
-                    covered=covered)
+        def upcom(counts):
+            if xm.shape[0] == 0:
+                z = torch.zeros(d, dtype=torch.float32, device=xw.device)
+                return (z, torch.zeros_like(z)) if counts else z
+            return uplink.masked_sum(xm, slot, band, m, s, counts=counts)
+
+        if survivor:
+            # comm_ws._survivor_bar, in place on the sum
+            x_bar, cnt = _over_ranks(shard, upcom(True))
+            covered = cnt > 0
+            x_bar.div_(cnt.clamp_(min=1.0))
+            del cnt
+        else:
+            x_bar = _over_ranks(shard, upcom(False))
+    if xm.shape[0]:
+        uplink.h_update(xm, hm, x_bar, slot, band, m, s, scale, down=down,
+                        covered=covered)
     return x_bar
 
 
@@ -465,6 +509,183 @@ def blocked_comm(xw: torch.Tensor, hw: torch.Tensor, off: int,
     return _kernel_comm(xw, hw, slot, band, c, s, scale, down,
                         arrived is not None and correct, robust, wire,
                         int(wire_seed) & 0xFFFFFFFF, wire_down)
+
+
+# --------------------------------------------------------------------------
+# the shard engine: a rank's rows, the ranks' partials summed
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Shard:
+    """One rank's side of a comm step (``shard_comm``): its
+    ``sharding.RankRows`` and the round's ``(m,)`` int64 owner table,
+    the global row holding each kernel slot value after the arrivals'
+    demotion (-1 where none does)."""
+
+    group: "object"
+    client_of: torch.Tensor
+
+    @property
+    def row0(self) -> int:
+        return self.group.row0
+
+    def robust_exchange(self, vals, d: int, slots_at, s: int,
+                        robust: Tuple[str, int], survivor: bool):
+        """The robust combine over ranks (the reference's ``(s, d)``
+        owner-value exchange), in column chunks: each rank fills row ``t``
+        of a chunk's ``(s, w)`` stack with the values of the owners at
+        shift ``t`` it hosts (``vals(a, b)``: its rows' f32 values of
+        columns ``[a, b)``; ``slots_at(t, cols)``: the kernel slot value
+        owning each column at shift ``t``) and zeros elsewhere, one sum
+        replicates the stack, and ``robust.robust_combine_stack`` combines
+        it with the live owners as its mask.  Returns ``(x_bar, covered)``
+        over the ``d`` columns, ``covered`` ``None`` unless ``survivor``.
+        An exchanged ``-0`` arrives as ``+0``."""
+        g = self.group
+        dev = self.client_of.device
+        x_bar = torch.empty(d, dtype=torch.float32, device=dev)
+        covered = (torch.empty(d, dtype=torch.bool, device=dev)
+                   if survivor else None)
+        for cols in ref.column_chunks(d):
+            w = cols.stop - cols.start
+            v = vals(cols.start, cols.stop) if g.local else None
+            stack = torch.zeros(s, w, dtype=torch.float32, device=dev)
+            ok = torch.empty(s, w, dtype=torch.bool, device=dev)
+            for t in range(s):
+                own = self.client_of[slots_at(t, cols)]
+                ok[t] = own >= 0
+                if v is not None:
+                    loc = (own >= g.row0) & (own < g.stop)
+                    rr = (own - g.row0).clamp_(0, g.local - 1)
+                    stack[t] = torch.where(loc, v.gather(0, rr[None])[0],
+                                           0.0)
+            del v
+            g.all_reduce(stack)
+            bar, cnt = robust_mod.robust_combine_stack(stack, ok, *robust)
+            x_bar[cols] = bar
+            if survivor:
+                covered[cols] = cnt > 0
+        return x_bar, covered
+
+
+def _over_ranks(shard: Optional[_Shard], partial):
+    """A rank's UpCom partial (a tensor, or the survivor's ``(num, cnt)``)
+    summed over the ranks in place; itself without ``shard``."""
+    if shard is None:
+        return partial
+    if isinstance(partial, tuple):
+        return tuple(shard.group.all_reduce(t) for t in partial)
+    return shard.group.all_reduce(partial)
+
+
+def _client_table(slot: torch.Tensor, m: int) -> torch.Tensor:
+    """``(m,)`` int64: the row whose ``slot`` holds each value in ``[0,
+    m)``, -1 where no row does (idle and demoted rows hold none)."""
+    n = slot.shape[0]
+    sl = slot.to(torch.int64)
+    cell = torch.where((sl >= 0) & (sl < m), sl, m)
+    table = torch.full((m + 1,), -1, dtype=torch.int64, device=slot.device)
+    table[cell] = torch.arange(n, dtype=torch.int64, device=slot.device)
+    return table[:m]
+
+
+def _shard_tall_leaf(xl, hl, sl, shard: _Shard, c: int, s: int, scale,
+                     down, survivor, quant, down_quant, robust):
+    """One tall-and-thin cyclic leaf (``D s < c``) of a rank's rows
+    (``comm_ws._shard_comm``'s non-kernel leaves): the owned columns
+    ``k + t D`` as a predicate, the rank's owner sum (from +0, rows in
+    order; ``1/s`` folded per rank) or the survivor's numerator and count
+    summed over the ranks, or the owner-value exchange under ``robust``;
+    then ``_finish_leaf``."""
+    n_loc, D = xl.shape
+    dev = xl.device
+    kk = torch.arange(D, dtype=torch.int64, device=dev)
+    sl2 = sl.to(torch.int64)[:, None]
+    owned = (sl2 >= 0) & (sl2 < D * s) & (
+        torch.remainder(sl2, D) == kk[None, :])
+    xf = xl.to(torch.float32)
+    xq = xf if quant is None or n_loc == 0 else quant(xf)
+    cov = None
+    if robust is not None:
+        x_bar, cov = shard.robust_exchange(
+            lambda a, b: xq[:, a:b], D, lambda t, cols: kk[cols] + t * D, s,
+            robust, survivor)
+    else:
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        num = torch.zeros(D, dtype=torch.float32, device=dev)
+        cnt = torch.zeros(D, dtype=torch.float32, device=dev)
+        for i in range(n_loc):
+            num = num + torch.where(owned[i], xq[i], zero)
+            cnt = cnt + owned[i].to(torch.float32)
+        g = shard.group
+        if survivor:
+            x_bar, cov = _survivor_bar(g.all_reduce(num), g.all_reduce(cnt))
+        else:
+            x_bar = g.all_reduce(ref._div(num, s))
+    if down_quant is not None:
+        x_bar = down_quant(x_bar)
+    dn = None if down is None else down.to(torch.bool)
+    return _finish_leaf(xl, hl, xf, x_bar, owned, scale, dn, cov)
+
+
+def shard_comm(xw: torch.Tensor, hw: torch.Tensor, slot: torch.Tensor,
+               band: torch.Tensor, m: int, s: int, scale: float, *,
+               group, down: Optional[torch.Tensor] = None,
+               arrived: Optional[torch.Tensor] = None,
+               correct: bool = True,
+               robust: Optional[Tuple[str, int]] = None,
+               wire: Optional[Tuple[WireGroup, ...]] = None,
+               wire_seed: int = 0, wire_down: bool = False,
+               tall: Sequence[Tuple[int, int, int, str]] = ()
+               ) -> torch.Tensor:
+    """The comm step of a rank's rows under data parallelism (the
+    reference's shard-resident ``comm_ws._shard_comm`` on the data axis),
+    in place on the rank's workspaces; returns ``x_bar`` over the kernels'
+    columns, the same on every rank.
+
+    ``group`` is the rank's ``sharding.RankRows``; ``xw``/``hw`` its
+    ``(group.local, d_total)`` rows.  ``slot`` ``(n,)`` int32 holds every
+    client's kernel slot (``cyclic_comm``'s template columns, or
+    ``blocked_slot``'s folded slots for the blocked template, with
+    ``band`` the matching band), ``down`` ``(n,)`` int32 and ``arrived``
+    ``(n,)`` bool are global too; the rest is ``cyclic_comm``'s.
+
+    The kernels run on the rank's rows only.  The mean rebuild sums the
+    ranks' ``1/s``-folded ``masked_sum`` partials (one d-sized sum; one
+    per wire kind group); the survivor rebuild sums the numerators and
+    the counts and divides after; the DownCom quantizer runs on the
+    summed ``x_bar``, the same on every rank; the robust combines, which
+    do not decompose over ranks, exchange the owner values in ``(s,
+    chunk)`` stacks (``_Shard.robust_exchange``); tall leaves sum their
+    partials per leaf.  No collective is sized by the population.  The
+    UpCom payloads draw with the rows' global ids, so the int codes are
+    those of the one-process step.  At ``s = 2`` every coordinate's two
+    owner partials add once and the step is the one-process step bitwise;
+    at ``s >= 3`` the ranks' partials reassociate the owner sum."""
+    n = slot.shape[0]
+    if n != group.n or xw.shape[0] != group.local:
+        raise ValueError(f"rank {group.rank} holds {group.local} of "
+                         f"{group.n} rows; got a workspace of "
+                         f"{xw.shape[0]} and {n} slots")
+    survivor = arrived is not None and correct
+    slot = _demote(slot, arrived)
+    seed = int(wire_seed) & 0xFFFFFFFF
+    shard = _Shard(group, _client_table(slot, m))
+    rows = slice(group.row0, group.stop)
+    sl_loc = slot[rows]
+    dn_loc = None if down is None else down[rows]
+    x_bar = _kernel_comm(xw, hw, sl_loc, band, m, s, scale, dn_loc,
+                         survivor, robust, wire, seed, wire_down, shard)
+    for li, o, D, kind in tall:
+        xl, hl = xw[:, o:o + D], hw[:, o:o + D]
+        xn, hn = _shard_tall_leaf(
+            xl, hl, sl_loc, shard, m, s, scale, dn_loc, survivor,
+            _leaf_quant(kind, seed, li, D, group.row0),
+            _down_quant(kind, seed, li, D) if wire_down else None, robust)
+        xl.copy_(xn)
+        hl.copy_(hn)
+    return x_bar
 
 
 # --------------------------------------------------------------------------
@@ -622,16 +843,17 @@ def _survivor_bar(num: torch.Tensor, cnt: torch.Tensor):
     return num / cnt.clamp(min=1.0), cnt > 0
 
 
-def _leaf_quant(kind: str, seed: int, li: int, D: int):
+def _leaf_quant(kind: str, seed: int, li: int, D: int, row0: int = 0):
     """Quantize-dequantize one leaf's ``(rows, D)`` f32 payload at ``kind``
     (None for the f32 wire), keyed on the round seed folded with the leaf
-    index, the row and the leaf coordinate (``comm_ws._leaf_quant``)."""
+    index, the row id ``row0 + row`` and the leaf coordinate
+    (``comm_ws._leaf_quant``; ``row0`` is a rank's first global row)."""
     if kind == "f32":
         return None
     sl = wire_mod.fold_seed(seed, li)
 
     def quant(xf):
-        rid = torch.arange(xf.shape[0], dtype=torch.int64,
+        rid = torch.arange(row0, row0 + xf.shape[0], dtype=torch.int64,
                            device=xf.device)[:, None]
         kk = torch.arange(D, dtype=torch.int64, device=xf.device)
         return wire_mod.quantize(xf, kind, sl, rid, kk)

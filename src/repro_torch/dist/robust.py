@@ -271,7 +271,14 @@ def magnitude_outliers(ws: torch.Tensor, mask,
     payload norm exceeds ``median + nu * 1.4826 * MAD`` of the masked
     norms, the band floored at 5% of the median."""
     mask = np.asarray(mask, bool)
-    norms = payload_norms(ws, mask)
+    return norm_outliers(payload_norms(ws, mask), mask, nu)
+
+
+def norm_outliers(norms: torch.Tensor, mask, nu: float = 6.0) -> np.ndarray:
+    """``magnitude_outliers`` from the ``(n,)`` f32 CPU payload norms of
+    the ``mask``'ed clients (``payload_norms``; under data parallelism
+    each rank's, summed)."""
+    mask = np.asarray(mask, bool)
     med = masked_median(norms, mask)
     mad = masked_median(torch.abs(norms - med), mask)
     band = torch.maximum(nu * _MAD_SIGMA * mad, 0.05 * med)

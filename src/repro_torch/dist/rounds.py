@@ -55,11 +55,13 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch._device import upload
 from repro_torch.data.pipeline import SyntheticTokenPipeline
 from repro_torch.dist import faults as faults_mod
 from repro_torch.dist import robust as robust_mod
-from repro_torch.dist import tamuna_dp
+from repro_torch.dist import sharding, tamuna_dp
 from repro_torch.dist import wire as wire_mod
+from repro_torch.dist.sharding import RankRows
 from repro_torch.models.transformer import ModelConfig
 
 ROUND_POLICIES = ("wait_all", "quorum", "deadline")
@@ -177,9 +179,20 @@ def _make_fault_resolver(faults, *, n: int, policy: str, q, max_retries: int,
     return resolve
 
 
+def _sum_over_ranks(group: Optional[RankRows], v: np.ndarray,
+                    dev) -> np.ndarray:
+    """``v`` (``(n,)``, this rank's entries, zeros elsewhere) summed over
+    the ranks as f32 on ``dev``; ``v`` itself without a group."""
+    if group is None:
+        return v
+    t = torch.as_tensor(np.asarray(v, np.float32)).to(dev)
+    return group.all_reduce(t).cpu().numpy()
+
+
 def _faulty_uplink(x: torch.Tensor, member: np.ndarray, arrived, corrupt,
                    byz, model, *, dtype: torch.dtype, guard: bool,
-                   guard_mode: str, guard_max_abs: Optional[float]
+                   guard_mode: str, guard_max_abs: Optional[float],
+                   group: Optional[RankRows] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """The fault branch of a round before its comm step, in place on the
     ``(n, d)`` workspace ``x``: inject the corruption (the ``corrupt``
@@ -189,26 +202,43 @@ def _faulty_uplink(x: torch.Tensor, member: np.ndarray, arrived, corrupt,
     in it), then run the payload guard over the ``member`` rows and zero
     the rows it demotes.  Every step reads and writes only member rows.
     ``model`` (a ``faults.FaultModel``) carries the modes.  Returns the
-    ``(n,)`` bool arrived rows and the guard's verdict."""
+    ``(n,)`` bool arrived rows and the guard's verdict.
+
+    With ``group`` the workspace holds a rank's rows (the masks stay
+    global): each rank injects and guards the members it hosts, and the
+    guard's per-client flags (and the adaptive guard's payload norms) are
+    summed over the ranks, so every rank reaches the same verdict."""
+    rows = sharding.local_rows(group, len(member))
     if corrupt is not None:
-        faults_mod.corrupt_rows(x, corrupt, model.corrupt_mode,
-                                model.blowup)
+        faults_mod.corrupt_rows(x, np.asarray(corrupt, bool)[rows],
+                                model.corrupt_mode, model.blowup)
     arr = np.asarray(arrived, bool) & member
     if byz is not None:
+        if group is not None and model.adversary == "inlier":
+            raise ValueError(
+                "the inlier attack over ranks is not ported (ROADMAP "
+                "A9b): it needs every rank's arrived honest rows")
         # Byzantine rows only matter if they arrive; the inlier attack
         # colludes against the arrived honest rows
-        faults_mod.adversarial_rows(x, byz & arr, arr & ~byz,
-                                    model.adversary,
+        faults_mod.adversarial_rows(x, (byz & arr)[rows],
+                                    (arr & ~byz)[rows], model.adversary,
                                     byz_scale=model.byz_scale,
                                     byz_z=model.byz_z)
-    tamuna_dp.store_rows(x, member, dtype)
+    tamuna_dp.store_rows(x, member[rows], dtype)
     bad = np.zeros(len(member), bool)
     if guard:
-        bad = faults_mod.nonfinite_clients(x, member, guard_max_abs)
+        bad[rows] = faults_mod.nonfinite_clients(x, member[rows],
+                                                 guard_max_abs)
+        bad = _sum_over_ranks(group, bad, x.device) > 0
         if guard_mode == "adaptive":
-            bad |= robust_mod.magnitude_outliers(x, arr & ~bad) & member
+            live = arr & ~bad
+            norms = np.zeros(len(member), np.float32)
+            norms[rows] = robust_mod.payload_norms(x, live[rows]).numpy()
+            norms = torch.from_numpy(_sum_over_ranks(group, norms,
+                                                     x.device))
+            bad |= robust_mod.norm_outliers(norms, live) & member
         arr = arr & ~bad
-        for i in np.flatnonzero(bad).tolist():
+        for i in np.flatnonzero(bad[rows]).tolist():
             x[i].zero_()
     return arr, bad
 
@@ -217,7 +247,8 @@ def make_pipelined_round_fn(cfg: ModelConfig,
                             tcfg: tamuna_dp.DistTamunaConfig, n: int, *,
                             pipe: SyntheticTokenPipeline, max_L: int = 16,
                             elastic: Optional[bool] = None,
-                            coverage: bool = True, device="cuda"):
+                            coverage: bool = True, device="cuda",
+                            group: Optional[RankRows] = None):
     """The round in two halves (``rounds.make_pipelined_round_fn``), which
     ``run_rounds`` calls back to back and ``run_rounds_pipelined``
     interleaves.  Returns a namespace with ``stage``, ``commit``,
@@ -245,7 +276,15 @@ def make_pipelined_round_fn(cfg: ModelConfig,
     ``off`` and ``wire_seed``.  ``info`` holds ``arrived``, ``bad``,
     ``anomaly`` and, when ``coverage`` is on, ``uncovered`` on faulted
     commits.  ``template(generator)`` draws a round's ``{"perm", "off"}``
-    from a ``torch.Generator``."""
+    from a ``torch.Generator``.
+
+    ``group`` (a ``sharding.RankRows`` of ``n``): the state holds a rank's
+    rows.  ``stage`` then draws every step's batch for the whole cohort
+    (the pipe's draws depend on the cohort's make-up), trains the members
+    the rank hosts, and returns ``loss`` as a ``(steps, c)`` tensor of the
+    members' losses in their cohort slots, zeros for the members hosted
+    elsewhere (summed over the ranks at the driver's drain); ``commit``
+    guards the rank's rows and runs the shard engine."""
     c = tcfg.c
     if c > n:
         raise ValueError(f"cohort c={c} exceeds population n={n}")
@@ -254,7 +293,7 @@ def make_pipelined_round_fn(cfg: ModelConfig,
     blocked = tcfg.uplink == "block_rs"
     local = tamuna_dp.make_local_step(cfg, tcfg)
     comm = tamuna_dp.make_comm_step(cfg, tcfg, n, device=device,
-                                    with_stats=coverage)
+                                    with_stats=coverage, group=group)
 
     def template(generator: torch.Generator) -> Dict[str, Any]:
         if blocked:
@@ -273,8 +312,22 @@ def make_pipelined_round_fn(cfg: ModelConfig,
             # the all-rows body: every row trains on its own batch
             rows = np.arange(n)
         steps = max(1, min(int(L), max_L))
+        dev = state.x.device
+        if group is not None:
+            hosted = [a for a, i in enumerate(rows) if group.hosts(i)]
+            compact = tamuna_dp.gather_cohort(
+                state, [int(rows[a]) - group.row0 for a in hosted])
+            idx = upload(hosted, dev, torch.long)
+            loss = torch.zeros(steps, len(rows), dtype=torch.float32,
+                               device=dev)
+            for k in range(steps):
+                batch = pipe.sample_batch(rows)
+                out = local(compact, **{key: v.index_select(0, idx)
+                                        for key, v in batch.items()})
+                loss[k].index_copy_(0, idx, out["losses"])
+            return {"compact": compact, "loss": loss, "steps": steps}
         compact = tamuna_dp.gather_cohort(state, rows)
-        loss = torch.zeros((), dtype=torch.float32, device=state.x.device)
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
         for _ in range(steps):
             loss = loss + local(compact, **pipe.sample_batch(rows))["loss"]
         return {"compact": compact, "loss": loss, "steps": steps}
@@ -299,7 +352,7 @@ def make_pipelined_round_fn(cfg: ModelConfig,
             arr, bad = _faulty_uplink(
                 state.x, member, arrived, corrupt, byz, model,
                 dtype=cfg.param_dtype, guard=guard, guard_mode=guard_mode,
-                guard_max_abs=guard_max_abs)
+                guard_max_abs=guard_max_abs, group=group)
             info.update(arrived=arr, bad=bad)
             if anomaly:  # before the comm step's DownCom
                 info["anomaly"] = robust_mod.anomaly_scores(state.x, arr)
@@ -316,7 +369,8 @@ def make_pipelined_round_fn(cfg: ModelConfig,
     return types.SimpleNamespace(
         stage=stage, commit=commit, template=template, n=n, c=c,
         max_L=max_L, elastic=elastic, coverage=coverage, blocked=blocked,
-        on_wire=wire_mod.is_wire(tcfg.wire_precision), pipe=pipe)
+        on_wire=wire_mod.is_wire(tcfg.wire_precision), pipe=pipe,
+        group=group)
 
 
 def run_rounds(
@@ -346,6 +400,7 @@ def run_rounds(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     flush_every: int = 10,
+    group: Optional[RankRows] = None,
 ) -> Tuple[tamuna_dp.DistTamunaState, List[Dict[str, Any]]]:
     """Run ``rounds`` rounds on ``state`` in place.
 
@@ -402,8 +457,36 @@ def run_rounds(
     client over rounds ``g + 2 .. g + 1 + w``; rows add ``anomaly_max``.
     Pass a ``Reputation`` restored by ``from_state_dict`` to resume its
     schedule.
+
+    ``group`` (a ``sharding.RankRows``; ROADMAP A9a) runs the rounds data
+    parallel: ``state`` holds the rank's rows of the population
+    ``group.n`` (``tamuna_dp.init_state(rows=)``) and every rank calls
+    ``run_rounds`` with the same arguments and streams.  Every rank draws
+    the same schedule (L, cohorts, permutations or shifts, faults, wire
+    seeds) and each step's batch for the whole cohort, trains the members
+    it hosts and runs the shard engine; the members' losses are summed
+    over the ranks at each drain, and the guard's flags in each faulted
+    round, so every rank builds the same rows (only rank 0 logs them).
+    At ``s = 2`` the state and the rows are the one-process run's
+    bitwise.  The reputation, checkpoints and the pipelined driver over
+    ranks are not ported (ROADMAP A9b) and raise.
     """
-    n, c = state.x.shape[0], tcfg.c
+    c = tcfg.c
+    if group is None:
+        n = state.x.shape[0]
+    else:
+        n = group.n
+        if state.x.shape[0] != group.local:
+            raise ValueError(f"rank {group.rank} holds {group.local} rows "
+                             f"of {n}; the state has {state.x.shape[0]}")
+        if reputation is not None and reputation is not False:
+            raise ValueError("the reputation over ranks is not ported "
+                             "(ROADMAP A9b): its anomaly scores need "
+                             "every arrived row")
+        if checkpoint_dir or checkpoint_every:
+            raise ValueError("checkpoints over ranks are not ported "
+                             "(ROADMAP A9b): the reference's checkpoint "
+                             "gathers the whole state")
     _check_policy(policy)
     guard, guard_mode, adversarial = _resolve_guard(
         faults, guard, guard_max_abs, guard_mode)
@@ -447,7 +530,9 @@ def run_rounds(
     dev = state.x.device
     engine = make_pipelined_round_fn(cfg, tcfg, n, pipe=pipe, max_L=max_L,
                                      elastic=elastic, coverage=False,
-                                     device=dev)
+                                     device=dev, group=group)
+    if group is not None and group.rank != 0:
+        logger = None  # every rank builds the same rows; rank 0 logs
     seed = generator.initial_seed()
     host_cohort = _host_cohort(plan, seed, n, c)
 
@@ -535,7 +620,7 @@ def run_rounds(
         pending.append((row, buf["loss"]))
         if len(pending) == flush_every or r == rounds - 1:
             t1 = time.perf_counter()
-            _drain(pending)
+            _drain(pending, group)
             pending[-1][0]["seconds"] += time.perf_counter() - t1
             for row, _ in pending:
                 rows.append(row)
@@ -550,11 +635,27 @@ def run_rounds(
     return state, rows
 
 
-def _drain(pending: List[Tuple[Dict[str, Any], torch.Tensor]]) -> None:
+def _drain(pending: List[Tuple[Dict[str, Any], torch.Tensor]],
+           group: Optional[RankRows] = None) -> None:
     """Fill each pending row's ``loss`` (its round's loss sum over its L)
     from one device-to-host copy of the window's loss sums: the driver's
     wait for the device, which also waits for the comm steps queued
-    before it."""
+    before it.  With ``group`` each pending loss is the round's ``(steps,
+    c)`` member losses of the rank's members: one sum over the ranks of
+    the window's, then each step's cohort mean, added from 0 in step
+    order as the one-process round adds them."""
+    if group is not None:
+        mats = [loss for _, loss in pending]
+        full = group.all_reduce(torch.cat(mats))
+        totals, k = [], 0
+        for m in mats:
+            tot = torch.zeros((), dtype=torch.float32, device=full.device)
+            for j in range(m.shape[0]):
+                # a fresh (c,) tensor, as the one-process step stacks it
+                tot = tot + full[k + j].clone().mean()
+            k += m.shape[0]
+            totals.append(tot)
+        pending = [(row, tot) for (row, _), tot in zip(pending, totals)]
     sums = torch.stack([loss for _, loss in pending]).cpu().tolist()
     for (row, _), total in zip(pending, sums):
         row["loss"] = total / row["L"]
@@ -657,6 +758,9 @@ def run_rounds_pipelined(
     if not (hasattr(engine, "stage") and hasattr(engine, "commit")):
         raise ValueError("run_rounds_pipelined needs the split-phase "
                          "engine from make_pipelined_round_fn")
+    if getattr(engine, "group", None) is not None:
+        raise ValueError("the pipelined driver over ranks is not ported "
+                         "(ROADMAP A9b); run_rounds takes a group")
     tau = int(staleness)
     if tau < 0:
         raise ValueError(f"staleness must be >= 0, got {tau}")

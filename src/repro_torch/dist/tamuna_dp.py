@@ -26,6 +26,11 @@ TPU).  A tall-and-thin leaf (``D s < c``) of the cyclic template is laid
 after the others in the workspace and takes the dense per-leaf form
 (``state_spec``).
 
+Under data parallelism (``sharding.RankRows``, ROADMAP A9a) a rank's
+state holds only its rows (``init_state(rows=)``), the local step trains
+the cohort members it hosts, and the comm step runs the shard engine
+(``make_comm_step(group=)``, ``comm_ws.shard_comm``).
+
 Randomness is injected: the comm step takes the round's ``cohort``, the
 permutation ``perm`` or the shift ``off``, the DownCom rows ``down`` and
 the wire seed as arguments (the reference draws them from threefry keys);
@@ -46,7 +51,8 @@ import torch
 
 from repro_torch._device import resolve_device, upload
 from repro_torch.core import masks, theory
-from repro_torch.dist import comm_ws, model_api, robust, wire
+from repro_torch.dist import comm_ws, model_api, robust, sharding, wire
+from repro_torch.dist.sharding import RankRows
 from repro_torch.kernels.local_step import fused_local_step
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.optim import optimizers
@@ -174,19 +180,26 @@ def state_spec(cfg: ModelConfig, tcfg: DistTamunaConfig
 
 
 def init_state(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int, *,
-               seed: int = 0, device="cuda") -> DistTamunaState:
+               seed: int = 0, device="cuda",
+               rows: Optional[RankRows] = None) -> DistTamunaState:
     """Every client starts from the same random model (drawn from a
     ``torch.Generator`` seeded with ``seed``); h starts at zero, and so do
-    AdamW's moments under ``local_opt="adamw"``."""
+    AdamW's moments under ``local_opt="adamw"``.  ``rows`` (a
+    ``sharding.RankRows`` of the population ``n``) allocates only a
+    rank's rows, bitwise those rows of the whole state."""
     if tcfg.c > n:
         raise ValueError(f"cohort c={tcfg.c} exceeds population n={n}")
+    if rows is not None and rows.n != n:
+        raise ValueError(f"rows cover {rows.n} clients, not n={n}")
     params = model_api.init(cfg, seed=seed, device=device)
     spec = state_spec(cfg, tcfg)
     dev = params["embed"].device
-    x = torch.empty(n, spec.d_total, dtype=torch.float32, device=dev)
-    comm_ws.pack(params, spec, x[0])
+    held = n if rows is None else rows.local
+    x = torch.empty(held, spec.d_total, dtype=torch.float32, device=dev)
+    if held:
+        comm_ws.pack(params, spec, x[0])
+        x[1:] = x[0]
     del params
-    x[1:] = x[0]
     h = torch.zeros_like(x)
     opt: Any = ()
     if tcfg.local_opt == "adamw":
@@ -356,7 +369,9 @@ def _client_grads(cfg: ModelConfig, params: Dict[str, torch.Tensor],
 def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``fn(compact, *, tokens, labels, prefix_embeds=None,
-    frames=None) -> {"loss": mean loss}``.
+    frames=None) -> {"loss": mean loss, "losses": (k,) member losses}``
+    (``"loss"`` only when the cohort has a member: a rank may host
+    none of it).
 
     ``tokens``/``labels`` are ``(c, b, T)``, row ``a`` the batch of cohort
     member ``a``, ``prefix_embeds`` ``(c, b, P, d_model)`` where the
@@ -418,7 +433,11 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
             losses.append(loss)
         if adam:
             compact.count = count
-        return {"loss": torch.stack(losses).mean()}
+        if not losses:
+            return {"losses": torch.zeros(0, dtype=torch.float32,
+                                          device=tokens.device)}
+        stacked = torch.stack(losses)
+        return {"loss": stacked.mean(), "losses": stacked}
 
     return fn
 
@@ -434,7 +453,8 @@ def _impl(impl: str) -> str:
 
 def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
                    device="cuda", impl: Optional[str] = None,
-                   with_stats: bool = False):
+                   with_stats: bool = False,
+                   group: Optional[RankRows] = None):
     """Build ``fn(state, cohort, perm=None, down=None, arrived=None,
     correct=True, wire_seed=None, *, off=None) -> state``: UpCom +
     control-variate update + DownCom of one round, in place.  With
@@ -459,11 +479,25 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
     over the rows' leaf views, each leaf written back before the next is
     taken.  The band table, the wire's kind groups, the tall leaves and
     the float and byte accounting are built once here; ``fn.wire_kinds``
-    holds each leaf's wire kind in the workspace's leaf order."""
+    holds each leaf's wire kind in the workspace's leaf order.
+
+    ``group`` (a ``sharding.RankRows`` of the population ``n``): the state
+    holds a rank's rows, and the kernel path runs ``comm_ws.shard_comm``
+    on them with the round's global slots, DownCom rows and arrivals; the
+    counters and the stats stay global, the same on every rank."""
     c, s = tcfg.c, tcfg.s
     if c > n:
         raise ValueError(f"cohort c={c} exceeds population n={n}")
     path = _impl(impl or tcfg.comm_impl)
+    if group is not None:
+        if group.n != n:
+            raise ValueError(f"group covers {group.n} clients, not n={n}")
+        if path != "kernel":
+            raise ValueError(
+                f"comm_impl {impl or tcfg.comm_impl!r} over ranks is not "
+                "ported (ROADMAP A9b): the plain ws/dense steps are the "
+                "one-process oracles; data parallelism takes the kernel "
+                "path (auto or pallas)")
     blocked = tcfg.uplink == "block_rs"
     template = "blocked" if blocked else "cyclic"
     scale = tcfg.eta_(n) / tcfg.gamma
@@ -526,7 +560,12 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
             kw = dict(down=down_t, arrived=arr_t, correct=correct,
                       robust=rspec, wire=plan, wire_seed=seed,
                       wire_down=tcfg.wire_down)
-            if blocked:
+            if group is not None:
+                kslot = (comm_ws.blocked_slot(slot_t, int(off), c)
+                         if blocked else slot_t)
+                comm_ws.shard_comm(state.x, state.h, kslot, band, c, s,
+                                   scale, group=group, tall=tall, **kw)
+            elif blocked:
                 comm_ws.blocked_comm(state.x, state.h, int(off), slot_t,
                                      band, c, s, scale, **kw)
             else:
@@ -551,7 +590,8 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
                 del xn, hn
         # the DownCom wrote x_bar to the down rows
         store_rows(state.x, None if down is None
-                   else torch.as_tensor(down).to(torch.bool),
+                   else torch.as_tensor(down).to(torch.bool)[
+                       sharding.local_rows(group, n)],
                    cfg.param_dtype)
         state.round += 1
         add_counters(state, totals, c, survivors)

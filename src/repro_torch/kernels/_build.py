@@ -112,7 +112,7 @@ def load() -> ctypes.CDLL:
                                               p, i64, i64, i32, i32, i32, p]
     lib.tamuna_wire_quantize.argtypes = [p, i64, i64, p, p, i32, i64,
                                          ctypes.c_uint32, f32, p, i64, p, i64,
-                                         p, i32, p]
+                                         p, i32, i64, p]
     pi = ctypes.POINTER(ctypes.c_int)
     lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
                                       i32, i32, i32, p, i64, p, pi]

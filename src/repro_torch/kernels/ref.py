@@ -231,19 +231,21 @@ def fused_local_step(x: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
 
 
 def wire_pack(x: torch.Tensor, leaves: Sequence[Tuple[int, int, int]],
-              kind: str, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+              kind: str, seed: int,
+              row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int wire payload of a kind group: ``(codes (n, d_g) int8,
     scales (n, nc_g) f32)`` of the leaves ``(leaf index, offset, size)`` of
     the ``(n, d_total)`` f32 workspace ``x``, concatenated in the given
     order.  Leaf ``li`` draws with ``wire.fold_seed(seed, li)``, row ``i``
-    with row id ``i``, coordinate ``k`` of the leaf with id ``k``; the
-    result is ``wire.leaf_scales`` then ``wire.quantize_to_int``."""
+    with row id ``row0 + i``, coordinate ``k`` of the leaf with id ``k``;
+    the result is ``wire.leaf_scales`` then ``wire.quantize_to_int``."""
     n = x.shape[0]
     d_g = sum(D for _, _, D in leaves)
     nc_g = sum(wire.n_chunks(D) for _, _, D in leaves)
     codes = torch.empty(n, d_g, dtype=torch.int8, device=x.device)
     scales = torch.empty(n, nc_g, dtype=torch.float32, device=x.device)
-    rows = torch.arange(n, dtype=torch.int64, device=x.device)[:, None]
+    rows = torch.arange(row0, row0 + n, dtype=torch.int64,
+                        device=x.device)[:, None]
     g0 = c0 = 0
     for li, o, D in leaves:
         sl = wire.fold_seed(seed, li)

@@ -9,7 +9,10 @@ coordinate) pair; the kernel does it in registers.
 
 ``pack_int`` gives the UpCom payload of a kind group of the ``(n,
 d_total)`` f32 workspace: int8 codes ``(n, d_g)`` and f32 scales ``(n,
-nc_g)``, the group's leaves concatenated in the given order.  It reads
+nc_g)``, the group's leaves concatenated in the given order; ``row0`` is
+the global id of the workspace's first row (a rank's first client under
+data parallelism), so a rank's codes are those of its rows in the whole
+population's pack.  It reads
 4 B and writes 1 B per (row, coordinate), bound by bytes.  ``quantize_down``
 quantizes the DownCom ``x_bar`` in place, one shared row with row id
 ``wire.DOWN_ROW``.  A kind group's leaves are ``(leaf index, offset in the
@@ -66,17 +69,19 @@ def _check(x: torch.Tensor, leaves: Leaves, kind: str) -> None:
                          f"{width}")
 
 
-def pack_int(x: torch.Tensor, leaves: Leaves, kind: str,
-             seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def pack_int(x: torch.Tensor, leaves: Leaves, kind: str, seed: int,
+             row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(codes (n, d_g) int8, scales (n, nc_g) f32)`` of the leaves of the
     ``(n, d_total)`` f32 workspace ``x``: ``wire.leaf_scales`` then
     ``wire.quantize_to_int`` per leaf, row ``i`` drawing with row id
-    ``i`` and leaf ``li`` with ``wire.fold_seed(seed, li)``."""
+    ``row0 + i`` and leaf ``li`` with ``wire.fold_seed(seed, li)``."""
     _check(x, leaves, kind)
     if x.dim() != 2:
         raise ValueError(f"want an (n, d) workspace, got {tuple(x.shape)}")
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     if x.device.type == "cpu":
-        return ref.wire_pack(x, leaves, kind, seed)
+        return ref.wire_pack(x, leaves, kind, seed, row0)
     n = x.shape[0]
     d_g = sum(D for _, _, D in leaves)
     tab, coff = _tables(leaves, dst_of_src=False)
@@ -88,7 +93,7 @@ def pack_int(x: torch.Tensor, leaves: Leaves, kind: str,
         _build.device_table(tab, x.device).data_ptr(),
         _build.device_table(coff, x.device).data_ptr(), len(leaves), nc,
         int(seed) & 0xFFFFFFFF, float(wire.LEVELS[kind]), codes.data_ptr(),
-        d_g, scales.data_ptr(), nc, None, 0, _build.stream_of(x))
+        d_g, scales.data_ptr(), nc, None, 0, int(row0), _build.stream_of(x))
     _build.check_launch("wire_quantize", rc)
     return codes, scales
 
@@ -110,5 +115,5 @@ def quantize_down(x_bar: torch.Tensor, leaves: Leaves, kind: str,
         _build.device_table(tab, x_bar.device).data_ptr(),
         _build.device_table(coff, x_bar.device).data_ptr(), len(leaves),
         coff[-1], int(seed) & 0xFFFFFFFF, float(wire.LEVELS[kind]), None, 0,
-        None, 0, x_bar.data_ptr(), 1, _build.stream_of(x_bar))
+        None, 0, x_bar.data_ptr(), 1, 0, _build.stream_of(x_bar))
     _build.check_launch("wire_quantize", rc)

@@ -12,8 +12,9 @@ hybrid attends once per group of layers.  The encoder-decoder
 (the reference draws them from threefry key 7): the encoder runs once and
 fills the cross-attention's K/V in the cache, timed apart from the
 prefill; its decode step takes no pluggable attention, as the
-reference's.  There is no mesh: the reference's
-``--data-parallel``/``--model-parallel`` have no counterpart here.
+reference's.  Serving runs on one device: the reference's
+``--data-parallel``/``--model-parallel`` for serving are ROADMAP A9b (the
+train CLI's ``--data-parallel`` is ported).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --batch 2 \\

@@ -25,6 +25,21 @@ device before it drains them (both drivers).
 ``--latency-dist``, and ``--round-policy``/``--quorum`` admission at the
 deferred commit; it prints the simulated clock.
 
+``--data-parallel N`` runs the rounds on N ranks (ROADMAP A9a): the
+client axis is split over them (``sharding.RankRows``: ``ceil(n / N)``
+rows a rank) and the comm step is the shard engine, whose collectives
+are d-sized sums (``comm_ws.shard_comm``).  The CLI spawns the N ranks
+itself, or joins a ``torchrun`` group when ``WORLD_SIZE`` is set (then N
+must equal it); rank ``r`` takes ``cuda:(r % cards)``.
+``--dist-backend`` is nccl on ``--device cuda`` and gloo on ``--device
+cpu`` unless given: nccl takes one card per rank and refuses more ranks
+than cards; ranks that share one card pass ``--dist-backend gloo``.
+The rows are the same on every rank and rank 0 prints and logs them; at
+``--sparsity 2`` they are the one-process run's bitwise.  The reputation,
+checkpoints, the pipelined driver and ``--comm-impl ws``/``dense`` over
+ranks, and ``--model-parallel`` above 1 (the model axis), are ROADMAP A9b
+and exit with an error.
+
 ``--arch`` takes every architecture of the registry: the dense family
 (internvl2-26b's batches carry its stub frontend's ``prefix_embeds``,
 ``SyntheticTokenPipeline``, and the loss is on the text positions), the
@@ -56,11 +71,18 @@ Example:
       --clients 8 --cohort 2 --pipeline --staleness 1 --latency-dist \\
       benchmarks/artifacts/latency_dist.json --round-policy quorum \\
       --quorum 1 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
+      --data-parallel 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
+      --data-parallel 2 --dist-backend gloo       # two ranks on one card
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --reduced --rounds 2 --data-parallel 4      # nccl, a card per rank
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -150,6 +172,17 @@ def main(argv=None) -> int:
     ap.add_argument("--wire-down", action="store_true",
                     help="also quantize the DownCom broadcast (needs a "
                          "non-f32 --wire-precision)")
+    ap.add_argument("--data-parallel", type=int, default=1,
+                    help="ranks the client axis is split over (spawned "
+                         "here, or the torchrun group of WORLD_SIZE)")
+    ap.add_argument("--dist-backend", default="",
+                    choices=["", "nccl", "gloo"],
+                    help="torch.distributed backend of --data-parallel "
+                         "(default nccl on cuda, gloo on cpu; ranks that "
+                         "share a card pass gloo)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="tensor parallelism of the model: not ported "
+                         "(ROADMAP A9b); only 1 is taken")
     args = ap.parse_args(argv)
     if args.checkpoint_every and not args.checkpoint_dir:
         ap.error("--checkpoint-every needs --checkpoint-dir")
@@ -162,7 +195,66 @@ def main(argv=None) -> int:
     if args.wire_down and args.wire_precision == "f32":
         ap.error("--wire-down quantizes the DownCom broadcast; it needs a "
                  "non-f32 --wire-precision")
+    if args.model_parallel != 1:
+        ap.error("--model-parallel (the model axis: parameter rules, "
+                 "model-sharded bands, tensor-parallel layers) is not "
+                 "ported: ROADMAP A9b")
+    world = args.data_parallel
+    env_world = int(os.environ.get("WORLD_SIZE", "0"))
+    if world < 1:
+        ap.error("--data-parallel needs at least 1 rank")
+    if env_world and env_world != world:
+        ap.error(f"WORLD_SIZE={env_world} but --data-parallel {world}")
+    if world > 1 or env_world:
+        for flag, on in (("--reputation", args.reputation),
+                         ("--checkpoint-dir", args.checkpoint_dir),
+                         ("--pipeline", args.pipeline),
+                         ("--adversary inlier", args.adversary == "inlier"),
+                         ("--comm-impl ws/dense",
+                          args.comm_impl in ("ws", "dense"))):
+            if on:
+                ap.error(f"{flag} over ranks is not ported: ROADMAP A9b")
+        backend = args.dist_backend or ("nccl" if args.device == "cuda"
+                                        else "gloo")
+        from repro_torch.dist import sharding
 
+        try:
+            sharding.check_backend(backend, args.device, world)
+        except ValueError as e:
+            ap.error(str(e))
+        if env_world:  # a torchrun rank
+            rank = int(os.environ["RANK"])
+            dev = sharding.rank_device(args.device, rank)
+            if dev.type == "cuda":
+                import torch
+
+                torch.cuda.set_device(dev)
+            sharding.init_group(backend, rank, world, "env://")
+            import torch.distributed as dist
+
+            try:
+                return _train(rank, dev, args)
+            finally:
+                dist.destroy_process_group()
+        if args.device == "cuda":
+            # build the kernels here: ranks building at first use race
+            from repro_torch.kernels import _build
+
+            _build.build()
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            sharding.spawn(_train, world, backend=backend,
+                           device=args.device,
+                           init_method=sharding.file_init_method(tmp),
+                           args=(args,))
+        return 0
+    return _train(None, None, args)
+
+
+def _train(rank, dev, args) -> int:
+    """The run: one process (``rank`` None), or rank ``rank`` of the
+    initialised group on ``dev`` (a spawned or a torchrun rank)."""
     import numpy as np
     import torch
 
@@ -172,7 +264,7 @@ def main(argv=None) -> int:
     from repro_torch.data import DataConfig, SyntheticTokenPipeline
     from repro_torch.dist import cohort, faults, rounds, tamuna_dp
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if dev is None else dev
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = (registry.get_reduced_config(args.arch) if args.reduced
@@ -185,8 +277,18 @@ def main(argv=None) -> int:
         robust_agg=args.robust_agg, trim_k=args.trim_k,
         wire_precision=args.wire_precision, wire_down=args.wire_down,
     )
+    group = None
+    if rank is not None:
+        from repro_torch.dist import sharding
+
+        group = sharding.RankRows.of_group(n)
+        # the ranks' intra-op threads share the host's cores
+        torch.set_num_threads(min(torch.get_num_threads(), max(
+            1, (os.cpu_count() or 1) // group.world)))
+    lead = rank in (None, 0)
+    adversarial = args.adversary != "none" and args.f_byz > 0.0
     state = tamuna_dp.init_state(cfg, tcfg, n, seed=args.seed,
-                                 device=device)
+                                 device=device, rows=group)
     pipe = SyntheticTokenPipeline(
         DataConfig(seq_len=args.seq_len,
                    per_client_batch=args.per_client_batch,
@@ -202,7 +304,7 @@ def main(argv=None) -> int:
         if args.reputation:
             fkw["plan"] = cohort.CohortPlan(args.seed, n, tcfg.c)
             fkw["reputation"] = True
-    logger = metrics.MetricLogger(args.log or None)
+    logger = metrics.MetricLogger(args.log or None) if lead else None
     t0 = time.time()
     rng = np.random.default_rng(args.seed)
     generator = torch.Generator().manual_seed(args.seed + 1)
@@ -229,14 +331,18 @@ def main(argv=None) -> int:
             rng=rng, generator=generator, max_L=args.max_L, logger=logger,
             checkpoint_dir=args.checkpoint_dir or None,
             checkpoint_every=args.checkpoint_every,
-            flush_every=args.flush_every, **fkw,
+            flush_every=args.flush_every, group=group, **fkw,
         )
+    if not lead:
+        return 0
     logger.close()
     dt = time.time() - t0
     total_steps = rows[-1]["local_steps"] if rows else 0
     final_loss = rows[-1]["loss"] if rows else float("nan")
+    where = (f"{device}" if group is None else
+             f"{group.world} ranks ({device} on rank 0)")
     print(f"[train] {args.rounds} rounds / {total_steps} local steps on "
-          f"{device} in {dt:.1f}s; final loss {final_loss:.4f}")
+          f"{where} in {dt:.1f}s; final loss {final_loss:.4f}")
     return 0
 
 

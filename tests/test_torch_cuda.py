@@ -1392,3 +1392,104 @@ def test_remat_on_the_card_matches_no_remat(dev):
     assert torch.isfinite(out[0][0]) and torch.equal(out[0][0], out[1][0])
     for a, b in zip(out[0][1], out[1][1]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("row0,k", [(1, 3), (3, 2), (4, 1)])
+def test_wire_quantize_row0_is_the_global_rows(dev, kind, row0, k):
+    """A block of rows packed with ``row0`` (a rank's first global row)
+    is bitwise the plain version with that ``row0`` and those rows of the
+    whole workspace's pack."""
+    from repro_torch.kernels import wire_pack
+
+    dims = _WQ_DIMS["ragged"]
+    offs = np.concatenate([[0], np.cumsum(dims)]).tolist()
+    rng = np.random.default_rng(row0 * 10 + k)
+    x = torch.from_numpy((rng.normal(size=(N, offs[-1])) * 3).astype(
+        np.float32)).to(dev)
+    x[2, 5] = float("nan")
+    leaves = [(i, offs[i], dims[i]) for i in range(len(dims))]
+    block = x[row0:row0 + k].contiguous()
+    before = _build.launch_counts["wire_quantize"]
+    codes, scales = wire_pack.pack_int(block, leaves, kind, 0xC0FFEE,
+                                       row0=row0)
+    whole_c, whole_s = wire_pack.pack_int(x, leaves, kind, 0xC0FFEE)
+    assert _build.launch_counts["wire_quantize"] == before + 2
+    codes_p, scales_p = ref.wire_pack(block, leaves, kind, 0xC0FFEE, row0)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, codes_p)
+    assert torch.equal(scales.view(torch.int32), scales_p.view(torch.int32))
+    assert torch.equal(codes, whole_c[row0:row0 + k])
+    assert torch.equal(scales.view(torch.int32),
+                       whole_s[row0:row0 + k].view(torch.int32))
+
+
+# the two-rank shard comm step on one card: n = 4, c = 3, s = 2, an idle
+# row of NaN; the mean, survivor and int8-wire (wire_down) rebuilds
+_SHARD_VARIANTS = ("mean", "survivor", "int8_down")
+
+
+def _shard_case(dev, variant, group=None):
+    from repro_torch.dist import comm_ws
+
+    n, c, s, d = 4, 3, 2, 3 * 4096 + 77
+    dims = [4096 + 5, d - 4096 - 5]
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[1] = np.nan
+    h = rng.normal(size=(n, d)).astype(np.float32)
+    slot = torch.tensor([2, -1, 0, 1], dtype=torch.int32, device=dev)
+    down = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+    arrived = (torch.tensor([True, False, False, True], device=dev)
+               if variant == "survivor" else None)
+    band = comm_ws.cyclic_band(dims, c, s, dev)
+    wire = (comm_ws.wire_plan(dims, "int8", c, s, band)
+            if variant == "int8_down" else None)
+    rows = slice(0, n) if group is None else slice(group.row0, group.stop)
+    xw = torch.from_numpy(x[rows]).to(dev)
+    hw = torch.from_numpy(h[rows]).to(dev)
+    kw = dict(down=down, arrived=arrived, wire=wire, wire_seed=99,
+              wire_down=wire is not None)
+    if group is None:
+        comm_ws.cyclic_comm(xw, hw, slot, band, c, s, 0.37, **kw)
+    else:
+        comm_ws.shard_comm(xw, hw, slot, band, c, s, 0.37, group=group, **kw)
+    return xw.cpu().numpy(), hw.cpu().numpy()
+
+
+def _shard_rank(rank, dev, out_dir):
+    from repro_torch.dist import sharding
+
+    out = {}
+    for variant in _SHARD_VARIANTS:
+        g = sharding.RankRows.of_group(4)
+        out[f"{variant}/x"], out[f"{variant}/h"] = _shard_case(dev, variant,
+                                                               g)
+        out[f"{variant}/sizes"] = np.asarray(g.sizes)
+    out["launches"] = np.asarray([_build.launch_counts[k] for k in (
+        "masked_sum", "masked_sum_counts", "masked_sum_dequant",
+        "h_update", "h_update_covered", "wire_quantize")])
+    np.savez(f"{out_dir}/rank{rank}.npz", **out)
+
+
+def test_two_gloo_ranks_on_one_card_match_the_kernel_path(dev, tmp_path):
+    """Two ranks on cuda:0 over gloo (``sharding.spawn``) run the shard
+    engine on their rows with the kernels; bitwise the one-process kernel
+    path at s = 2, every collective d-sized."""
+    from repro_torch.dist import sharding
+
+    _build.load()  # built once, before the ranks
+    sharding.spawn(_shard_rank, 2, backend="gloo", device="cuda",
+                   init_method=sharding.file_init_method(str(tmp_path)),
+                   args=(str(tmp_path),))
+    parts = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(2)]
+    for variant in _SHARD_VARIANTS:
+        want_x, want_h = _shard_case(dev, variant)
+        got_x = np.concatenate([p[f"{variant}/x"] for p in parts])
+        got_h = np.concatenate([p[f"{variant}/h"] for p in parts])
+        assert np.array_equal(got_x, want_x, equal_nan=True), variant
+        assert np.array_equal(got_h, want_h, equal_nan=True), variant
+        for p in parts:
+            assert int(p[f"{variant}/sizes"].max()) <= 3 * 4096 + 77
+    for p in parts:  # each rank launched the UpComs, quantizer, updates
+        assert all(int(v) > 0 for v in p["launches"])
