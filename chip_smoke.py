@@ -30,7 +30,11 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    quantizer ``wire_quantize`` in int8, int4 and DownCom modes on rows
    with +inf, -inf, NaN and an all-zero chunk, each form with its share of
    its bound, and in int8 and int4 on rows 2-3 alone with ``row0`` = 2 (a
-   rank's rows: the whole pack's rows, bitwise);
+   rank's rows: the whole pack's rows, bitwise); the coordinate-table
+   forms at ``[comm_tp]``'s shapes (model rank 0's blocks of the ``auto``
+   wire's int8 group, ``(4, 372,768,768)``): ``wire_quantize_at`` (UpCom
+   with nonfinite entries, DownCom) with ``comm_ws._group_scales``' scales
+   and ``masked_sum_dequant`` in both forms with the scale-column table;
    every UpCom (``masked_sum`` in both forms and every lane,
    ``robust_sum``, ``masked_sum_dequant``) with its share of the byte bound
    and of the sector floor (the owning rows' entries in whole 32-byte
@@ -109,6 +113,26 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    ``[dp_nccl]`` the reduced round through a one-rank nccl group against
                 one process, bitwise (the nccl path launches and takes
                 its tensors; one rank partitions nothing);
+   then model parallelism (ROADMAP A9b), each path in fresh gloo ranks on
+   the card that exit before the next starts (``spawn_tp``), launch
+   counts summed over the ranks:
+   ``[comm_tp]`` 2 model ranks (one data rank) take their blocks of
+                ``[train]``'s state (mapped from this process) and run
+                ``COMM_TP``'s five steps in turn: f32 mean, survivor with
+                a drop, ``auto`` with ``wire_down`` (the int8 blocks'
+                coordinate-table forms), int8 with a drop, trimmed k=1 at
+                c=4, s=3; each bitwise the one-process kernel step's
+                blocks (robust up to the sign of zero); prints the scales'
+                ``MAX`` element counts;
+   ``[train_tp]`` ``[train]``'s schedule on 2 model ranks, 3 rounds: the
+                first member step's loss and gradients within
+                ``TP_STEP_FACTOR`` times the one process's distance from
+                float64 (made on the card here), L equal, finite losses,
+                |sum_i h_i| / max|h| <= 1e-4; per round host s, device
+                ms, the activation sums' seconds;
+   ``[train_dp_tp]`` 2 x 2 ranks, 2 rounds: x, h (block row digests) and
+                losses bitwise ``[train_tp]``'s after 2 rounds, the data
+                group's sums no larger than a block;
    ``[robust]`` the robust round, n=5, c=4, s=3, 20% drops, one
                 sign-flipping Byzantine client, quorum, trimmed mean k=1
                 behind the adaptive payload guard;
@@ -419,6 +443,27 @@ COMM_DP = (
 )
 COMM_DP_DOWN = [True, True, False, True]
 COMM_DP_SEED = 0x5EED
+# model parallelism (ROADMAP A9b): [train]'s model on TP_MP model ranks
+# (one data rank; [train_dp_tp]: TP_DP data ranks) over gloo on the one
+# card, and [comm_tp]'s steps in turn on [train]'s state at n = N: as
+# COMM_DP's, with COMM_DP_DOWN and COMM_DP_SEED
+TP_MP, TP_DP = 2, 2
+COMM_TP = (
+    ("mean", 3, 2, {}, [0, 2, 3], [2, 0, 1], None),
+    ("survivor", 3, 2, {}, [0, 2, 3], [2, 0, 1],
+     [True, False, False, True]),
+    ("auto_down", 3, 2, dict(wire_precision="auto", wire_down=True),
+     [0, 2, 3], [2, 0, 1], None),
+    ("int8_arrivals", 3, 2, dict(wire_precision="int8"), [0, 2, 3],
+     [2, 0, 1], [True, False, False, True]),
+    ("trimmed", 4, 3, dict(robust_agg="trimmed", trim_k=1), [0, 1, 2, 3],
+     [3, 0, 2, 1], None),
+)
+# [train_tp]'s first member step: the loss and each gradient leaf no
+# farther from the one process's than this many times the one process's
+# own distance to float64 (the reduced model at bf16 on the CPU: at most
+# 0.25 per leaf, 0.03 on the loss; PERF.md)
+TP_STEP_FACTOR = 1.0
 # AdamW's reduced round runs one local step (see check_reduced_adamw_round)
 # and gates columns whose g - h lies within ADAM_NEAR0 of 0 at 2 gamma
 ADAM_NEAR0 = 1e-5
@@ -4545,7 +4590,8 @@ def dp_rank(rank: int, dev, cfg, job: dict, out_dir: str) -> None:
             and ratio <= 1e-4):
         raise AssertionError(f"[faults_dp] rank {rank} differs from "
                              "[faults]")
-    del state
+    del state, ref
+    release_mapped(job, "faults")  # [faults]' x_bar, mapped from the parent
     torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -4625,6 +4671,8 @@ def run_dp_paths(cfg, dev, here: str, job: dict) -> dict:
         sharding.spawn(dp_rank, DP_WORLD, backend="gloo", device="cuda",
                        init_method=sharding.file_init_method(out_dir),
                        args=(cfg, job, out_dir))
+    job.pop("faults")
+    torch.cuda.ipc_collect()  # the x_bar the ranks mapped
     secs = time.perf_counter() - t0
     res = []
     for r in range(DP_WORLD):
@@ -4651,6 +4699,601 @@ def run_dp_paths(cfg, dev, here: str, job: dict) -> dict:
     import shutil
 
     shutil.rmtree(out_dir)
+    return out
+
+
+# --------------------------------------------------------------------------
+# model parallelism (ROADMAP A9b): [comm_tp], [train_tp], [train_dp_tp]
+# --------------------------------------------------------------------------
+
+
+def release_mapped(job: dict, *names) -> None:
+    """Drop a rank's references to the parent's tensors it mapped (``job``'s
+    entries ``names`` and what they hold) and collect them, so that the
+    parent, which holds them for the rank until the rank lets go
+    (``torch.cuda.ipc_collect``), can free them once the rank exits."""
+    import gc
+
+    for name in names:
+        job.pop(name, None)
+    gc.collect()
+    torch.cuda.synchronize()
+
+
+def tp_mesh_like(mp: int, m: int):
+    """A ``sharding.Mesh2D`` that only names model rank ``m`` of ``mp``
+    (no groups): what ``state_spec``/``block_coords`` read."""
+    from repro_torch.dist import sharding
+
+    return sharding.Mesh2D(1, mp, m, None, None)
+
+
+def to_blocks(ws: torch.Tensor, cfg, tcfg, mp: int, m: int) -> torch.Tensor:
+    """Model rank ``m``'s blocks (of ``mp``) of the rows of the whole
+    workspace ``ws``: its rows as ``tamuna_dp.state_spec(mesh=)`` lays
+    them out, a new tensor on ``ws``' device."""
+    from repro_torch.dist import comm_ws, sharding, tamuna_dp
+
+    gspec = tamuna_dp.state_spec(cfg, tcfg)
+    lspec = tamuna_dp.state_spec(cfg, tcfg, tp_mesh_like(mp, m))
+    ps = sharding.params_pspecs(cfg, mp)
+    out = torch.empty(ws.shape[0], lspec.d_total, dtype=ws.dtype,
+                      device=ws.device)
+    loc = comm_ws.unpack(out, lspec)
+    for nm, v in comm_ws.unpack(ws, gspec).items():
+        loc[nm].copy_(v[(slice(None),) + sharding.block_slices(
+            v.shape[1:], ps[nm], mp, m)])
+    return out
+
+
+def from_blocks(blocks, cfg, tcfg, mp: int) -> torch.Tensor:
+    """The whole workspace rows from every model rank's ``to_blocks``, a
+    new tensor on their device."""
+    from repro_torch.dist import comm_ws, sharding, tamuna_dp
+
+    gspec = tamuna_dp.state_spec(cfg, tcfg)
+    ps = sharding.params_pspecs(cfg, mp)
+    out = torch.empty(blocks[0].shape[0], gspec.d_total,
+                      dtype=blocks[0].dtype, device=blocks[0].device)
+    full = comm_ws.unpack(out, gspec)
+    for m, blk in enumerate(blocks):
+        lspec = tamuna_dp.state_spec(cfg, tcfg, tp_mesh_like(mp, m))
+        for nm, v in comm_ws.unpack(blk, lspec).items():
+            full[nm][(slice(None),) + sharding.block_slices(
+                full[nm].shape[1:], ps[nm], mp, m)] = v
+    return out
+
+
+def check_wire_at_kernels(cfg, dev):
+    """The coordinate-table forms of the int wire's kernels against their
+    plain versions at ``[comm_tp]``'s shapes: model rank 0's blocks (of
+    ``TP_MP``) of the ``auto`` wire's int8 group of 2-layer gemma2-2b, on
+    ``(N, d_g)``: ``wire_quantize`` (UpCom, rows with +inf, -inf and NaN,
+    and the DownCom) with the scales of ``comm_ws._group_scales``, and
+    ``masked_sum_dequant`` in both forms with the scale-column table.
+    Each bitwise; returns their records."""
+    from repro_torch.dist import comm_ws, tamuna_dp
+    from repro_torch.kernels import ref, uplink, wire_pack
+
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
+    mesh = tp_mesh_like(TP_MP, 0)
+    spec = tamuna_dp.state_spec(cfg, tcfg, mesh)
+    gspec = tamuna_dp.state_spec(cfg, tcfg)
+    coords = tamuna_dp.block_coords(cfg, spec, mesh, dev)
+    band = comm_ws.band_of_blocks(spec.dims, gspec.dims, coords, "cyclic",
+                                  C, S, dev)
+    plan = comm_ws.wire_plan(spec.dims, "auto", C, S, band, ids=spec.ids,
+                             gdims=gspec.dims, coords=coords)
+    grp = next(g for g in plan if g.kind == "int8")
+    d, dg = spec.d_total, grp.leaf_lo[-1]
+    nc = grp.scale_lo[-1]
+    L = len(grp.leaves)
+    print(f"[check] the coordinate-table forms at [comm_tp]'s int8 group: "
+          f"model rank 0 of {TP_MP}, {L} blocks, {dg} of {d} columns, {nc} "
+          f"global chunks; whole 256-runs {sum(grp.runs)} of {L}")
+    g = torch.Generator(device=dev).manual_seed(7)
+    recs = []
+
+    # -- wire_quantize_at: UpCom on (N, d), then the DownCom -------------
+    x = torch.randn(N, d, generator=g, device=dev)
+    x[0, ::1000] = float("inf")
+    x[2, 500::1000] = float("-inf")
+    x[3, 7::999_983] = float("nan")
+    scales = comm_ws._group_scales(x, grp)
+    kw = dict(coords=grp.coords, scales=scales, gdims=grp.gdims)
+    codes, sc = wire_pack.pack_int(x, grp.leaves, "int8", 0x5EED, **kw)
+    codes_p, sc_p = ref.wire_pack(x, grp.leaves, "int8", 0x5EED, **kw)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(codes, codes_p), max_abs_err(sc, sc_p))
+    n_bad = int(sc.isnan().sum())
+    if err != 0.0 or n_bad == 0:
+        raise AssertionError(f"wire_quantize_at: max abs err {err}, {n_bad} "
+                             "poisoned chunks")
+    del codes_p, sc_p
+    up_ms = cuda_ms(lambda: wire_pack.pack_int(x, grp.leaves, "int8",
+                                               0x5EED, **kw), 5)
+    up_plain_ms = cuda_ms(lambda: ref.wire_pack(x, grp.leaves, "int8",
+                                                0x5EED, **kw), 2)
+    # x read, coordinates read once, the scales read and their copy
+    # written, codes written, the leaf tables read
+    up_bound = bound_ms(5 * N * dg + 8 * dg + 12 * N * nc + 48 * L)
+    row = x[1].clone()
+    row[3::1000] = float("nan")
+    dscales = comm_ws._group_scales(row[None], grp)
+    dkw = dict(coords=grp.coords, scales=dscales, gdims=grp.gdims)
+    got, want = row.clone(), row.clone()
+    wire_pack.quantize_down(got, grp.leaves, "int8", 0x5EED, **dkw)
+    ref.wire_down(want, grp.leaves, "int8", 0x5EED, **dkw)
+    torch.cuda.synchronize()
+    err_down = max_abs_err(got, want)
+    if err_down != 0.0:
+        raise AssertionError(f"wire_quantize_at DownCom: max abs err "
+                             f"{err_down}")
+    down_ms = cuda_ms(lambda: wire_pack.quantize_down(
+        got, grp.leaves, "int8", 0x5EED, **dkw), 5)
+    down_plain_ms = cuda_ms(lambda: ref.wire_down(
+        want, grp.leaves, "int8", 0x5EED, **dkw), 2)
+    down_bound = bound_ms(8 * dg + 8 * dg + 4 * nc + 48 * L)
+    scale_ms = cuda_ms(lambda: comm_ws._group_scales(x, grp), 3)
+    print(f"[check] wire_quantize_at: {n_bad} poisoned chunk scales of "
+          f"{N * nc}; UpCom {up_ms:.3f} ms ({up_bound / up_ms:.1%} of its "
+          f"bound {up_bound:.3f} ms), DownCom {down_ms:.3f} ms "
+          f"({down_bound / down_ms:.1%} of {down_bound:.3f} ms); the "
+          f"scales' chunk maxima (plain torch) {scale_ms:.3f} ms")
+    recs.append({
+        "name": "wire_quantize_at", "shape": [N, dg], "max_abs_err":
+        max(err, err_down), "tolerance": 0.0, "ms": up_ms,
+        "plain_ms": up_plain_ms, "down_ms": down_ms,
+        "down_plain_ms": down_plain_ms, "bound_ms": up_bound,
+        "down_bound_ms": down_bound, "scales_ms": scale_ms,
+    })
+    del x, codes, sc, scales, row, got, want, dscales
+
+    # -- masked_sum_dequant with the scale-column table, both forms -------
+    band_g = grp.band
+    lo = grp.leaf_lo
+    lo_t = torch.tensor(lo, dtype=torch.int64, device=dev)
+    for counts, n, c, s, slot_l in ((False, N, C, S, [1, -1, 0, 2]),
+                                    (True, N, C, S, [1, -1, -1, 2])):
+        slot = torch.tensor(slot_l, dtype=torch.int32, device=dev)
+        codes = torch.randint(-127, 128, (n, dg), generator=g, device=dev,
+                              dtype=torch.int8)
+        scales = torch.rand(n, nc, generator=g, device=dev).mul_(0.01)
+        scales[1] = float("nan")  # an idle row's chunks never leak
+        if counts:
+            scales[2] = float("nan")  # the dropped member
+        owned = owned_entries(slot, band_g, c, s)
+        kwc = dict(counts=counts, chunk_col=grp.chunk_col)
+        got = uplink.masked_sum_dequant(codes, scales, lo, slot, band_g, c,
+                                        s, **kwc)
+        want = ref.masked_sum_dequant(codes, scales, lo_t, slot, band_g, c,
+                                      s, **kwc)
+        torch.cuda.synchronize()
+        got = got if counts else (got,)
+        want = want if counts else (want,)
+        err = max(max_abs_err(a, b) for a, b in zip(got, want))
+        if err != 0.0 or not all(bool(a.isfinite().all()) for a in got):
+            raise AssertionError(f"masked_sum_dequant_at counts={counts}: "
+                                 f"max abs err {err}")
+        del got, want
+        name = ("masked_sum_dequant_counts_at" if counts
+                else "masked_sum_dequant_at")
+        outs = 2 if counts else 1
+        recs.append({
+            "name": name, "shape": [n, dg], "max_abs_err": err,
+            "tolerance": 0.0,
+            "ms": cuda_ms(lambda: uplink.masked_sum_dequant(
+                codes, scales, lo, slot, band_g, c, s, **kwc), 5),
+            "plain_ms": cuda_ms(lambda: ref.masked_sum_dequant(
+                codes, scales, lo_t, slot, band_g, c, s, **kwc), 2),
+            # owned codes read, the owning rows' scales, band and the
+            # scale-column table read, the outputs written, slot read
+            "bound_ms": bound_ms(owned + 4 * (3 * nc + (2 + outs) * dg
+                                              + n)),
+        })
+        print(f"[check] {name}: {recs[-1]['ms']:.3f} ms, "
+              f"{recs[-1]['bound_ms'] / recs[-1]['ms']:.1%} of the bound "
+              f"({recs[-1]['bound_ms']:.3f} ms)")
+        del codes, scales
+    del plan, grp, band, band_g
+    return recs
+
+
+def block_digests(ws, cfg, tcfg, zero_sign=False):
+    """Each model rank's ``row_digests`` of its blocks of ``ws``."""
+    out = []
+    for m in range(TP_MP):
+        blk = to_blocks(ws, cfg, tcfg, TP_MP, m)
+        out.append(row_digests(blk, zero_sign=zero_sign))
+        del blk
+    return out
+
+
+def comm_tp_reference(cfg, xb, hb, dev) -> dict:
+    """``[comm_tp]``'s one-process kernel steps (``COMM_TP``, in turn) on
+    ``[train]``'s state put together from its model blocks ``xb``/``hb``
+    (``to_blocks`` of each rank), each model rank's block digests of x and
+    h after each step: ``{tag: ([x digests per rank], [h digests per
+    rank], seconds)}``."""
+    from repro_torch.dist import tamuna_dp
+
+    tcfg0 = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
+    x = from_blocks(xb, cfg, tcfg0, TP_MP)
+    h = from_blocks(hb, cfg, tcfg0, TP_MP)
+    out = {}
+    for tag, c, s, kw, cohort_, perm, arrived in COMM_TP:
+        tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P, **kw)
+        step = tamuna_dp.make_comm_step(cfg, tcfg, N, device=dev)
+        state = tamuna_dp.DistTamunaState(
+            x=x, h=h, spec=tamuna_dp.state_spec(cfg, tcfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, cohort_, perm, np.asarray(COMM_DP_DOWN),
+             None if arrived is None else np.asarray(arrived), True,
+             COMM_DP_SEED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del step
+        zs = tcfg.robust_() is not None
+        out[tag] = (block_digests(x, cfg, tcfg, zs),
+                    block_digests(h, cfg, tcfg, zs), secs)
+        print(f"[comm_tp] one-process kernel step {tag}: {secs:.3f} s",
+              flush=True)
+    del x, h
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_comm_rank(rank: int, dev, cfg, job: dict, out_dir: str) -> None:
+    """``[comm_tp]``: model rank ``rank`` of ``TP_MP`` (one data rank)
+    runs ``COMM_TP``'s steps in turn (``make_comm_step(mesh=)``: the
+    one-process kernel step on the blocks) in place on its blocks of
+    ``[train]``'s state (``job``'s, on the card, held by the parent and
+    mapped here: no copy) and holds each against the one-process steps'
+    block digests."""
+    from repro_torch.dist import sharding, tamuna_dp
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.load()
+    mesh = sharding.make_mesh(N, 1, TP_MP)
+    x, h = job["xb"][mesh.m_index], job["hb"][mesh.m_index]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    res = {"secs": {}, "max_sizes": {}}
+    for tag, c, s, kw, cohort_, perm, arrived in COMM_TP:
+        tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=c, s=s, p=P, **kw)
+        n_max = len(mesh.tp.sizes)
+        t0 = time.perf_counter()
+        step = tamuna_dp.make_comm_step(cfg, tcfg, N, device=dev, mesh=mesh)
+        build = time.perf_counter() - t0
+        state = tamuna_dp.DistTamunaState(
+            x=x, h=h, spec=tamuna_dp.state_spec(cfg, tcfg, mesh))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, cohort_, perm, np.asarray(COMM_DP_DOWN),
+             None if arrived is None else np.asarray(arrived), True,
+             COMM_DP_SEED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        del step
+        torch.cuda.empty_cache()  # the step's tables
+        zs = tcfg.robust_() is not None
+        wx, wh, ref_secs = job["comm"][tag]
+        ok = (np.array_equal(row_digests(x, zero_sign=zs),
+                             wx[mesh.m_index])
+              and np.array_equal(row_digests(h, zero_sign=zs),
+                                 wh[mesh.m_index]))
+        sizes = mesh.tp.sizes[n_max:]
+        res["secs"][tag] = secs
+        res["max_sizes"][tag] = list(sizes)
+        print(f"[comm_tp rank {rank}] {tag} (c={c} s={s}): x and h bitwise "
+              f"the one-process kernel step's blocks"
+              f"{' up to the sign of zero' if zs else ''} {ok}; {secs:.3f} s "
+              f"(one process {ref_secs:.3f} s; tables built in {build:.2f} "
+              f"s); the scales' MAX over the model group: elements {sizes}",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"[comm_tp] {tag} rank {rank} differs")
+    res["launches"] = dict(_build.launch_counts)
+    res["peak"] = torch.cuda.max_memory_allocated()
+    print(f"[comm_tp rank {rank}] peak {res['peak'] / 2**30:.2f} GiB",
+          flush=True)
+    del x, h, state
+    release_mapped(job, "xb", "hb")
+    with open(os.path.join(out_dir, f"comm_tp{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def first_member_step(cfg, dev, tp=None, mp=1, m=0):
+    """The first local step of round 0's first cohort member in
+    ``[train]``'s schedule: its loss and gradients on the initial model
+    (the whole model, or model rank ``m``'s blocks under ``tp``)."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import model_api, rounds, sharding
+
+    params = model_api.init(cfg, seed=0, device=dev)
+    if tp is not None:
+        ps = sharding.params_pspecs(cfg, mp)
+        params = {k: v[sharding.block_slices(v.shape, ps[k], mp, m)].clone()
+                  for k, v in params.items()}
+    pd = cfg.param_dtype
+    params = {k: v.to(pd).requires_grad_(True) for k, v in params.items()}
+    pipe = SyntheticTokenPipeline(
+        DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=0,
+                   n_clients=N), cfg, dev)
+    # run_rounds' generator is seeded 1: its cohorts' seed
+    cohort0 = rounds._host_cohort(None, 1, N, C)(0)
+    batch = pipe.sample_batch(cohort0)
+    loss, _ = model_api.loss(params, cfg, tokens=batch["tokens"][0],
+                             labels=batch["labels"][0], tp=tp)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, (g.detach() for g in grads)))
+
+
+def tp_step_reference(cfg, dev) -> dict:
+    """What ``[train_tp]``'s first member step is held to: the one-process
+    step's loss and gradients (kept on the card for the ranks) and each
+    one's distance to the same step in float64 on the card."""
+    loss, grads = first_member_step(cfg, dev)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64,
+                                param_dtype=torch.float64)
+    loss64, grads64 = first_member_step(cfg64, dev)
+    dist = {k: float((grads[k].double() - grads64[k]).abs().max())
+            for k in grads}
+    top = {k: float(grads64[k].abs().max()) for k in grads}
+    out = {"loss": float(loss), "loss_dist": abs(float(loss) - float(loss64)),
+           "grads": grads, "dist": dist, "top": top}
+    del grads64, loss64
+    torch.cuda.empty_cache()
+    print(f"[train_tp] the first member step in one process: loss "
+          f"{out['loss']:.6f}, {out['loss_dist']:.3e} from float64; each "
+          f"leaf's max |g - g64| / max|g64|: "
+          f"{ {k: f'{dist[k] / top[k]:.2e}' for k in dist} }", flush=True)
+    return out
+
+
+def tp_h_sum_ratio(h: torch.Tensor, mesh) -> float:
+    """|sum_i h_i| / max|h| over the whole state: each model rank's block
+    columns (every data rank's rows summed first), both maxima maxed over
+    the model group."""
+    g = mesh.rows
+    hsum = 0.0
+    for a in range(0, h.shape[1], 1 << 27):
+        col = h[:, a:a + (1 << 27)].sum(0)
+        if g.world > 1:
+            g.all_reduce(col)
+        hsum = max(hsum, float(col.abs().max()))
+    t = torch.tensor([hsum, float(h.abs().max())], device=h.device)
+    if g.world > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g.pg)
+    mesh.tp.all_reduce(t, "max")
+    return float(t[0] / t[1]) if float(t[1]) > 0 else math.inf
+
+
+def tp_train_rank(rank: int, dev, cfg, dp: int, job: dict,
+                  out_dir: str) -> None:
+    """``[train_tp]`` (``dp = 1``) or ``[train_dp_tp]`` (``dp = TP_DP``):
+    rank ``rank`` of the ``dp x TP_MP`` mesh trains ``[train]``'s
+    schedule on its rows and blocks (``run_rounds(group=mesh)``), one
+    round per call.  ``[train_tp]`` first holds the first member step
+    against the one process's (``job["step"]``), then checks its rounds'
+    L and finite losses and sum_i h_i = 0, and writes its digests after
+    2 rounds; ``[train_dp_tp]`` holds its rows' digests and losses after
+    2 rounds to ``[train_tp]``'s bitwise."""
+    from repro_torch.data import DataConfig, SyntheticTokenPipeline
+    from repro_torch.dist import rounds, sharding, tamuna_dp
+    from repro_torch.kernels import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.load()
+    tag = "train_tp" if dp == 1 else "train_dp_tp"
+    mesh = sharding.make_mesh(N, dp, TP_MP)
+    m = mesh.m_index
+    res = {}
+    if dp == 1:
+        ref = job["step"]
+        loss, grads = first_member_step(cfg, dev, mesh.tp, TP_MP, m)
+        ps = sharding.params_pspecs(cfg, TP_MP)
+        errs = torch.tensor([
+            float((g.float() - ref["grads"][k][sharding.block_slices(
+                ref["grads"][k].shape, ps[k], TP_MP, m)].float()
+                  ).abs().max()) for k, g in grads.items()], device=dev)
+        mesh.tp.all_reduce(errs, "max")
+        l_err = abs(float(loss) - ref["loss"])
+        ratios = {k: float(e) / ref["dist"][k] for k, e in zip(grads, errs)}
+        ok = l_err <= TP_STEP_FACTOR * ref["loss_dist"] and all(
+            r <= TP_STEP_FACTOR for r in ratios.values())
+        print(f"[train_tp rank {rank}] the first member step, tensor "
+              f"parallel: loss {float(loss):.6f}, {l_err:.3e} from the one "
+              f"process (limit {TP_STEP_FACTOR} x its {ref['loss_dist']:.3e}"
+              f" from float64); each leaf's max |g_tp - g| / the one "
+              f"process's max |g - g64|: "
+              f"{ {k: round(r, 4) for k, r in ratios.items()} } (limit "
+              f"{TP_STEP_FACTOR}) {ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"[train_tp] rank {rank}: the first member "
+                                 "step is past its limits")
+        res["step_ratio"] = max(ratios.values())
+        del grads, loss, ref
+        release_mapped(job, "step")
+        torch.cuda.empty_cache()
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
+    t0 = time.perf_counter()
+    state = tamuna_dp.init_state(cfg, tcfg, N, seed=0, device=dev,
+                                 mesh=mesh)
+    init_s = time.perf_counter() - t0
+    pipe = SyntheticTokenPipeline(
+        DataConfig(seq_len=128, per_client_batch=2, vocab=512, seed=0,
+                   n_clients=N), cfg, dev)
+    common = dict(cfg=cfg, tcfg=tcfg, pipe=pipe,
+                  rng=np.random.default_rng(0),
+                  generator=torch.Generator().manual_seed(1), max_L=4,
+                  flush_every=1, group=mesh)
+    n_rounds = 3 if dp == 1 else 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    rows = []
+    for r in range(n_rounds):
+        k_tp, k_dp = len(mesh.tp.seconds), len(mesh.rows.seconds)
+        with round_events() as evs:
+            evs.start()
+            state, more = rounds.run_rounds(state, rounds=1, **common)
+        row = more[0]
+        row["local_steps"] += rows[-1]["local_steps"] if rows else 0
+        row["device_s"] = evs.seconds()[0]
+        row["tp_s"] = sum(mesh.tp.seconds[k_tp:])
+        row["tp_n"] = len(mesh.tp.seconds) - k_tp
+        row["dp_s"] = sum(mesh.rows.seconds[k_dp:])
+        row["dp_sizes"] = mesh.rows.sizes[k_dp:]
+        rows.append(row)
+        print(f"[{tag} rank {rank}] round {row['round']}: L={row['L']} loss "
+              f"{row['loss']:.6f} host {row['seconds']:.3f} s device "
+              f"{row['device_s'] * 1e3:.1f} ms; the model group's "
+              f"{row['tp_n']} activation sums {row['tp_s']:.3f} s; the data "
+              f"group's sums {row['dp_s']:.3f} s over {row['dp_sizes']} "
+              f"elements", flush=True)
+        if r == 1:
+            res["x2"] = row_digests(state.x).tolist()
+            res["h2"] = row_digests(state.h).tolist()
+            res["loss2"] = [rw["loss"] for rw in rows]
+    res["launches"] = dict(_build.launch_counts)
+    res["peak"] = torch.cuda.max_memory_allocated()
+    res["L"] = [rw["L"] for rw in rows]
+    res["loss"] = [rw["loss"] for rw in rows]
+    res["dp_max"] = max([max(rw["dp_sizes"], default=0) for rw in rows])
+    d_local = state.x.shape[1]
+    ratio = tp_h_sum_ratio(state.h, mesh)
+    finite = all(math.isfinite(v) for v in res["loss"])
+    print(f"[{tag} rank {rank}] rows {mesh.rows.row0}..{mesh.rows.stop - 1} "
+          f"of {N}, model block {m} of {TP_MP} ({d_local} columns, d_total "
+          f"/ mp = {tamuna_dp.state_spec(cfg, tcfg).d_total / TP_MP:.0f}); "
+          f"init {init_s:.1f} s; losses finite {finite}; |sum_i h_i| / "
+          f"max|h| over the state {ratio:.3e} (limit 1e-4); peak "
+          f"{res['peak'] / 2**30:.2f} GiB; largest data-group collective "
+          f"{res['dp_max']} elements (d_total / mp {d_local}); launches "
+          f"{ {k: v for k, v in res['launches'].items() if v} }", flush=True)
+    if not finite or ratio > 1e-4 or res["dp_max"] > d_local:
+        raise AssertionError(f"[{tag}] rank {rank}: losses finite {finite}, "
+                             f"h sum ratio {ratio}")
+    if dp == 1:
+        want = job["train"]
+        ok = res["L"] == want["L"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(res["loss"], want["loss"])]
+        print(f"[train_tp rank {rank}] L per round {res['L']} equal "
+              f"[train]'s {ok}; losses relative to [train]'s "
+              f"{[f'{v:.3e}' for v in rel]} (not gated: the steps carry the "
+              f"first step's reassociation)", flush=True)
+        if not ok:
+            raise AssertionError("[train_tp] L differs from [train]'s")
+    else:
+        want = job["tp"][m]
+        rows_ = slice(mesh.rows.row0, mesh.rows.stop)
+        same = (np.array_equal(np.asarray(res["x2"]),
+                               np.asarray(want["x2"])[rows_])
+                and np.array_equal(np.asarray(res["h2"]),
+                                   np.asarray(want["h2"])[rows_]))
+        lsame = res["loss2"] == want["loss2"]
+        print(f"[train_dp_tp rank {rank}] after 2 rounds x and h bitwise "
+              f"[train_tp]'s rows {mesh.rows.row0}..{mesh.rows.stop - 1} of "
+              f"block {m} {same}; losses {res['loss2']} equal {lsame}",
+              flush=True)
+        if not (same and lsame):
+            raise AssertionError(f"[train_dp_tp] rank {rank} differs from "
+                                 "[train_tp]")
+    del state, pipe
+    with open(os.path.join(out_dir, f"{tag}{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def spawn_tp(tag, fn, world, here, args) -> tuple:
+    """Spawn ``world`` gloo ranks of ``fn`` on the card (fresh processes
+    that exit before this returns), the card's memory sampled with
+    ``nvidia-smi``; returns ``(the ranks' result files, seconds, peak
+    MiB)``."""
+    from repro_torch.dist import sharding
+
+    import gc
+
+    out_dir = os.path.join(here, "_smoke", "tp")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with smi_peak() as mem:
+        sharding.spawn(fn, world, backend="gloo", device="cuda",
+                       init_method=sharding.file_init_method(out_dir, tag),
+                       args=(*args, out_dir))
+    # the tensors the ranks mapped stay held for them until collected
+    torch.cuda.ipc_collect()
+    secs = time.perf_counter() - t0
+    print(f"[{tag}] after the ranks this process holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    res = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"{tag}{r}.json")) as f:
+            res.append(json.load(f))
+    peaks = [x["peak"] / 2**30 for x in res]
+    print(f"[{tag}] {world} ranks in {secs:.1f} s (spawn, imports and the "
+          f"state's set-up included); peak per rank "
+          f"{[round(p, 2) for p in peaks]} GiB; the card's memory in use "
+          f"peaked at {mem.peak} MiB (nvidia-smi, every rank and this "
+          f"process)", flush=True)
+    return res, secs, mem.peak
+
+
+def summed_launches(res) -> dict:
+    return {k: sum(x["launches"][k] for x in res) for k in res[0]["launches"]}
+
+
+def run_comm_tp(cfg, dev, here, xb, hb, job) -> dict:
+    """``[comm_tp]``: ``TP_MP`` ranks on the card map their blocks
+    ``xb[m]``/``hb[m]`` of ``[train]``'s state (held by this process) and
+    run ``COMM_TP`` on them in place; returns the launch counts summed
+    over the ranks."""
+    print(f"[comm_tp] {TP_MP} model ranks on {torch.cuda.get_device_name(0)} "
+          f"over gloo, one data rank: {[t[0] for t in COMM_TP]} on "
+          f"[train]'s state; the parent holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    res, _, _ = spawn_tp("comm_tp", tp_comm_rank, TP_MP, here,
+                         (cfg, dict(job, xb=xb, hb=hb)))
+    out = summed_launches(res)
+    print(f"[comm_tp] launches summed over the ranks "
+          f"{ {k: v for k, v in out.items() if v} }", flush=True)
+    return out
+
+
+def run_tp_paths(cfg, dev, here, job) -> dict:
+    """``[train_tp]`` (``TP_MP`` ranks) then ``[train_dp_tp]`` (``TP_DP x
+    TP_MP``), each in fresh ranks; the first member step's one-process
+    reference is made here first.  Returns each path's launch counts
+    summed over its ranks."""
+    import shutil
+
+    job = dict(job, step=tp_step_reference(cfg, dev))
+    print(f"[train_tp] {TP_MP} model ranks over gloo on the card: [train]'s "
+          f"schedule (n={N} c={C} s={S}), 3 rounds", flush=True)
+    res, _, _ = spawn_tp("train_tp", tp_train_rank, TP_MP, here,
+                         (cfg, 1, job))
+    out = {"train_tp": summed_launches(res)}
+    del job["step"]
+    torch.cuda.ipc_collect()  # the one-process gradients the ranks mapped
+    torch.cuda.empty_cache()
+    print(f"[train_tp] this process now holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"[train_dp_tp] {TP_DP} x {TP_MP} ranks over gloo on the card: "
+          f"[train_tp]'s first 2 rounds", flush=True)
+    res2, _, _ = spawn_tp("train_dp_tp", tp_train_rank, TP_DP * TP_MP, here,
+                          (cfg, TP_DP, dict(job, tp=res)))
+    out["train_dp_tp"] = summed_launches(res2)
+    for tag in out:
+        print(f"[{tag}] launches summed over the ranks "
+              f"{ {k: v for k, v in out[tag].items() if v} }", flush=True)
+    shutil.rmtree(os.path.join(here, "_smoke", "tp"), ignore_errors=True)
     return out
 
 
@@ -4704,6 +5347,8 @@ def main(argv=None) -> int:
     recs += check_fault_kernels(spec, dev)
     torch.cuda.empty_cache()
     recs += check_wire_kernels(spec, dev)
+    torch.cuda.empty_cache()
+    recs += check_wire_at_kernels(cfg, dev)
     torch.cuda.empty_cache()
     recs += check_compress_kernels(spec.d_total, dev)
     torch.cuda.empty_cache()
@@ -4763,10 +5408,23 @@ def main(argv=None) -> int:
     dp_job = {"train": {"x": row_digests(state.x),
                         "h": row_digests(state.h),
                         "loss": [r["loss"] for r in rows]}}
+    # what the model-parallel paths are held to: [train]'s rows, and
+    # [comm_tp]'s one-process kernel steps in turn from [train]'s state
+    tp_job = {"train": {"L": [r["L"] for r in rows],
+                        "loss": [r["loss"] for r in rows]}}
+    # [comm_tp]'s ranks work in place on their blocks of [train]'s state,
+    # cut here, so the card holds the state once while they run
+    xb = [to_blocks(state.x, cfg, tcfg, TP_MP, m) for m in range(TP_MP)]
+    hb = [to_blocks(state.h, cfg, tcfg, TP_MP, m) for m in range(TP_MP)]
     dp_job["comm"] = comm_dp_steps(cfg, state.x, state.h, dev)
     for tag, (_, _, secs, _) in dp_job["comm"].items():
         print(f"[comm_dp] one-process kernel step {tag}: {secs:.3f} s")
     del state, rows
+    torch.cuda.empty_cache()
+    tp_job["comm"] = comm_tp_reference(cfg, xb, hb, dev)
+    by_path["comm_tp"] = run_comm_tp(cfg, dev, here, xb, hb, tp_job)
+    del xb, hb
+    torch.cuda.ipc_collect()
     torch.cuda.empty_cache()
     sync = run_sync_check(cfg, dev)
     by_path["train_long"] = run_train_long(dev)
@@ -4786,6 +5444,8 @@ def main(argv=None) -> int:
     del state, rows
     by_path.update(run_dp_paths(cfg, dev, here, dp_job))
     del dp_job
+    by_path.update(run_tp_paths(cfg, dev, here, tp_job))
+    del tp_job
     # a robust combine breaks sum_i h_i = 0 by design: not checked
     tcfg_r = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=CF, s=SF, p=P,
                                         robust_agg="trimmed", trim_k=1)
@@ -4909,6 +5569,13 @@ def main(argv=None) -> int:
         "masked_sum_bf16": ("src/repro/kernels/uplink.py:55", None),
         "wire_quantize": ("src/repro/dist/wire.py:245 quantize_to_int, "
                           "src/repro/dist/wire.py:221 quantize", "wire"),
+        # the coordinate-table forms: model-sharded blocks
+        "wire_quantize_at": ("src/repro/dist/wire.py:245 quantize_to_int, "
+                             "src/repro/dist/wire.py:221 quantize", "comm_tp"),
+        "masked_sum_dequant_at": ("src/repro/kernels/uplink.py:80",
+                                  "comm_tp"),
+        "masked_sum_dequant_counts_at": ("src/repro/kernels/uplink.py:94",
+                                         "comm_tp"),
         "compress_f64": ("src/repro/kernels/compress.py:71", "convex"),
         # no path of either package compresses f32 or one vector
         "compress_f32": ("src/repro/kernels/compress.py:71", None),

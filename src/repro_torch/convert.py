@@ -7,6 +7,10 @@ directory as ``arrays.npz`` (``leaf_<i>`` in leaf order, bf16 stored as its
 raw uint16 bits) plus ``meta.json`` (``names``, ``dtypes``, ``shapes``).
 Both are read here with numpy and json alone.
 
+Under model parallelism ``shard_params`` cuts a model rank's blocks out of
+the parameters by the reference's rules, and ``gather_params`` puts them
+back together.
+
 A decode cache comes across with ``cache_from_numpy`` (the reference's
 arrays of any family, bf16 or f32), so a parity test can start
 mid-sequence.
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -104,6 +108,44 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]
         else:
             raise ValueError(f"{name}: dtype {t.dtype}, want float32 or "
                              "bfloat16")
+    return out
+
+
+def shard_params(arrays: Mapping[str, np.ndarray], cfg: ModelConfig,
+                 msize: int, m_rank: int) -> Dict[str, np.ndarray]:
+    """Model rank ``m_rank``'s blocks (of ``msize``) of reference-named
+    parameters under the reference's rules (``sharding.params_pspecs``):
+    the parameters a rank of a model-parallel mesh holds, ready for
+    ``params_from_numpy``-like use leaf by leaf; whole leaves are passed
+    through."""
+    from repro_torch.dist import sharding
+
+    specs = sharding.params_pspecs(cfg, msize)
+    out = {}
+    for name, a in arrays.items():
+        a = np.asarray(a)
+        out[name] = a[sharding.block_slices(a.shape, specs[name], msize,
+                                            m_rank)]
+    return out
+
+
+def gather_params(blocks: Sequence[Mapping[str, np.ndarray]],
+                  cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The whole parameters from every model rank's blocks (``blocks[r]``
+    rank ``r``'s, as ``shard_params`` cuts them): each split leaf
+    concatenated along its split dim, a whole leaf taken from rank 0."""
+    from repro_torch.dist import sharding
+
+    msize = len(blocks)
+    specs = sharding.params_pspecs(cfg, msize)
+    out = {}
+    for name in blocks[0]:
+        spec = specs[name]
+        if any(spec):
+            out[name] = np.concatenate([np.asarray(b[name]) for b in blocks],
+                                       axis=spec.index(True))
+        else:
+            out[name] = np.asarray(blocks[0][name])
     return out
 
 

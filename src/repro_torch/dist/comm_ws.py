@@ -42,6 +42,20 @@ axis, ``sharding.RankRows``): the kernels run on the rank's rows, the
 ranks' d-sized partials are summed (``torch.distributed.all_reduce``),
 and the robust combines exchange ``(s, chunk)`` owner-value stacks.
 
+Under model parallelism (``sharding.Mesh2D``) a rank's workspace row
+holds its blocks of the leaves, in the same leaf order.  A block that is
+not the whole leaf carries the global flat coordinate of each of its
+columns (``sharding.shard_coords``): its band comes from those
+(``cyclic_band_at``, ``block_band_at``; ``band_of_blocks`` assembles a
+row's), so every coordinate keeps the owners it has in the unsharded
+leaf, and its int wire draws at them with the scales of the whole leaf's
+chunks (``wire.leaf_scales_at``: a scatter-max over the block, then one
+``MAX`` over the model group per kind group), so the codes are the
+unsharded ones.  The kernels run on the block as on any row; only the
+quantizer and the dequantizing UpCom take the blocks' coordinate and
+scale-column tables (``wire_plan(coords=)``).  No sum runs over the model
+group: each coordinate's owners are the rows of one block column.
+
 ``cyclic_comm_leaves`` and ``blocked_comm_leaves`` are the reference's
 two plain implementations of each template, ``impl="ws"`` (the sparse
 UpCom: ``s`` owner-row gathers per leaf, or ``s`` contiguous chunk gathers
@@ -187,6 +201,51 @@ def block_band(dims: Sequence[int], c: int, device) -> torch.Tensor:
     return out
 
 
+def cyclic_band_at(coords: torch.Tensor, c: int, s: int) -> torch.Tensor:
+    """The cyclic band ``(-s k) mod c`` of a block's global leaf
+    coordinates ``coords`` (int64; ``comm_ws._leaf_band`` with ``k_arr``),
+    int32 on their device."""
+    return compress.cyclic_band(coords, c, s).to(torch.int32)
+
+
+def block_band_at(coords: torch.Tensor, D: int, m: int) -> torch.Tensor:
+    """The blocked template's band ``k // ceil(D / m)`` of a block's global
+    coordinates ``coords`` of a leaf of ``D``, int32 on their device."""
+    return torch.div(coords, -(-D // m),
+                     rounding_mode="floor").to(torch.int32)
+
+
+def band_of_blocks(dims: Sequence[int], gdims: Sequence[int],
+                   coords: Sequence[Optional[torch.Tensor]], template: str,
+                   c: int, s: int, device) -> torch.Tensor:
+    """``(sum(dims),)`` int32 band of a row of leaf blocks: a whole leaf
+    (``coords[i]`` ``None``) takes ``cyclic_band``'s or ``block_band``'s
+    table, a block of a leaf of ``gdims[i]`` the band of its coordinates
+    (int64, moved to ``device``), computed there once."""
+    out = torch.empty(sum(dims), dtype=torch.int32, device=device)
+    o = 0
+    for D, G, k in zip(dims, gdims, coords):
+        if k is None:
+            out[o:o + D] = (cyclic_band([D], c, s, device)
+                            if template == "cyclic"
+                            else block_band([D], c, device))
+        else:
+            k = k.to(device)
+            out[o:o + D] = (cyclic_band_at(k, c, s) if template == "cyclic"
+                            else block_band_at(k, G, c))
+        o += D
+    return out
+
+
+def whole_chunks(k: torch.Tensor) -> bool:
+    """Whether a block's coordinates ``k`` are whole wire chunks in order,
+    each a run of 256 columns (``wire.chunk_max_at``'s fast form); reads
+    two flags back where ``k`` lies on the card (once, at plan time)."""
+    C = wire_mod.CHUNK
+    return (k.numel() % C == 0 and bool((k[::C] % C == 0).all())
+            and bool((k[C - 1::C] - k[::C] == C - 1).all()))
+
+
 def blocked_slot(slot_of: torch.Tensor, off: int, c: int) -> torch.Tensor:
     """The kernel slots of the blocked template: cohort slot ``j`` (``(n,)``
     int, -1 idle) owns the blocks ``(j + off) .. (j + off + s - 1) mod c``,
@@ -211,45 +270,114 @@ class WireGroup:
     leaf_lo: Tuple[int, ...]
     band: torch.Tensor
     whole: bool
+    # the coordinate-table form (an int group holding a block of a
+    # model-sharded leaf; None otherwise): the leaves' global sizes, each
+    # group column's global leaf coordinate (int64) and scale column
+    # (int32) over the leaves' global chunks, which leaves are whole wire
+    # chunks (``whole_chunks``), and the model group the scales are maxed
+    # over
+    gdims: Optional[Tuple[int, ...]] = None
+    coords: Optional[torch.Tensor] = None
+    chunk_col: Optional[torch.Tensor] = None
+    runs: Optional[Tuple[bool, ...]] = None
+    model: object = None
+
+    @property
+    def scale_lo(self) -> Tuple[int, ...]:
+        """The coordinate form's ``L + 1`` starts of each leaf's global
+        chunks in the group's scales."""
+        lo = [0]
+        for G in self.gdims:
+            lo.append(lo[-1] + wire_mod.n_chunks(G))
+        return tuple(lo)
 
 
 def wire_plan(dims: Sequence[int], policy: Optional[str], c: int, s: int,
               band: torch.Tensor, *, template: str = "cyclic",
-              ids: Optional[Sequence[int]] = None
-              ) -> Optional[Tuple[WireGroup, ...]]:
+              ids: Optional[Sequence[int]] = None,
+              gdims: Optional[Sequence[int]] = None,
+              coords: Optional[Sequence[Optional[torch.Tensor]]] = None,
+              model=None) -> Optional[Tuple[WireGroup, ...]]:
     """The kind groups of a row of leaves ``dims`` under the wire
     ``policy``, in kind order; ``None`` for the f32 wire (``None`` or
     ``"f32"``).
     ``band`` is the row's band of the ``template`` (``"cyclic"`` or
     ``"blocked"``); a group that is the whole row reuses it, any other gets
     its own (the same values at its columns).  ``ids`` are the leaves'
-    reference indices (default ``0, 1, ...``), which key their draws."""
+    reference indices (default ``0, 1, ...``), which key their draws.
+
+    Model-sharded blocks: ``dims`` are the blocks' sizes, ``gdims`` the
+    leaves' (the kinds resolve on them, as the reference's), ``coords``
+    each block's global coordinates (``None`` for a whole leaf) and
+    ``model`` the model group (a ``tensor_parallel.TensorParallel``).  An
+    int group that holds a block gets the coordinate-table form, its
+    tables built on ``band``'s device once."""
     if not wire_mod.is_wire(policy):
         return None
     if template not in ("cyclic", "blocked"):
         raise ValueError(f"unknown template {template!r}")
     ids = list(range(len(dims))) if ids is None else list(ids)
-    kinds = tuple(wire_mod.resolve_kind(D, policy) for D in dims)
+    gdims = list(dims) if gdims is None else list(gdims)
+    coords = [None] * len(dims) if coords is None else list(coords)
+    kinds = tuple(wire_mod.resolve_kind(G, policy) for G in gdims)
     offsets = [sum(dims[:i]) for i in range(len(dims))]
     groups = []
     for kind in sorted(set(kinds)):
         idx = [i for i, k in enumerate(kinds) if k == kind]
-        gdims = [dims[i] for i in idx]
         lo = [0]
-        for D in gdims:
-            lo.append(lo[-1] + D)
+        for i in idx:
+            lo.append(lo[-1] + dims[i])
         whole = len(idx) == len(dims)
+        split = any(coords[i] is not None for i in idx)
         if whole:
             gband = band
+        elif split:
+            gband = torch.cat([band[offsets[i]:offsets[i] + dims[i]]
+                               for i in idx])
         elif template == "cyclic":
-            gband = cyclic_band(gdims, c, s, band.device)
+            gband = cyclic_band([dims[i] for i in idx], c, s, band.device)
         else:
-            gband = block_band(gdims, c, band.device)
+            gband = block_band([dims[i] for i in idx], c, band.device)
+        at = {}
+        if split and kind in wire_mod.LEVELS:
+            dev = band.device
+            ks = [torch.arange(dims[i], dtype=torch.int64, device=dev)
+                  if coords[i] is None else coords[i].to(dev) for i in idx]
+            c0, cols = 0, []
+            for i, k in zip(idx, ks):
+                cols.append((torch.div(k, wire_mod.CHUNK,
+                                       rounding_mode="floor") + c0).to(
+                    torch.int32))
+                c0 += wire_mod.n_chunks(gdims[i])
+            at = dict(
+                gdims=tuple(gdims[i] for i in idx), coords=torch.cat(ks),
+                chunk_col=torch.cat(cols),
+                runs=tuple(whole_chunks(k) for k in ks), model=model)
+            del ks, cols
         groups.append(WireGroup(
             kind=kind,
             leaves=tuple((ids[i], offsets[i], dims[i]) for i in idx),
-            leaf_lo=tuple(lo), band=gband, whole=whole))
+            leaf_lo=tuple(lo), band=gband, whole=whole, **at))
     return tuple(groups)
+
+
+def _group_scales(x2: torch.Tensor, grp: WireGroup) -> torch.Tensor:
+    """The coordinate form's scales of a kind group: each leaf's chunk
+    maxima of its block of the ``(rows, d_total)`` rows ``x2`` maxed into
+    one ``(rows, nc_g)`` buffer, one ``MAX`` over the model group, then
+    ``wire.scales_of_max``."""
+    slo = grp.scale_lo
+    mx = torch.zeros(x2.shape[0], slo[-1], dtype=torch.float32,
+                     device=x2.device)
+    for j, (_, o, D) in enumerate(grp.leaves):
+        g0 = grp.leaf_lo[j]
+        wire_mod.chunk_max_at(x2[:, o:o + D], grp.coords[g0:g0 + D],
+                              slo[j + 1] - slo[j],
+                              out=mx[:, slo[j]:slo[j + 1]],
+                              whole_chunks=grp.runs[j])
+    if grp.model is not None:
+        grp.model.all_reduce(mx, "max")
+    return wire_mod.scales_of_max(mx, grp.kind)
 
 
 def _group_cols(leaves) -> Iterator[Tuple[int, int, int]]:
@@ -295,6 +423,23 @@ def _wire_upcom(xw: torch.Tensor, slot: torch.Tensor, c: int, s: int,
         def upcom(counts):
             return uplink.masked_sum(lanes, slot, grp.band, c, s,
                                      counts=counts)
+    elif grp.coords is not None:
+        # a block of a model-sharded leaf: the scales of the whole leaf's
+        # chunks, then codes at the global coordinates
+        codes, scales = wire_pack.pack_int(
+            xw, grp.leaves, grp.kind, seed, row0, coords=grp.coords,
+            scales=_group_scales(xw, grp), gdims=grp.gdims)
+
+        def f32_cols(a, b):
+            return compress.wire_dequant(
+                codes[:, a:b], scales,
+                grp.chunk_col[a:b].to(torch.int64)).contiguous()
+
+        def upcom(counts):
+            return uplink.masked_sum_dequant(codes, scales, grp.leaf_lo,
+                                             slot, grp.band, c, s,
+                                             counts=counts,
+                                             chunk_col=grp.chunk_col)
     else:
         codes, scales = wire_pack.pack_int(xw, grp.leaves, grp.kind, seed,
                                            row0)
@@ -338,6 +483,11 @@ def _wire_downcom(x_bar: torch.Tensor, groups: Tuple[WireGroup, ...],
     """The DownCom quantizer in place on ``x_bar``: each leaf at its kind,
     one shared row keyed ``wire.DOWN_ROW`` (``comm_ws._make_xbar_tx``)."""
     for grp in groups:
+        if grp.coords is not None:
+            wire_pack.quantize_down(
+                x_bar, grp.leaves, grp.kind, seed, coords=grp.coords,
+                scales=_group_scales(x_bar[None], grp), gdims=grp.gdims)
+            continue
         if grp.kind in wire_mod.LEVELS:
             wire_pack.quantize_down(x_bar, grp.leaves, grp.kind, seed)
             continue

@@ -36,7 +36,7 @@ def init(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
 
 def loss(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
          labels: torch.Tensor, prefix_embeds: Optional[torch.Tensor] = None,
-         frames: Optional[torch.Tensor] = None
+         frames: Optional[torch.Tensor] = None, tp=None
          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``(scalar loss, metrics)`` of one client's batch: the total loss
     (the cross-entropy plus the MoE load-balance term, which the local
@@ -44,8 +44,13 @@ def loss(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
     encoder-decoder); ``prefix_embeds (b, P, d_model)`` go before the
     tokens and the loss is on the text positions only; ``frames (b,
     n_frames, d_model)`` are the encoder-decoder's input, which needs them
-    and takes no prefix (the reference's ``ValueError``s)."""
+    and takes no prefix (the reference's ``ValueError``s).  ``tp`` (a
+    ``tensor_parallel.TensorParallel``): ``params`` are the rank's blocks
+    and the dense layers run tensor parallel (``transformer.loss_fn``);
+    the other families raise (ROADMAP A9c)."""
     if cfg.family == "encdec":
+        if tp is not None:
+            raise NotImplementedError(tr._TP_LATER)
         if frames is None:
             raise ValueError("encdec loss requires frames")
         if prefix_embeds is not None:
@@ -53,7 +58,7 @@ def loss(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,
         return encdec.loss_fn(params, cfg, frames, tokens, labels)
     if frames is not None:
         raise ValueError(f"family {cfg.family!r} does not consume frames")
-    return tr.loss_fn(params, cfg, tokens, labels, prefix_embeds)
+    return tr.loss_fn(params, cfg, tokens, labels, prefix_embeds, tp)
 
 
 def prefill(params: Params, cfg: ModelConfig, *, tokens: torch.Tensor,

@@ -50,7 +50,8 @@ import os
 import time
 import types
 import warnings
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
@@ -61,7 +62,7 @@ from repro_torch.dist import faults as faults_mod
 from repro_torch.dist import robust as robust_mod
 from repro_torch.dist import sharding, tamuna_dp
 from repro_torch.dist import wire as wire_mod
-from repro_torch.dist.sharding import RankRows
+from repro_torch.dist.sharding import Mesh2D, RankRows
 from repro_torch.models.transformer import ModelConfig
 
 ROUND_POLICIES = ("wait_all", "quorum", "deadline")
@@ -217,7 +218,7 @@ def _faulty_uplink(x: torch.Tensor, member: np.ndarray, arrived, corrupt,
         if group is not None and model.adversary == "inlier":
             raise ValueError(
                 "the inlier attack over ranks is not ported (ROADMAP "
-                "A9b): it needs every rank's arrived honest rows")
+                "A9d): it needs every rank's arrived honest rows")
         # Byzantine rows only matter if they arrive; the inlier attack
         # colludes against the arrived honest rows
         faults_mod.adversarial_rows(x, (byz & arr)[rows],
@@ -248,7 +249,7 @@ def make_pipelined_round_fn(cfg: ModelConfig,
                             pipe: SyntheticTokenPipeline, max_L: int = 16,
                             elastic: Optional[bool] = None,
                             coverage: bool = True, device="cuda",
-                            group: Optional[RankRows] = None):
+                            group: Union[RankRows, Mesh2D, None] = None):
     """The round in two halves (``rounds.make_pipelined_round_fn``), which
     ``run_rounds`` calls back to back and ``run_rounds_pipelined``
     interleaves.  Returns a namespace with ``stage``, ``commit``,
@@ -284,16 +285,19 @@ def make_pipelined_round_fn(cfg: ModelConfig,
     the rank hosts, and returns ``loss`` as a ``(steps, c)`` tensor of the
     members' losses in their cohort slots, zeros for the members hosted
     elsewhere (summed over the ranks at the driver's drain); ``commit``
-    guards the rank's rows and runs the shard engine."""
+    guards the rank's rows and runs the shard engine.  A ``sharding.Mesh2D``
+    ``group`` adds the model axis (``run_rounds``)."""
+    group, mesh = sharding.split_group(group)
     c = tcfg.c
     if c > n:
         raise ValueError(f"cohort c={c} exceeds population n={n}")
     if elastic is None:
         elastic = default_elastic(n, c)
     blocked = tcfg.uplink == "block_rs"
-    local = tamuna_dp.make_local_step(cfg, tcfg)
+    local = tamuna_dp.make_local_step(cfg, tcfg, mesh)
     comm = tamuna_dp.make_comm_step(cfg, tcfg, n, device=device,
-                                    with_stats=coverage, group=group)
+                                    with_stats=coverage, group=group,
+                                    mesh=mesh)
 
     def template(generator: torch.Generator) -> Dict[str, Any]:
         if blocked:
@@ -400,7 +404,7 @@ def run_rounds(
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 0,
     flush_every: int = 10,
-    group: Optional[RankRows] = None,
+    group: Union[RankRows, Mesh2D, None] = None,
 ) -> Tuple[tamuna_dp.DistTamunaState, List[Dict[str, Any]]]:
     """Run ``rounds`` rounds on ``state`` in place.
 
@@ -469,9 +473,19 @@ def run_rounds(
     round, so every rank builds the same rows (only rank 0 logs them).
     At ``s = 2`` the state and the rows are the one-process run's
     bitwise.  The reputation, checkpoints and the pipelined driver over
-    ranks are not ported (ROADMAP A9b) and raise.
+    ranks are not ported (ROADMAP A9d) and raise.
+
+    ``group`` may also be a ``sharding.Mesh2D`` (ROADMAP A9b): ``state``
+    then holds the rank's rows of its data group and its model rank's
+    blocks of the leaves (``tamuna_dp.init_state(mesh=)``), the local
+    steps run the tensor-parallel layers and the comm step runs on the
+    blocks (``tamuna_dp.make_comm_step(mesh=)``); every rank draws the
+    same schedule and batches, and the losses, the same on every model
+    rank, are summed over the data group only.  The fault-tolerant round
+    over model blocks is not ported (ROADMAP A9d) and raises.
     """
     c = tcfg.c
+    group, mesh = sharding.split_group(group)
     if group is None:
         n = state.x.shape[0]
     else:
@@ -481,11 +495,11 @@ def run_rounds(
                              f"of {n}; the state has {state.x.shape[0]}")
         if reputation is not None and reputation is not False:
             raise ValueError("the reputation over ranks is not ported "
-                             "(ROADMAP A9b): its anomaly scores need "
+                             "(ROADMAP A9d): its anomaly scores need "
                              "every arrived row")
         if checkpoint_dir or checkpoint_every:
             raise ValueError("checkpoints over ranks are not ported "
-                             "(ROADMAP A9b): the reference's checkpoint "
+                             "(ROADMAP A9d): the reference's checkpoint "
                              "gathers the whole state")
     _check_policy(policy)
     guard, guard_mode, adversarial = _resolve_guard(
@@ -503,6 +517,10 @@ def run_rounds(
     if faulted and faults.n != n:
         raise ValueError(f"fault plan covers {faults.n} clients, the state "
                          f"has n={n}")
+    if faulted and mesh is not None and mesh.mp > 1:
+        raise ValueError("the fault-tolerant round over model blocks is "
+                         "not ported (ROADMAP A9d): its guard reads whole "
+                         "rows")
     rep = None
     if reputation is not None and reputation is not False:
         if plan is None or faults is None or not faulted:
@@ -530,7 +548,8 @@ def run_rounds(
     dev = state.x.device
     engine = make_pipelined_round_fn(cfg, tcfg, n, pipe=pipe, max_L=max_L,
                                      elastic=elastic, coverage=False,
-                                     device=dev, group=group)
+                                     device=dev,
+                                     group=group if mesh is None else mesh)
     if group is not None and group.rank != 0:
         logger = None  # every rank builds the same rows; rank 0 logs
     seed = generator.initial_seed()
@@ -760,7 +779,7 @@ def run_rounds_pipelined(
                          "engine from make_pipelined_round_fn")
     if getattr(engine, "group", None) is not None:
         raise ValueError("the pipelined driver over ranks is not ported "
-                         "(ROADMAP A9b); run_rounds takes a group")
+                         "(ROADMAP A9d); run_rounds takes a group")
     tau = int(staleness)
     if tau < 0:
         raise ValueError(f"staleness must be >= 0, got {tau}")

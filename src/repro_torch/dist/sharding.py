@@ -1,4 +1,4 @@
-"""Data parallelism over ranks (``repro.dist.sharding``, the data axis).
+"""Data and model parallelism over ranks (``repro.dist.sharding``).
 
 The reference places the client axis of the training state on the data
 axes of a device mesh: client ``i`` lives on data shard ``i // rows``, with
@@ -23,9 +23,20 @@ memory; the one that runs several ranks on one card) and ``nccl`` (one
 card per rank).  The backend is always named by the caller
 (``check_backend``); nothing switches one for the other.
 
-The model axis of the reference's mesh (``sharding._leaf_pspec`` and the
-parameter rules, the model-sharded bands, ``wire.leaf_scales_at``,
-tensor-parallel layers) is not ported: ROADMAP A9b.
+The model axis (ROADMAP A9b) is the reference's ``("data", "model")``
+mesh on ``dp x mp`` ranks, row-major: rank ``r`` is data index ``r // mp``
+and model index ``r % mp`` (``Mesh2D``).  Each parameter leaf is split
+over the model axis by the reference's rules on its name and shape
+(``leaf_pspec``, ``params_pspecs``: a spec is, per dim, whether the dim is
+split); a rank holds the block ``local_shape`` of each leaf, whose
+coordinates in the whole leaf ``shard_coords`` gives (row-major over the
+global dims, as the reference's ``comm_ws._shard_coords``), so the comm
+step's bands and the wire's draws are those of the unsharded leaf.  The
+data axis's sums run over the data group (``Mesh2D.rows``), the
+tensor-parallel layers' over the model group (``Mesh2D.tp``).
+
+The serving specs (``cache_pspecs``, the prefill and decode inputs) wait
+for ROADMAP A9c, with the other families' tensor-parallel layers.
 """
 
 from __future__ import annotations
@@ -33,9 +44,11 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from repro_torch.models.tensor_parallel import TensorParallel
 
 BACKENDS = ("nccl", "gloo")
 
@@ -194,3 +207,224 @@ def local_rows(group: Optional[RankRows], n: int) -> slice:
     if group is None:
         return slice(0, n)
     return slice(group.row0, group.stop)
+
+
+# --------------------------------------------------------------------------
+# the model axis: the reference's parameter rules and the 2-D mesh
+# --------------------------------------------------------------------------
+
+# leaves that carry a leading stacked-layer axis, never split (it is
+# iterated over)
+STACKED_KEYS = ("blocks", "enc_blocks", "dec_blocks")
+# names whose output feature dim (the last) is split: column parallel
+COL_PARALLEL = ("wq", "wk", "wv", "bq", "bk", "bv", "w_gate", "w_up",
+                "lm_head", "prefix_proj", "router")
+# names whose input feature dim (-2) is split: row parallel, the
+# contraction of a column-parallel producer
+ROW_PARALLEL = ("wo", "w_down")
+
+Spec = Tuple[bool, ...]
+
+
+def _div(dim: int, m: int) -> bool:
+    return m > 1 and dim >= m and dim % m == 0
+
+
+def leaf_pspec(name: str, shape: Sequence[int], msize: int,
+               moe_expert_parallel: bool = True) -> Spec:
+    """Which dims of a parameter leaf ``name`` (``blocks/attn/wq``) of
+    ``shape`` are split over ``msize`` model ranks: the reference's
+    ``sharding._leaf_pspec``.  Embeddings split the vocab dim; MoE expert
+    stacks the expert dim (``moe_expert_parallel``, training) or a feature
+    dim; the column-parallel names their last dim, the row-parallel names
+    dim -2; any other matrix its last divisible dim of the last two;
+    norms, scalars and the stacked-layer axis never.  A dim splits only
+    where ``msize`` divides it."""
+    shape = tuple(int(d) for d in shape)
+    spec = [False] * len(shape)
+    if msize <= 1 or not shape:
+        return tuple(spec)
+    keys = name.split("/")
+    off = 1 if any(k in keys for k in STACKED_KEYS) else 0
+    nd = len(shape) - off
+    if "embed" in keys and nd == 2:
+        if _div(shape[off], msize):
+            spec[off] = True
+        return tuple(spec)
+    if "moe" in keys and nd == 3:
+        if moe_expert_parallel and _div(shape[off], msize):
+            spec[off] = True
+            return tuple(spec)
+        f_dim = off + 2 if ("w_gate" in keys or "w_up" in keys) else off + 1
+        if _div(shape[f_dim], msize):
+            spec[f_dim] = True
+        return tuple(spec)
+    if (any(k in keys for k in COL_PARALLEL) and nd >= 1
+            and _div(shape[-1], msize)):
+        spec[-1] = True
+        return tuple(spec)
+    if (any(k in keys for k in ROW_PARALLEL) and nd >= 2
+            and _div(shape[-2], msize)):
+        spec[-2] = True
+        return tuple(spec)
+    if nd >= 2:
+        for dim in (len(shape) - 1, len(shape) - 2):
+            if _div(shape[dim], msize):
+                spec[dim] = True
+                break
+    return tuple(spec)
+
+
+def params_pspecs(cfg, msize: int, moe_expert_parallel: bool = True
+                  ) -> Dict[str, Spec]:
+    """``{name: spec}`` of every parameter of ``cfg``
+    (``model_api.param_specs``) on ``msize`` model ranks (the reference's
+    ``params_pspecs``; the client-stacked state's specs add the data axis
+    in front, ``stacked_params_pspecs``)."""
+    from repro_torch.dist import model_api
+
+    return {name: leaf_pspec(name, shape, msize, moe_expert_parallel)
+            for name, shape in model_api.param_specs(cfg)}
+
+
+def local_shape(shape: Sequence[int], spec: Spec,
+                msize: int) -> Tuple[int, ...]:
+    """The shape of a rank's block of a leaf of ``shape`` under ``spec``."""
+    return tuple(int(d) // msize if sp else int(d)
+                 for d, sp in zip(shape, spec))
+
+
+def block_slices(shape: Sequence[int], spec: Spec, msize: int,
+                 m_rank: int) -> Tuple[slice, ...]:
+    """The index of model rank ``m_rank``'s block in the whole leaf."""
+    out = []
+    for d, sp in zip(shape, spec):
+        loc = int(d) // msize if sp else int(d)
+        a = m_rank * loc if sp else 0
+        out.append(slice(a, a + loc))
+    return tuple(out)
+
+
+def shard_coords(shape: Sequence[int], spec: Spec, msize: int,
+                 m_rank: int, device=None) -> Optional[torch.Tensor]:
+    """``(d_local,)`` int64 on ``device`` (default the CPU): the global
+    flat coordinate of each element of model rank ``m_rank``'s block,
+    row-major over the global dims (the reference's
+    ``comm_ws._shard_coords``); ``None`` where the block is the whole leaf
+    (the static tables apply).  Made on ``device`` in one broadcast sum,
+    so a block of a full-width leaf takes no host pass."""
+    shape = tuple(int(d) for d in shape)
+    loc = local_shape(shape, spec, msize)
+    if loc == shape:
+        return None
+    sl = block_slices(shape, spec, msize, m_rank)
+    k = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        idx = torch.arange(sl[d].start, sl[d].stop, dtype=torch.int64,
+                           device=device) * stride
+        k = idx.reshape((-1,) + (1,) * k.dim()) + k
+        stride *= shape[d]
+    return k.reshape(-1)
+
+
+@dataclasses.dataclass
+class Mesh2D:
+    """Rank ``rank`` of a ``dp x mp`` mesh, the reference's ``("data",
+    "model")`` in row-major order: data index ``rank // mp``, model index
+    ``rank % mp``.  ``rows`` is the rank's ``RankRows`` of the population
+    over its data group (the ranks of its model index), ``tp`` its
+    ``TensorParallel`` over its model group (the ranks of its data
+    index)."""
+
+    dp: int
+    mp: int
+    rank: int
+    rows: RankRows
+    tp: TensorParallel
+
+    @property
+    def d_index(self) -> int:
+        return self.rank // self.mp
+
+    @property
+    def m_index(self) -> int:
+        return self.rank % self.mp
+
+
+def make_mesh(n: int, dp: int, mp: int) -> Mesh2D:
+    """The ``dp x mp`` mesh of the initialised default group (its size must
+    be ``dp * mp``) over a population of ``n``: every rank creates every
+    data group, then every model group, in the same order
+    (``torch.distributed.new_group``), and keeps its own."""
+    import torch.distributed as dist
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if dp < 1 or mp < 1 or dp * mp != world:
+        raise ValueError(f"a {dp} x {mp} mesh needs {dp * mp} ranks, the "
+                         f"group has {world}")
+    data_pg = model_pg = None
+    for m in range(mp):
+        pg = dist.new_group([m + mp * d for d in range(dp)])
+        if m == rank % mp:
+            data_pg = pg
+    for d in range(dp):
+        pg = dist.new_group([d * mp + m for m in range(mp)])
+        if d == rank // mp:
+            model_pg = pg
+    return Mesh2D(dp, mp, rank,
+                  RankRows(n, dp, rank // mp, data_pg),
+                  TensorParallel(model_pg, rank % mp, mp))
+
+
+def split_group(group) -> Tuple[Optional[RankRows], Optional[Mesh2D]]:
+    """``(data rows, mesh)`` of a ``group=`` argument: a ``RankRows`` (the
+    data axis alone), a ``Mesh2D`` or ``None``."""
+    if isinstance(group, Mesh2D):
+        return group.rows, group
+    return group, None
+
+
+# the split dim of each leaf of the dense family's tensor-parallel layers
+# (by its name's last two components); any other leaf is replicated
+_TP_DIMS = {"attn/wq": -1, "attn/wk": -1, "attn/wv": -1, "attn/bq": -1,
+            "attn/bk": -1, "attn/bv": -1, "attn/wo": -2, "mlp/w_gate": -1,
+            "mlp/w_up": -1, "mlp/w_down": -2}
+
+
+def check_model_parallel(cfg, mp: int) -> None:
+    """Raise ``ValueError`` (naming ROADMAP A9c) unless the tensor-parallel
+    layers take ``cfg`` on ``mp`` model ranks: the dense family without a
+    prefix, whole query and kv heads on every rank, and the rules
+    (``params_pspecs``) splitting every projection the Megatron way, the
+    vocab of the embedding (and of an untied head) and nothing else."""
+    if mp == 1:
+        return
+    if cfg.family != "dense":
+        raise ValueError(f"model parallelism of the {cfg.family} family "
+                         "(its tensor-parallel layers) is ROADMAP A9c")
+    if cfg.prefix_len:
+        raise ValueError("model parallelism with a prefix frontend is "
+                         "ROADMAP A9c")
+    if cfg.n_heads % mp or cfg.n_kv_heads % mp:
+        raise ValueError(
+            f"{cfg.n_heads} query and {cfg.n_kv_heads} kv heads do not "
+            f"split into {mp} model ranks whole: the rules split head_dim "
+            "there (flash_t_shard_axis), ROADMAP A9c")
+    from repro_torch.dist import model_api
+
+    for name, shape in model_api.param_specs(cfg):
+        spec = leaf_pspec(name, shape, mp)
+        want = [False] * len(shape)
+        key = "/".join(name.split("/")[-2:])
+        if key in _TP_DIMS:
+            want[_TP_DIMS[key]] = True
+        elif name == "embed":
+            want[0] = True
+        elif name == "lm_head":
+            want[-1] = True
+        if tuple(want) != spec:
+            raise ValueError(
+                f"the rules split {name} {tuple(shape)} as {spec} on {mp} "
+                "model ranks, which the dense tensor-parallel layers do "
+                "not take: ROADMAP A9c")

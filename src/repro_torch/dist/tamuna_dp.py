@@ -29,7 +29,14 @@ after the others in the workspace and takes the dense per-leaf form
 Under data parallelism (``sharding.RankRows``, ROADMAP A9a) a rank's
 state holds only its rows (``init_state(rows=)``), the local step trains
 the cohort members it hosts, and the comm step runs the shard engine
-(``make_comm_step(group=)``, ``comm_ws.shard_comm``).
+(``make_comm_step(group=)``, ``comm_ws.shard_comm``).  Under model
+parallelism (``sharding.Mesh2D``, ROADMAP A9b) a rank's rows hold its
+blocks of the leaves (``state_spec(mesh=)``, ``init_state(mesh=)``), the
+local step runs the tensor-parallel layers on them
+(``make_local_step(mesh=)``), and the comm step runs on the blocks with
+their bands and wire tables from the global coordinates
+(``make_comm_step(mesh=)``): the one-process kernel step at one data
+rank, the shard engine over the data group above.
 
 Randomness is injected: the comm step takes the round's ``cohort``, the
 permutation ``perm`` or the shift ``off``, the DownCom rows ``down`` and
@@ -52,7 +59,7 @@ import torch
 from repro_torch._device import resolve_device, upload
 from repro_torch.core import masks, theory
 from repro_torch.dist import comm_ws, model_api, robust, sharding, wire
-from repro_torch.dist.sharding import RankRows
+from repro_torch.dist.sharding import Mesh2D, RankRows
 from repro_torch.kernels.local_step import fused_local_step
 from repro_torch.models.transformer import ModelConfig
 from repro_torch.optim import optimizers
@@ -164,35 +171,75 @@ class DistTamunaState:
     down_bytes: np.float32 = np.float32(0)
 
 
-def state_spec(cfg: ModelConfig, tcfg: DistTamunaConfig
-               ) -> comm_ws.WorkspaceSpec:
+def _model_split(mesh: Optional[Mesh2D]) -> bool:
+    """Whether ``mesh`` splits the leaves (more than one model rank)."""
+    return mesh is not None and mesh.mp > 1
+
+
+def state_spec(cfg: ModelConfig, tcfg: DistTamunaConfig,
+               mesh: Optional[Mesh2D] = None) -> comm_ws.WorkspaceSpec:
     """The workspace layout of ``cfg`` under ``tcfg``: the reference's leaf
     order, but for the cyclic template's tall-and-thin leaves (``D s <
     c``), which go last so that the kernels run over the columns before
-    them (``comm_ws.cyclic_comm(tall=)``)."""
+    them (``comm_ws.cyclic_comm(tall=)``).  With a ``mesh`` that splits
+    the leaves, the row of its model rank: each leaf's block
+    (``sharding.local_shape``), in the same order (tall leaves decided on
+    the global sizes)."""
     specs = model_api.param_specs(cfg)
     last = ()
     if tcfg.uplink == "masked_psum":
         dims = [int(torch.Size(shape).numel()) for _, shape in specs]
         last = {specs[i][0] for i in comm_ws.tall_leaves(dims, tcfg.c,
                                                          tcfg.s)}
+    if _model_split(mesh):
+        ps = sharding.params_pspecs(cfg, mesh.mp)
+        specs = [(nm, sharding.local_shape(shape, ps[nm], mesh.mp))
+                 for nm, shape in specs]
     return comm_ws.workspace_spec(specs, last=last)
+
+
+def block_coords(cfg: ModelConfig, spec: comm_ws.WorkspaceSpec,
+                 mesh: Optional[Mesh2D], device=None
+                 ) -> List[Optional[torch.Tensor]]:
+    """Each leaf's global coordinates of the mesh's model rank's block
+    (``sharding.shard_coords``, int64 on ``device``), in ``spec``'s order;
+    ``None`` for a whole leaf (and for every leaf without a splitting
+    mesh)."""
+    if not _model_split(mesh):
+        return [None] * len(spec.names)
+    ps = sharding.params_pspecs(cfg, mesh.mp)
+    shapes = dict(model_api.param_specs(cfg))
+    return [sharding.shard_coords(shapes[nm], ps[nm], mesh.mp, mesh.m_index,
+                                  device) for nm in spec.names]
 
 
 def init_state(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int, *,
                seed: int = 0, device="cuda",
-               rows: Optional[RankRows] = None) -> DistTamunaState:
+               rows: Optional[RankRows] = None,
+               mesh: Optional[Mesh2D] = None) -> DistTamunaState:
     """Every client starts from the same random model (drawn from a
     ``torch.Generator`` seeded with ``seed``); h starts at zero, and so do
     AdamW's moments under ``local_opt="adamw"``.  ``rows`` (a
     ``sharding.RankRows`` of the population ``n``) allocates only a
-    rank's rows, bitwise those rows of the whole state."""
+    rank's rows, bitwise those rows of the whole state.  ``mesh`` (a
+    ``sharding.Mesh2D``; its ``rows`` replace ``rows``) also keeps only
+    the model rank's blocks of the leaves: the whole model is drawn as
+    without it (a temporary, freed before this returns) and each leaf's
+    block copied out, so the state is bitwise the blocks of the
+    one-process state."""
     if tcfg.c > n:
         raise ValueError(f"cohort c={tcfg.c} exceeds population n={n}")
+    if mesh is not None:
+        rows = mesh.rows
     if rows is not None and rows.n != n:
         raise ValueError(f"rows cover {rows.n} clients, not n={n}")
     params = model_api.init(cfg, seed=seed, device=device)
-    spec = state_spec(cfg, tcfg)
+    spec = state_spec(cfg, tcfg, mesh)
+    if _model_split(mesh):
+        ps = sharding.params_pspecs(cfg, mesh.mp)
+        params = {nm: v[sharding.block_slices(v.shape, ps[nm], mesh.mp,
+                                              mesh.m_index)]
+                  for nm, v in params.items()}
     dev = params["embed"].device
     held = n if rows is None else rows.local
     x = torch.empty(held, spec.d_total, dtype=torch.float32, device=dev)
@@ -200,6 +247,8 @@ def init_state(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int, *,
         comm_ws.pack(params, spec, x[0])
         x[1:] = x[0]
     del params
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the whole model's draw
     h = torch.zeros_like(x)
     opt: Any = ()
     if tcfg.local_opt == "adamw":
@@ -324,8 +373,8 @@ def scatter_cohort(state: DistTamunaState,
 
 
 def _client_grads(cfg: ModelConfig, params: Dict[str, torch.Tensor],
-                  batch: Dict[str, torch.Tensor], microbatches: int
-                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                  batch: Dict[str, torch.Tensor], microbatches: int,
+                  tp=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """One client's loss and gradients (in ``params``' order) of its batch
     (``tokens``/``labels`` ``(b, T)``, ``prefix_embeds`` ``(b, P, d)``,
     ``frames`` ``(b, n_frames, d)``).
@@ -333,11 +382,13 @@ def _client_grads(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     (``b % M != 0`` raises); their losses and gradients are summed in f32
     from zero in microbatch order, then multiplied by the f32 of ``1 / M``
     (the reference's ``_client_grads``).  One accumulator of the client's
-    gradients is alive at a time, beside the microbatch's own."""
+    gradients is alive at a time, beside the microbatch's own.  ``tp``:
+    ``params`` are a model rank's blocks and the layers tensor parallel
+    (``model_api.loss``); the loss is the same on every model rank."""
     leaves = list(params.values())
 
     def value_and_grad(b):
-        loss, _ = model_api.loss(params, cfg, **b)
+        loss, _ = model_api.loss(params, cfg, tp=tp, **b)
         return loss, list(torch.autograd.grad(loss, leaves))
 
     if microbatches == 1:
@@ -366,7 +417,8 @@ def _client_grads(cfg: ModelConfig, params: Dict[str, torch.Tensor],
     return tot_l * inv, tot_g
 
 
-def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
+def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig,
+                    mesh: Optional[Mesh2D] = None
                     ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build ``fn(compact, *, tokens, labels, prefix_embeds=None,
     frames=None) -> {"loss": mean loss, "losses": (k,) member losses}``
@@ -387,11 +439,20 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
     With a ``cfg.param_dtype`` other than f32 the loss and gradients are
     taken on the row's leaves cast to it (so the gradients come in that
     dtype, as the reference's of its bf16 leaves), the update runs in f32
-    and the row is rounded back to it (``store_rows``)."""
+    and the row is rounded back to it (``store_rows``).
+
+    ``mesh`` (a ``sharding.Mesh2D`` that splits the leaves): the rows hold
+    the model rank's blocks, which the tensor-parallel layers train
+    (``sharding.check_model_parallel`` must pass); every model rank of a
+    data rank runs the same members in the same order."""
     gamma = tcfg.gamma
     adam = tcfg.local_opt == "adamw"
-    spec = state_spec(cfg, tcfg)
+    spec = state_spec(cfg, tcfg, mesh)
     pd = cfg.param_dtype
+    tp = None
+    if _model_split(mesh):
+        sharding.check_model_parallel(cfg, mesh.mp)
+        tp = mesh.tp
 
     def fn(compact: Cohort, *, tokens: torch.Tensor, labels: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor] = None,
@@ -413,7 +474,7 @@ def make_local_step(cfg: ModelConfig, tcfg: DistTamunaConfig
             if frames is not None:
                 batch["frames"] = frames[a]
             loss, grads = _client_grads(cfg, params, batch,
-                                        tcfg.microbatches)
+                                        tcfg.microbatches, tp)
             del params
             if adam:
                 ms = comm_ws.leaf_views(compact.mu[a], spec)
@@ -454,7 +515,8 @@ def _impl(impl: str) -> str:
 def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
                    device="cuda", impl: Optional[str] = None,
                    with_stats: bool = False,
-                   group: Optional[RankRows] = None):
+                   group: Optional[RankRows] = None,
+                   mesh: Optional[Mesh2D] = None):
     """Build ``fn(state, cohort, perm=None, down=None, arrived=None,
     correct=True, wire_seed=None, *, off=None) -> state``: UpCom +
     control-variate update + DownCom of one round, in place.  With
@@ -484,28 +546,49 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
     ``group`` (a ``sharding.RankRows`` of the population ``n``): the state
     holds a rank's rows, and the kernel path runs ``comm_ws.shard_comm``
     on them with the round's global slots, DownCom rows and arrivals; the
-    counters and the stats stay global, the same on every rank."""
+    counters and the stats stay global, the same on every rank.
+
+    ``mesh`` (a ``sharding.Mesh2D``; its ``rows`` are the ``group``): the
+    rows hold the model rank's blocks (``state_spec(mesh=)``).  The band
+    and the int wire's coordinate and scale-column tables come from the
+    blocks' global coordinates (``comm_ws.band_of_blocks``,
+    ``wire_plan(coords=)``), built once here; at one data rank the step
+    is the one-process kernel step on the blocks, whose only collective
+    is the int wire scales' ``MAX`` over the model group, above it the
+    shard engine over the data group.  The counters count the whole
+    leaves."""
     c, s = tcfg.c, tcfg.s
     if c > n:
         raise ValueError(f"cohort c={c} exceeds population n={n}")
     path = _impl(impl or tcfg.comm_impl)
+    if mesh is not None:
+        group = mesh.rows
+    split = _model_split(mesh)
+    if split and path != "kernel":
+        raise ValueError(
+            f"comm_impl {impl or tcfg.comm_impl!r} over model blocks is "
+            "not ported (ROADMAP A9d): model parallelism takes the kernel "
+            "path (auto or pallas)")
+    # at one data rank the rows are the whole population's
+    sharded = group is not None and not (mesh is not None and mesh.dp == 1)
     if group is not None:
         if group.n != n:
             raise ValueError(f"group covers {group.n} clients, not n={n}")
         if path != "kernel":
             raise ValueError(
                 f"comm_impl {impl or tcfg.comm_impl!r} over ranks is not "
-                "ported (ROADMAP A9b): the plain ws/dense steps are the "
+                "ported (ROADMAP A9d): the plain ws/dense steps are the "
                 "one-process oracles; data parallelism takes the kernel "
                 "path (auto or pallas)")
     blocked = tcfg.uplink == "block_rs"
     template = "blocked" if blocked else "cyclic"
     scale = tcfg.eta_(n) / tcfg.gamma
-    spec = state_spec(cfg, tcfg)
+    spec = state_spec(cfg, tcfg, mesh)
+    gspec = state_spec(cfg, tcfg)  # the whole leaves
     policy = tcfg.wire_precision
     rspec = tcfg.robust_()
-    kinds = tuple(wire.resolve_kind(D, policy) for D in spec.dims)
-    totals = comm_counters(spec.dims, c, s, kinds, tcfg.wire_down,
+    kinds = tuple(wire.resolve_kind(D, policy) for D in gspec.dims)
+    totals = comm_counters(gspec.dims, c, s, kinds, tcfg.wire_down,
                            template=template)
     band = plan = None
     tall: Tuple[Tuple[int, int, int, str], ...] = ()
@@ -513,10 +596,23 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
         dev = resolve_device(device)
         main = spec.main_leaves
         mdims = spec.dims[:main]
-        band = (comm_ws.block_band(mdims, c, dev) if blocked
-                else comm_ws.cyclic_band(mdims, c, s, dev))
-        plan = comm_ws.wire_plan(mdims, policy, c, s, band,
-                                 template=template, ids=spec.ids[:main])
+        if split:
+            coords = block_coords(cfg, spec, mesh, dev)
+            if any(k is not None for k in coords[main:]):
+                raise ValueError("a tall-and-thin leaf split over the model "
+                                 "axis is not ported")
+            band = comm_ws.band_of_blocks(mdims, gspec.dims[:main],
+                                          coords[:main], template, c, s,
+                                          dev)
+            plan = comm_ws.wire_plan(
+                mdims, policy, c, s, band, template=template,
+                ids=spec.ids[:main], gdims=gspec.dims[:main],
+                coords=coords[:main], model=mesh.tp)
+        else:
+            band = (comm_ws.block_band(mdims, c, dev) if blocked
+                    else comm_ws.cyclic_band(mdims, c, s, dev))
+            plan = comm_ws.wire_plan(mdims, policy, c, s, band,
+                                     template=template, ids=spec.ids[:main])
         tall = tuple((spec.ids[i], spec.offsets[i], spec.dims[i], kinds[i])
                      for i in range(main, len(spec.dims)))
     # the leaves in the reference's order, for the plain paths
@@ -560,7 +656,7 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
             kw = dict(down=down_t, arrived=arr_t, correct=correct,
                       robust=rspec, wire=plan, wire_seed=seed,
                       wire_down=tcfg.wire_down)
-            if group is not None:
+            if sharded:
                 kslot = (comm_ws.blocked_slot(slot_t, int(off), c)
                          if blocked else slot_t)
                 comm_ws.shard_comm(state.x, state.h, kslot, band, c, s,
@@ -604,7 +700,7 @@ def make_comm_step(cfg: ModelConfig, tcfg: DistTamunaConfig, n: int,
         if arrived is not None:
             sslot = np.where(arrived, sslot, -1)
         return state, {"uncovered": comm_ws.uncovered_coords(
-            template, spec.dims, c, s, sslot)}
+            template, gspec.dims, c, s, sslot)}
 
     fn.wire_kinds = kinds
     return fn

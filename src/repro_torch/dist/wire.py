@@ -43,6 +43,9 @@ __all__ = [
     "uniform01",
     "round_seed",
     "leaf_scales",
+    "chunk_max_at",
+    "scales_of_max",
+    "leaf_scales_at",
     "narrow",
     "quantize",
     "quantize_to_int",
@@ -177,6 +180,58 @@ def leaf_scales(x2: torch.Tensor, kind: str) -> Optional[torch.Tensor]:
     # its reciprocal, one rounding away from the division
     levels = torch.tensor(float(LEVELS[kind]), device=x2.device)
     return torch.maximum(mx / levels, floor)
+
+
+def chunk_max_at(x2: torch.Tensor, coords: torch.Tensor, nc: int,
+                 out: Optional[torch.Tensor] = None,
+                 whole_chunks: bool = False) -> torch.Tensor:
+    """The per-chunk max of the finite ``|x|`` of a block of a leaf whose
+    columns are the leaf coordinates ``coords`` (``(d_local,)`` int64):
+    ``(rows, nc)``, or maxed into ``out`` (a ``(rows, nc)`` view, in
+    place).  Nonfinite entries count as 0.  ``whole_chunks`` (known on
+    the host): the block is whole 256-coordinate chunks in order, each a
+    run of 256 columns, so a reshape takes the max and the scatter writes
+    one value per chunk; otherwise a scatter-max per element.  Column
+    chunks bound the temporaries."""
+    from repro_torch.kernels.ref import column_chunks
+
+    rows, d = x2.shape
+    if out is None:
+        out = torch.zeros(rows, nc, dtype=torch.float32, device=x2.device)
+    for cols in column_chunks(d):
+        xc = x2[:, cols]
+        a = torch.where(xc.isfinite(), xc.abs(), 0.0)
+        kk = coords[cols]
+        if whole_chunks:
+            a = a.reshape(rows, -1, CHUNK).amax(dim=2)
+            kk = kk[::CHUNK]
+        out.scatter_reduce_(1, (kk // CHUNK)[None].expand(rows, -1), a,
+                            "amax")
+    return out
+
+
+def scales_of_max(mx: torch.Tensor, kind: str) -> torch.Tensor:
+    """``leaf_scales``'s ``max(mx / levels, 1e-12)`` of chunk maxima."""
+    floor = torch.tensor(1e-12, dtype=torch.float32, device=mx.device)
+    levels = torch.tensor(float(LEVELS[kind]), device=mx.device)
+    return torch.maximum(mx / levels, floor)
+
+
+def leaf_scales_at(x2: torch.Tensor, coords: torch.Tensor, nc: int,
+                   kind: str, group=None) -> torch.Tensor:
+    """The scatter-max form of ``leaf_scales`` for a model-sharded leaf
+    (``repro.dist.wire.leaf_scales_at``): the ``(rows, d_local)`` block
+    ``x2`` with its global leaf coordinates ``coords``, ``nc`` the leaf's
+    global chunk count; ``group`` (a ``tensor_parallel.TensorParallel``,
+    the leaf's model group) maxes the chunk maxima over the blocks, one
+    ``all_reduce(MAX)``, which merges the chunks that straddle blocks.
+    Max is exact, so the scales are bitwise ``leaf_scales`` of the whole
+    leaf.  The comm step maxes a kind group's leaves into one buffer and
+    reduces it once (``chunk_max_at``, ``scales_of_max``)."""
+    mx = chunk_max_at(x2, coords, nc)
+    if group is not None:
+        group.all_reduce(mx, "max")
+    return scales_of_max(mx, kind)
 
 
 def narrow(x2: torch.Tensor, kind: str) -> torch.Tensor:

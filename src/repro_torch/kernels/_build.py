@@ -36,14 +36,17 @@ NVCC_FLAGS = (
 
 # one count per kernel instantiation: the UpComs per lane type, robust_sum
 # for s <= 16 and above, h_update in both forms up to 4096 rows and above,
+# the int wire's coordinate-table forms (``_at``, model-sharded blocks),
 # compress per float type and rank, decode attention per query and cache
 # type (bf16 queries on a bf16 cache, f32 queries on an f32 or a bf16 cache)
 KERNELS = ("masked_sum", "masked_sum_f16", "masked_sum_bf16",
            "masked_sum_counts", "masked_sum_counts_f16",
            "masked_sum_counts_bf16", "masked_sum_dequant",
-           "masked_sum_dequant_counts", "robust_sum", "robust_sum_large_s",
+           "masked_sum_dequant_counts", "masked_sum_dequant_at",
+           "masked_sum_dequant_counts_at", "robust_sum", "robust_sum_large_s",
            "h_update", "h_update_covered", "h_update_large_n",
            "h_update_covered_large_n", "fused_local_step", "wire_quantize",
+           "wire_quantize_at",
            "compress_f64", "compress_f32", "compress_1d_f64",
            "compress_1d_f32", "decode_attention", "decode_attention_f32",
            "decode_attention_f32_bf16kv")
@@ -109,10 +112,11 @@ def load() -> ctypes.CDLL:
     lib.tamuna_masked_sum_counts.argtypes = [p, i32, p, p, p, p, i64, i64,
                                              i64, i32, i32, p]
     lib.tamuna_masked_sum_dequant.argtypes = [p, p, i64, p, p, i32, p, p, p,
-                                              p, i64, i64, i32, i32, i32, p]
+                                              p, p, i64, i64, i32, i32, i32,
+                                              p]
     lib.tamuna_wire_quantize.argtypes = [p, i64, i64, p, p, i32, i64,
                                          ctypes.c_uint32, f32, p, i64, p, i64,
-                                         p, i32, i64, p]
+                                         p, i32, i64, p, p, i64, p, p]
     pi = ctypes.POINTER(ctypes.c_int)
     lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
                                       i32, i32, i32, p, i64, p, pi]

@@ -113,18 +113,21 @@ def masked_sum_counts(x: torch.Tensor, slot: torch.Tensor,
 def masked_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
                        leaf_lo: torch.Tensor, slot: torch.Tensor,
                        band: torch.Tensor, m: int, s: int,
-                       counts: bool = False):
+                       counts: bool = False,
+                       chunk_col: Optional[torch.Tensor] = None):
     """``masked_sum`` (``counts=True``: ``masked_sum_counts``) over int
     wire lanes: each owned code is dequantized against its row's chunk
-    scale (``wire_dequant`` at ``chunk_cols(leaf_lo)``) and summed in f32
-    in row order.  A row that does not own a coordinate adds 0, whatever
-    its scale."""
+    scale (``wire_dequant`` at ``chunk_cols(leaf_lo)``, or at the given
+    per-column ``chunk_col``) and summed in f32 in row order.  A row that
+    does not own a coordinate adds 0, whatever its scale."""
     n, d = codes.shape
     num = torch.empty(d, dtype=torch.float32, device=codes.device)
     cnt = torch.empty(d, dtype=torch.float32, device=codes.device)
     for cols in column_chunks(d):
         v = wire_dequant(codes[:, cols], scales,
-                         chunk_cols(leaf_lo, cols.start, cols.stop))
+                         chunk_cols(leaf_lo, cols.start, cols.stop)
+                         if chunk_col is None
+                         else chunk_col[cols].to(torch.int64))
         acc = torch.zeros_like(num[cols])
         c = torch.zeros_like(cnt[cols])
         for i in range(n):
@@ -230,16 +233,52 @@ def fused_local_step(x: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     return x - gamma * (g - h)
 
 
+def _at_leaves(leaves, gdims):
+    """``(leaf index, offset, size, group column, first scale column,
+    global size)`` of the coordinate form's leaves."""
+    g0 = c0 = 0
+    for (li, o, D), G in zip(leaves, gdims):
+        yield li, o, D, g0, c0, G
+        g0 += D
+        c0 += wire.n_chunks(G)
+
+
 def wire_pack(x: torch.Tensor, leaves: Sequence[Tuple[int, int, int]],
-              kind: str, seed: int,
-              row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+              kind: str, seed: int, row0: int = 0, *,
+              coords: Optional[torch.Tensor] = None,
+              scales: Optional[torch.Tensor] = None,
+              gdims: Optional[Sequence[int]] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The int wire payload of a kind group: ``(codes (n, d_g) int8,
     scales (n, nc_g) f32)`` of the leaves ``(leaf index, offset, size)`` of
     the ``(n, d_total)`` f32 workspace ``x``, concatenated in the given
     order.  Leaf ``li`` draws with ``wire.fold_seed(seed, li)``, row ``i``
     with row id ``row0 + i``, coordinate ``k`` of the leaf with id ``k``;
-    the result is ``wire.leaf_scales`` then ``wire.quantize_to_int``."""
+    the result is ``wire.leaf_scales`` then ``wire.quantize_to_int``.
+
+    The coordinate form (the blocks of model-sharded leaves): group column
+    ``j`` is the leaf coordinate ``coords[j]``, which keys its draw and
+    picks its scale among ``scales`` (leaf ``j``'s global chunks after the
+    previous leaves', ``gdims`` the global sizes); the scales come back
+    poisoned by the rows' nonfinite values (``wire.quantize_to_int``)."""
     n = x.shape[0]
+    if coords is not None:
+        codes = torch.empty(n, coords.shape[0], dtype=torch.int8,
+                            device=x.device)
+        out = scales.clone()
+        rows = torch.arange(row0, row0 + n, dtype=torch.int64,
+                            device=x.device)[:, None]
+        for li, o, D, g0, c0, G in _at_leaves(leaves, gdims):
+            sl = wire.fold_seed(seed, li)
+            blk = slice(c0, c0 + wire.n_chunks(G))
+            for cols in column_chunks(D):
+                kk = coords[g0 + cols.start:g0 + cols.stop]
+                q, sc = wire.quantize_to_int(
+                    x[:, o + cols.start:o + cols.stop], kind, sl, rows, kk,
+                    scales[:, blk], kk // wire.CHUNK)
+                codes[:, g0 + cols.start:g0 + cols.stop] = q
+                out[:, blk] = torch.where(sc.isnan(), sc, out[:, blk])
+        return codes, out
     d_g = sum(D for _, _, D in leaves)
     nc_g = sum(wire.n_chunks(D) for _, _, D in leaves)
     codes = torch.empty(n, d_g, dtype=torch.int8, device=x.device)
@@ -265,11 +304,26 @@ def wire_pack(x: torch.Tensor, leaves: Sequence[Tuple[int, int, int]],
 
 
 def wire_down(x_bar: torch.Tensor, leaves: Sequence[Tuple[int, int, int]],
-              kind: str, seed: int) -> None:
+              kind: str, seed: int, *,
+              coords: Optional[torch.Tensor] = None,
+              scales: Optional[torch.Tensor] = None,
+              gdims: Optional[Sequence[int]] = None) -> None:
     """The DownCom quantizer, in place on the ``(d_total,)`` f32 ``x_bar``:
     each leaf ``(leaf index, offset, size)`` becomes ``wire.quantize`` of
     it as one row with row id ``wire.DOWN_ROW`` (nonfinite values pass
-    through, scales are not poisoned)."""
+    through, scales are not poisoned).  ``coords``, ``scales`` ``(1,
+    nc_g)`` and ``gdims``: ``wire_pack``'s coordinate form."""
+    if coords is not None:
+        for li, o, D, g0, c0, G in _at_leaves(leaves, gdims):
+            sl = wire.fold_seed(seed, li)
+            for cols in column_chunks(D):
+                seg = x_bar[o + cols.start:o + cols.stop]
+                kk = coords[g0 + cols.start:g0 + cols.stop]
+                seg.copy_(wire.quantize(
+                    seg[None], kind, sl, wire.DOWN_ROW, kk,
+                    scales[:, c0:c0 + wire.n_chunks(G)],
+                    kk // wire.CHUNK)[0])
+        return
     for li, o, D in leaves:
         sl = wire.fold_seed(seed, li)
         for cols in column_chunks(D):

@@ -172,7 +172,8 @@ def _leaf_starts(leaf_lo) -> Tuple[int, ...]:
 def masked_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
                        leaf_lo: Sequence[int], slot: torch.Tensor,
                        band: torch.Tensor, m: int, s: int,
-                       counts: bool = False):
+                       counts: bool = False,
+                       chunk_col: Optional[torch.Tensor] = None):
     """``masked_sum`` over int wire lanes: ``codes`` ``(n, d)`` int8 (int4
     codes fit), ``scales`` ``(n, nchunk)`` f32 per-chunk scales, and
     ``leaf_lo`` the kind group's ``L + 1`` leaf starts in its ``d``
@@ -181,13 +182,25 @@ def masked_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
     (``compress.chunk_cols``).  Each owned code times its scale is summed
     in f32; ``counts=True`` returns ``(num, cnt)`` as ``masked_sum``
     does.  On the card the leaf tables are copied once per group
-    (``_build.device_table``) and nothing is read back."""
+    (``_build.device_table``) and nothing is read back.
+
+    ``chunk_col`` ``(d,)`` int32 (the coordinate-table form, blocks of
+    model-sharded leaves): each column's scale column, given; ``scales``
+    may then have any width.  Its launches count as
+    ``masked_sum_dequant_at`` (``_counts_at``)."""
     _check(codes, m, s, lanes=(torch.int8,), pitched=False, slot=slot,
            band=band)
     n, d = codes.shape
     lo = _leaf_starts(leaf_lo)
     coff = tuple(compress.chunk_offsets(lo))
-    nc = coff[-1]
+    nc = coff[-1] if chunk_col is None else scales.shape[1]
+    if chunk_col is not None and (
+            chunk_col.shape != (d,) or chunk_col.dtype != torch.int32
+            or not chunk_col.is_contiguous()
+            or chunk_col.device != codes.device):
+        raise ValueError(f"chunk_col: want a contiguous ({d},) int32 tensor "
+                         f"on {codes.device}, got {tuple(chunk_col.shape)} "
+                         f"{chunk_col.dtype} on {chunk_col.device}")
     if (scales.shape != (n, nc) or scales.dtype != torch.float32
             or not scales.is_contiguous() or scales.device != codes.device
             or len(lo) < 2 or lo[0] != 0 or lo[-1] != d
@@ -199,7 +212,8 @@ def masked_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
     if codes.device.type == "cpu":
         return ref.masked_sum_dequant(codes, scales,
                                       torch.tensor(lo, dtype=torch.int64),
-                                      slot, band, m, s, counts=counts)
+                                      slot, band, m, s, counts=counts,
+                                      chunk_col=chunk_col)
     out = torch.empty(d, dtype=torch.float32, device=codes.device)
     cnt = (torch.empty(d, dtype=torch.float32, device=codes.device)
            if counts else None)
@@ -207,11 +221,13 @@ def masked_sum_dequant(codes: torch.Tensor, scales: torch.Tensor,
         codes.data_ptr(), scales.data_ptr(), nc,
         _build.device_table(lo, codes.device).data_ptr(),
         _build.device_table(coff, codes.device).data_ptr(), len(lo) - 1,
+        None if chunk_col is None else chunk_col.data_ptr(),
         slot.data_ptr(), band.data_ptr(), out.data_ptr(),
         None if cnt is None else cnt.data_ptr(), n, d, m, s, int(counts),
         _build.stream_of(codes))
     _build.check_launch(
-        "masked_sum_dequant_counts" if counts else "masked_sum_dequant", rc)
+        ("masked_sum_dequant_counts" if counts else "masked_sum_dequant")
+        + ("" if chunk_col is None else "_at"), rc)
     return (out, cnt) if counts else out
 
 

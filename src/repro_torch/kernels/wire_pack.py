@@ -22,13 +22,24 @@ list) keys the draw.  The kernel runs one warp per 256-coordinate chunk
 are built on the host and copied to the card once, so neither wrapper
 waits for the card.
 
+Both take a coordinate-table form for the blocks of model-sharded leaves
+(``coords=``, ``scales=``, ``gdims=``): each group column's global leaf
+coordinate keys its draw and picks its scale among the given ones
+(``wire.leaf_scales_at``, already reduced over the leaf's blocks), leaf
+``j``'s scales in the ``n_chunks(gdims[j])`` columns after the previous
+leaves'.  The kernel (``wire_quantize_at_kernel``) then computes no scale;
+the UpCom returns the scales poisoned (NaN) where its rows' chunk holds a
+nonfinite value, as ``wire.quantize_to_int``.  It reads 4 B of x and 8 B
+of coordinate and writes 1 B of code per (row, coordinate).  Without the
+table every launch is the one above.
+
 A CPU tensor runs the plain versions ``ref.wire_pack``/``ref.wire_down``;
 a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -69,17 +80,72 @@ def _check(x: torch.Tensor, leaves: Leaves, kind: str) -> None:
                          f"{width}")
 
 
+def _at_tables(x: torch.Tensor, leaves: Leaves, coords: torch.Tensor,
+               scales: torch.Tensor, gdims: Sequence[int], rows: int
+               ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """Check the coordinate-table form's inputs; returns the host tables
+    ``(lo, scol)``: the group column starts (``L + 1``) and each leaf's
+    first scale column (``L``)."""
+    lo, scol = [0], [0]
+    for (_, _, D), G in zip(leaves, gdims):
+        lo.append(lo[-1] + D)
+        scol.append(scol[-1] + wire.n_chunks(G))
+    if (len(gdims) != len(leaves) or coords.dtype != torch.int64
+            or coords.shape != (lo[-1],) or not coords.is_contiguous()
+            or coords.device != x.device or scales.dtype != torch.float32
+            or scales.shape != (rows, scol[-1])
+            or not scales.is_contiguous() or scales.device != x.device
+            or any(D > G for (_, _, D), G in zip(leaves, gdims))):
+        raise ValueError(
+            f"coordinate form: want coords ({lo[-1]},) int64 and scales "
+            f"({rows}, {scol[-1]}) f32 on {x.device}, one global size per "
+            f"leaf at least its block's; got coords {tuple(coords.shape)} "
+            f"{coords.dtype}, scales {tuple(scales.shape)} {scales.dtype}, "
+            f"gdims {list(gdims)}")
+    return tuple(lo), tuple(scol[:-1])
+
+
 def pack_int(x: torch.Tensor, leaves: Leaves, kind: str, seed: int,
-             row0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+             row0: int = 0, *, coords: Optional[torch.Tensor] = None,
+             scales: Optional[torch.Tensor] = None,
+             gdims: Optional[Sequence[int]] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(codes (n, d_g) int8, scales (n, nc_g) f32)`` of the leaves of the
     ``(n, d_total)`` f32 workspace ``x``: ``wire.leaf_scales`` then
     ``wire.quantize_to_int`` per leaf, row ``i`` drawing with row id
-    ``row0 + i`` and leaf ``li`` with ``wire.fold_seed(seed, li)``."""
+    ``row0 + i`` and leaf ``li`` with ``wire.fold_seed(seed, li)``.
+
+    The coordinate form (``coords`` ``(d_g,)`` int64, the global leaf
+    coordinate of each group column; ``scales`` ``(n, nc_g)`` f32 over the
+    leaves' global chunks; ``gdims`` the leaves' global sizes): the codes
+    draw at the global coordinates against the given scales, and the
+    scales come back poisoned where a row's chunk holds a nonfinite
+    value."""
     _check(x, leaves, kind)
     if x.dim() != 2:
         raise ValueError(f"want an (n, d) workspace, got {tuple(x.shape)}")
     if row0 < 0:
         raise ValueError(f"row0 must be >= 0, got {row0}")
+    if coords is not None:
+        lo, scol = _at_tables(x, leaves, coords, scales, gdims, x.shape[0])
+        if x.device.type == "cpu":
+            return ref.wire_pack(x, leaves, kind, seed, row0, coords=coords,
+                                 scales=scales, gdims=gdims)
+        n = x.shape[0]
+        codes = torch.empty(n, lo[-1], dtype=torch.int8, device=x.device)
+        out = scales.clone()
+        tab, _ = _tables(leaves, dst_of_src=False)
+        rc = _build.load().tamuna_wire_quantize(
+            x.data_ptr(), x.shape[1], n,
+            _build.device_table(tab, x.device).data_ptr(),
+            _build.device_table(scol, x.device).data_ptr(), len(leaves),
+            scales.shape[1], int(seed) & 0xFFFFFFFF,
+            float(wire.LEVELS[kind]), codes.data_ptr(), lo[-1],
+            out.data_ptr(), scales.shape[1], None, 0, int(row0),
+            coords.data_ptr(), _build.device_table(lo, x.device).data_ptr(),
+            lo[-1], scales.data_ptr(), _build.stream_of(x))
+        _build.check_launch("wire_quantize_at", rc)
+        return codes, out
     if x.device.type == "cpu":
         return ref.wire_pack(x, leaves, kind, seed, row0)
     n = x.shape[0]
@@ -93,19 +159,41 @@ def pack_int(x: torch.Tensor, leaves: Leaves, kind: str, seed: int,
         _build.device_table(tab, x.device).data_ptr(),
         _build.device_table(coff, x.device).data_ptr(), len(leaves), nc,
         int(seed) & 0xFFFFFFFF, float(wire.LEVELS[kind]), codes.data_ptr(),
-        d_g, scales.data_ptr(), nc, None, 0, int(row0), _build.stream_of(x))
+        d_g, scales.data_ptr(), nc, None, 0, int(row0), None, None, 0, None,
+        _build.stream_of(x))
     _build.check_launch("wire_quantize", rc)
     return codes, scales
 
 
 def quantize_down(x_bar: torch.Tensor, leaves: Leaves, kind: str,
-                  seed: int) -> None:
+                  seed: int, *, coords: Optional[torch.Tensor] = None,
+                  scales: Optional[torch.Tensor] = None,
+                  gdims: Optional[Sequence[int]] = None) -> None:
     """In place on the ``(d_total,)`` f32 ``x_bar``: each leaf becomes
     ``wire.quantize`` of it as one row with row id ``wire.DOWN_ROW``
-    (nonfinite values pass through)."""
+    (nonfinite values pass through).  ``coords``, ``scales`` ``(1,
+    nc_g)`` and ``gdims``: ``pack_int``'s coordinate form."""
     _check(x_bar, leaves, kind)
     if x_bar.dim() != 1:
         raise ValueError(f"want a (d,) row, got {tuple(x_bar.shape)}")
+    if coords is not None:
+        lo, scol = _at_tables(x_bar, leaves, coords, scales, gdims, 1)
+        if x_bar.device.type == "cpu":
+            ref.wire_down(x_bar, leaves, kind, seed, coords=coords,
+                          scales=scales, gdims=gdims)
+            return
+        tab, _ = _tables(leaves, dst_of_src=True)
+        rc = _build.load().tamuna_wire_quantize(
+            x_bar.data_ptr(), 0, 1,
+            _build.device_table(tab, x_bar.device).data_ptr(),
+            _build.device_table(scol, x_bar.device).data_ptr(), len(leaves),
+            scales.shape[1], int(seed) & 0xFFFFFFFF,
+            float(wire.LEVELS[kind]), None, 0, None, scales.shape[1],
+            x_bar.data_ptr(), 1, 0, coords.data_ptr(),
+            _build.device_table(lo, x_bar.device).data_ptr(), lo[-1],
+            scales.data_ptr(), _build.stream_of(x_bar))
+        _build.check_launch("wire_quantize_at", rc)
+        return
     if x_bar.device.type == "cpu":
         ref.wire_down(x_bar, leaves, kind, seed)
         return
@@ -115,5 +203,6 @@ def quantize_down(x_bar: torch.Tensor, leaves: Leaves, kind: str,
         _build.device_table(tab, x_bar.device).data_ptr(),
         _build.device_table(coff, x_bar.device).data_ptr(), len(leaves),
         coff[-1], int(seed) & 0xFFFFFFFF, float(wire.LEVELS[kind]), None, 0,
-        None, 0, x_bar.data_ptr(), 1, 0, _build.stream_of(x_bar))
+        None, 0, x_bar.data_ptr(), 1, 0, None, None, 0, None,
+        _build.stream_of(x_bar))
     _build.check_launch("wire_quantize", rc)

@@ -13,8 +13,8 @@ hybrid attends once per group of layers.  The encoder-decoder
 fills the cross-attention's K/V in the cache, timed apart from the
 prefill; its decode step takes no pluggable attention, as the
 reference's.  Serving runs on one device: the reference's
-``--data-parallel``/``--model-parallel`` for serving are ROADMAP A9b (the
-train CLI's ``--data-parallel`` is ported).
+``--data-parallel``/``--model-parallel`` for serving are ROADMAP A9c (the
+train CLI's ``--data-parallel`` and ``--model-parallel`` are ported).
 
 Example:
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --batch 2 \\

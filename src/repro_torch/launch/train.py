@@ -35,10 +35,19 @@ must equal it); rank ``r`` takes ``cuda:(r % cards)``.
 cpu`` unless given: nccl takes one card per rank and refuses more ranks
 than cards; ranks that share one card pass ``--dist-backend gloo``.
 The rows are the same on every rank and rank 0 prints and logs them; at
-``--sparsity 2`` they are the one-process run's bitwise.  The reputation,
-checkpoints, the pipelined driver and ``--comm-impl ws``/``dense`` over
-ranks, and ``--model-parallel`` above 1 (the model axis), are ROADMAP A9b
-and exit with an error.
+``--sparsity 2`` they are the one-process run's bitwise.
+
+``--model-parallel M`` adds the model axis (ROADMAP A9b): ``D x M`` ranks
+(``D = --data-parallel``), rank ``r`` data index ``r // M`` and model
+index ``r % M`` (``sharding.Mesh2D``); each rank holds its blocks of the
+leaves under the reference's rules and trains them with the
+tensor-parallel layers, the dense family only (``check_model_parallel``;
+the other families, a prefix and heads that do not split whole are
+ROADMAP A9c and exit with an error).  M ranks that share one card take
+``--dist-backend gloo``: nccl refuses more ranks than cards.  The
+reputation, checkpoints, the pipelined driver, the inlier attack and
+``--comm-impl ws``/``dense`` over ranks are ROADMAP A9d and exit with an
+error.
 
 ``--arch`` takes every architecture of the registry: the dense family
 (internvl2-26b's batches carry its stub frontend's ``prefix_embeds``,
@@ -77,6 +86,8 @@ Example:
       --data-parallel 2 --dist-backend gloo       # two ranks on one card
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --reduced --rounds 2 --data-parallel 4      # nccl, a card per rank
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --rounds 2 \\
+      --data-parallel 2 --model-parallel 2 --dist-backend gloo --device cpu
 """
 
 from __future__ import annotations
@@ -181,8 +192,9 @@ def main(argv=None) -> int:
                          "(default nccl on cuda, gloo on cpu; ranks that "
                          "share a card pass gloo)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="tensor parallelism of the model: not ported "
-                         "(ROADMAP A9b); only 1 is taken")
+                    help="ranks each leaf is split over (tensor-parallel "
+                         "dense layers); the world is --data-parallel x "
+                         "this")
     args = ap.parse_args(argv)
     if args.checkpoint_every and not args.checkpoint_dir:
         ap.error("--checkpoint-every needs --checkpoint-dir")
@@ -195,16 +207,27 @@ def main(argv=None) -> int:
     if args.wire_down and args.wire_precision == "f32":
         ap.error("--wire-down quantizes the DownCom broadcast; it needs a "
                  "non-f32 --wire-precision")
-    if args.model_parallel != 1:
-        ap.error("--model-parallel (the model axis: parameter rules, "
-                 "model-sharded bands, tensor-parallel layers) is not "
-                 "ported: ROADMAP A9b")
-    world = args.data_parallel
+    if args.data_parallel < 1 or args.model_parallel < 1:
+        ap.error("--data-parallel and --model-parallel need at least 1 "
+                 "rank each")
+    world = args.data_parallel * args.model_parallel
     env_world = int(os.environ.get("WORLD_SIZE", "0"))
-    if world < 1:
-        ap.error("--data-parallel needs at least 1 rank")
     if env_world and env_world != world:
-        ap.error(f"WORLD_SIZE={env_world} but --data-parallel {world}")
+        ap.error(f"WORLD_SIZE={env_world} but --data-parallel x "
+                 f"--model-parallel is {world}")
+    if args.model_parallel > 1:
+        from repro_torch.configs import registry
+        from repro_torch.dist import sharding
+
+        cfg = (registry.get_reduced_config(args.arch) if args.reduced
+               else registry.get_config(args.arch))
+        try:
+            sharding.check_model_parallel(cfg, args.model_parallel)
+        except ValueError as e:
+            ap.error(str(e))
+        if args.adversary != "none" and args.f_byz > 0.0:
+            ap.error("the fault-tolerant round over model blocks is not "
+                     "ported: ROADMAP A9d")
     if world > 1 or env_world:
         for flag, on in (("--reputation", args.reputation),
                          ("--checkpoint-dir", args.checkpoint_dir),
@@ -213,7 +236,7 @@ def main(argv=None) -> int:
                          ("--comm-impl ws/dense",
                           args.comm_impl in ("ws", "dense"))):
             if on:
-                ap.error(f"{flag} over ranks is not ported: ROADMAP A9b")
+                ap.error(f"{flag} over ranks is not ported: ROADMAP A9d")
         backend = args.dist_backend or ("nccl" if args.device == "cuda"
                                         else "gloo")
         from repro_torch.dist import sharding
@@ -277,18 +300,25 @@ def _train(rank, dev, args) -> int:
         robust_agg=args.robust_agg, trim_k=args.trim_k,
         wire_precision=args.wire_precision, wire_down=args.wire_down,
     )
-    group = None
+    group = rows = None
     if rank is not None:
         from repro_torch.dist import sharding
 
-        group = sharding.RankRows.of_group(n)
+        world = args.data_parallel * args.model_parallel
+        if args.model_parallel > 1:
+            group = sharding.make_mesh(n, args.data_parallel,
+                                       args.model_parallel)
+            rows = group.rows
+        else:
+            group = rows = sharding.RankRows.of_group(n)
         # the ranks' intra-op threads share the host's cores
         torch.set_num_threads(min(torch.get_num_threads(), max(
-            1, (os.cpu_count() or 1) // group.world)))
+            1, (os.cpu_count() or 1) // world)))
     lead = rank in (None, 0)
     adversarial = args.adversary != "none" and args.f_byz > 0.0
-    state = tamuna_dp.init_state(cfg, tcfg, n, seed=args.seed,
-                                 device=device, rows=group)
+    state = tamuna_dp.init_state(
+        cfg, tcfg, n, seed=args.seed, device=device, rows=rows,
+        mesh=group if args.model_parallel > 1 else None)
     pipe = SyntheticTokenPipeline(
         DataConfig(seq_len=args.seq_len,
                    per_client_batch=args.per_client_batch,
@@ -340,7 +370,9 @@ def _train(rank, dev, args) -> int:
     total_steps = rows[-1]["local_steps"] if rows else 0
     final_loss = rows[-1]["loss"] if rows else float("nan")
     where = (f"{device}" if group is None else
-             f"{group.world} ranks ({device} on rank 0)")
+             f"{args.data_parallel * args.model_parallel} ranks "
+             f"({args.data_parallel} x {args.model_parallel}; {device} on "
+             "rank 0)")
     print(f"[train] {args.rounds} rounds / {total_steps} local steps on "
           f"{where} in {dt:.1f}s; final loss {final_loss:.4f}")
     return 0

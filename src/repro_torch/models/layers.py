@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import tensor_parallel as tpm
+
 
 def const(value: float, dtype: torch.dtype,
           device: torch.device) -> torch.Tensor:
@@ -332,15 +334,25 @@ def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
               n_kv_heads: int, head_dim: int, rope_theta: Optional[float],
               window: int, attn_softcap: Optional[float],
               biases: Optional[Tuple[torch.Tensor, ...]] = None,
-              causal: bool = True) -> torch.Tensor:
+              causal: bool = True,
+              tp: Optional["tpm.TensorParallel"] = None) -> torch.Tensor:
     """GQA self-attention over ``x (b, t, d)``: causal with a sliding
     window (key ``kp`` is visible from query ``qp`` iff ``qp - window <
     kp <= qp``), or over every key where not ``causal`` (``window`` is not
     read; an encoder).  From ``t >= FLASH_THRESHOLD`` on the blockwise
     ``flash_attention``, as the reference's forward; below it the dense
     ``attention_scores``, whose probabilities are rounded to the compute
-    dtype before the product with ``v``.  ``biases`` are ``qkv``'s."""
+    dtype before the product with ``v``.  ``biases`` are ``qkv``'s.
+
+    ``tp`` (a ``tensor_parallel.TensorParallel`` of ``mp`` ranks): the
+    weights are the rank's blocks, ``n_heads / mp`` query heads and
+    ``n_kv_heads / mp`` kv heads of the projections (column parallel, ``x``
+    entering through ``copy_in``) and their rows of ``wo`` (row parallel,
+    summed over the group)."""
     b, t, _ = x.shape
+    if tp is not None:
+        x = tpm.copy_in(x, tp)
+        n_heads, n_kv_heads = n_heads // tp.size, n_kv_heads // tp.size
     q, k, v = qkv(x, wq, wk, wv, n_heads, n_kv_heads, head_dim, biases)
     if rope_theta is not None:
         pos = torch.arange(t, device=x.device)
@@ -353,6 +365,9 @@ def attention(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
         out = attention_scores(q, k, v, causal=causal,
                                sliding_window=window if causal else None,
                                attn_softcap=attn_softcap)
+    if tp is not None:
+        return tpm.row_parallel(out.reshape(b, t, n_heads * head_dim), wo,
+                                tp)
     return matmul(out.reshape(b, t, n_heads * head_dim), wo)
 
 
@@ -391,37 +406,63 @@ def _activation(act: str, x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp(x: torch.Tensor, w_gate: Optional[torch.Tensor], w_up: torch.Tensor,
-        w_down: torch.Tensor, act: str) -> torch.Tensor:
+        w_down: torch.Tensor, act: str,
+        tp: Optional["tpm.TensorParallel"] = None) -> torch.Tensor:
     """Gated MLP ``act(x W_gate) * (x W_up) W_down``, or the ungated
     ``act(x W_up) W_down`` where ``w_gate`` is ``None``; ``gelu`` is the
-    tanh approximation (``jax.nn.gelu``'s default)."""
+    tanh approximation (``jax.nn.gelu``'s default).  ``tp``: the rank's
+    columns of ``w_gate``/``w_up`` and rows of ``w_down``
+    (``attention``'s)."""
+    down = matmul
+    if tp is not None:
+        x = tpm.copy_in(x, tp)
+
+        def down(a, w):
+            return tpm.row_parallel(a, w, tp)
     if w_gate is None:
-        return matmul(_activation(act, matmul(x, w_up)), w_down)
+        return down(_activation(act, matmul(x, w_up)), w_down)
     a = _activation(act, matmul(x, w_gate))
-    return matmul(a * matmul(x, w_up), w_down)
+    return down(a * matmul(x, w_up), w_down)
 
 
 def chunked_softmax_xent(h: torch.Tensor, w_vocab: torch.Tensor,
                          labels: torch.Tensor, *, chunk: int = 512,
                          logit_softcap: Optional[float] = None,
                          ignore_id: int = -1,
-                         valid_vocab: Optional[int] = None) -> torch.Tensor:
+                         valid_vocab: Optional[int] = None,
+                         tp: Optional["tpm.TensorParallel"] = None
+                         ) -> torch.Tensor:
     """Mean token cross-entropy over sequence chunks, so at most
     ``(b, chunk, vocab)`` f32 logits exist at once.  Logits past
-    ``valid_vocab`` (padded embedding rows) are masked to -1e30."""
+    ``valid_vocab`` (padded embedding rows) are masked to -1e30.  ``tp``:
+    ``w_vocab`` is the rank's ``(d, vocab / mp)`` columns (global ids
+    ``rank * vocab / mp ..``; ``h`` enters through ``copy_in``) and the
+    logsumexp and the gold logit are taken over the group
+    (``tensor_parallel.vocab_xent``)."""
     w = widen(w_vocab.to(h.dtype))
     tot = torch.zeros((), dtype=w.dtype, device=h.device)
     cnt = torch.zeros((), dtype=torch.int64, device=h.device)
+    v0, width = 0, w.shape[-1]
+    if tp is not None:
+        h = tpm.copy_in(h, tp)
+        v0, width = tp.rank * w.shape[-1], w.shape[-1] * tp.size
     for a in range(0, h.shape[1], chunk):
         logits = torch.matmul(widen(h[:, a:a + chunk]), w)
         logits = softcap(logits, logit_softcap)
-        if valid_vocab is not None and valid_vocab < logits.shape[-1]:
-            vmask = torch.arange(logits.shape[-1],
+        if valid_vocab is not None and valid_vocab < width:
+            vmask = torch.arange(v0, v0 + logits.shape[-1],
                                  device=h.device) < valid_vocab
             logits = logits.masked_fill(~vmask, -1e30)
         lx = labels[:, a:a + chunk]
         valid = lx != ignore_id
         lsafe = torch.where(valid, lx, torch.zeros_like(lx))
+        if tp is not None:
+            nll = torch.where(valid, tpm.vocab_xent(logits, lsafe, tp),
+                              torch.zeros((), dtype=logits.dtype,
+                                          device=h.device))
+            tot = tot + nll.sum()
+            cnt = cnt + valid.sum()
+            continue
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, lsafe[..., None]).squeeze(-1)
         nll = torch.where(valid, logz - gold, torch.zeros_like(logz))

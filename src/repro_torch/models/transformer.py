@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import DeviceLike, resolve_device
 from repro_torch.models import layers, moe, rwkv, ssm
+from repro_torch.models import tensor_parallel as tpm
 
 Params = Dict[str, torch.Tensor]
 
@@ -40,6 +41,9 @@ Params = Dict[str, torch.Tensor]
 GLOBAL_WINDOW = (2 ** 31 - 1) // 2
 
 FAMILIES = ("dense", "moe", "rwkv", "mamba_hybrid", "encdec")
+# what tensor parallelism does not cover yet
+_TP_LATER = ("tensor parallelism covers the dense family without a prefix; "
+             "the other families' layers and the prefix are ROADMAP A9c")
 # the reference's fixed widths: RWKV's decay LoRA, Mamba2's convolution
 DECAY_LORA = 64
 CONV_WIDTH = 4
@@ -312,40 +316,47 @@ def _attn_weights(p: Params, prefix: str, l: Optional[int] = None):
 
 
 def _attend(x: torch.Tensor, p: Params, prefix: str, l: Optional[int],
-            cfg: ModelConfig, window: int,
-            softcap: Optional[float]) -> torch.Tensor:
-    """Causal self-attention of ``x`` with the weights under ``prefix``."""
+            cfg: ModelConfig, window: int, softcap: Optional[float],
+            tp: Optional[tpm.TensorParallel] = None) -> torch.Tensor:
+    """Causal self-attention of ``x`` with the weights under ``prefix``
+    (the rank's heads under ``tp``)."""
     wq, wk, wv, wo, biases = _attn_weights(p, prefix, l)
     return layers.attention(
         x, wq, wk, wv, wo, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta, window=window,
-        attn_softcap=softcap, biases=biases)
+        attn_softcap=softcap, biases=biases, tp=tp)
 
 
-def _feed_forward(p: Params, l: int, h: torch.Tensor, cfg: ModelConfig
+def _feed_forward(p: Params, l: int, h: torch.Tensor, cfg: ModelConfig,
+                  tp: Optional[tpm.TensorParallel] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Layer ``l``'s MLP (dense) or MoE (with its load-balance loss)."""
+    """Layer ``l``'s MLP (dense; tensor parallel under ``tp``) or MoE
+    (with its load-balance loss)."""
     if cfg.family == "moe":
+        if tp is not None:
+            raise NotImplementedError(_TP_LATER)
         y, aux = moe.moe_fwd(_sub(p, "blocks/moe/", l), h, cfg.top_k,
                              cfg.act, cfg.renormalize)
         return y, aux["load_balance"]
     return layers.mlp(h, p["blocks/mlp/w_gate"][l], p["blocks/mlp/w_up"][l],
-                      p["blocks/mlp/w_down"][l], cfg.act), None
+                      p["blocks/mlp/w_down"][l], cfg.act, tp=tp), None
 
 
 def _block(p: Params, l: int, x: torch.Tensor, cfg: ModelConfig,
-           window: int) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """A dense or MoE layer: ``(x, the MoE load-balance loss or None)``."""
+           window: int, tp: Optional[tpm.TensorParallel] = None
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A dense or MoE layer: ``(x, the MoE load-balance loss or None)``;
+    ``tp``: the rank's blocks of the weights, the norms replicated."""
     t = x.shape[1]
     # 0 -> global: a window longer than the sequence masks nothing
     eff_window = window if window > 0 else t + 1
     h = layers.rmsnorm(p["blocks/ln_attn/scale"][l], x)
-    h = _attend(h, p, "blocks/", l, cfg, eff_window, cfg.attn_softcap)
+    h = _attend(h, p, "blocks/", l, cfg, eff_window, cfg.attn_softcap, tp)
     if cfg.post_norm:
         h = layers.rmsnorm(p["blocks/ln_attn_post/scale"][l], h)
     x = x + h
     h = layers.rmsnorm(p["blocks/ln_ff/scale"][l], x)
-    h, aux = _feed_forward(p, l, h, cfg)
+    h, aux = _feed_forward(p, l, h, cfg, tp)
     if cfg.post_norm:
         h = layers.rmsnorm(p["blocks/ln_ff_post/scale"][l], h)
     return x + h, aux
@@ -392,11 +403,15 @@ def _groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.shared_attn_every
 
 
-def _embed(params: Params, cfg: ModelConfig,
-           tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+           tp: Optional[tpm.TensorParallel] = None) -> torch.Tensor:
     """The token embeddings in the compute dtype, scaled by sqrt(d_model)
-    (rounded to the compute dtype, as the reference does) for gemma."""
-    x = params["embed"][tokens].to(cfg.dtype)
+    (rounded to the compute dtype, as the reference does) for gemma;
+    under ``tp`` from the rank's vocab rows (``vocab_embed``)."""
+    if tp is not None:
+        x = tpm.vocab_embed(params["embed"], tokens, tp).to(cfg.dtype)
+    else:
+        x = params["embed"][tokens].to(cfg.dtype)
     if cfg.scale_embed:
         x = x * layers.const(math.sqrt(cfg.d_model), torch.float32,
                              x.device).to(cfg.dtype)
@@ -404,15 +419,25 @@ def _embed(params: Params, cfg: ModelConfig,
 
 
 def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                prefix_embeds: Optional[torch.Tensor] = None
+                prefix_embeds: Optional[torch.Tensor] = None,
+                tp: Optional[tpm.TensorParallel] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``tokens (b, t)`` -> ``(final hidden states (b, P + t, d_model),
     the MoE load-balance loss summed over the layers)`` (the reference's
     ``forward``; the loss is 0 outside the MoE family).
     ``prefix_embeds (b, P, d_model)`` (a stub frontend's patch
     embeddings), in the compute dtype and through ``prefix_proj`` where
-    the model has it, go before the token embeddings."""
-    x = _embed(params, cfg, tokens)
+    the model has it, go before the token embeddings.
+
+    ``tp`` (a ``tensor_parallel.TensorParallel``): ``params`` are the
+    rank's blocks under ``sharding.params_pspecs`` and the layers are
+    tensor parallel; the dense family without a prefix only (the other
+    families' layers and the prefix are ROADMAP A9c).  The hidden states
+    come out the same on every rank."""
+    if tp is not None and (cfg.family != "dense"
+                           or prefix_embeds is not None):
+        raise NotImplementedError(_TP_LATER)
+    x = _embed(params, cfg, tokens, tp)
     if prefix_embeds is not None:
         pe = prefix_embeds.to(cfg.dtype)
         if "prefix_proj" in params:
@@ -422,7 +447,7 @@ def forward_aux(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     if cfg.family in ("dense", "moe"):
         for l, w in enumerate(cfg.layer_windows()):
             x, aux = layer(cfg, lambda x, l=l, w=w: _block(params, l, x, cfg,
-                                                           w), x)
+                                                           w, tp), x)
             if aux is not None:
                 auxes.append(aux)
     elif cfg.family == "rwkv":
@@ -449,18 +474,21 @@ def forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor,
-            prefix_embeds: Optional[torch.Tensor] = None
+            prefix_embeds: Optional[torch.Tensor] = None,
+            tp: Optional[tpm.TensorParallel] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy over the text positions (the prefix's
     are dropped) through ``lm_head_weight``, plus ``AUX_WEIGHT`` times the
     MoE load-balance loss: ``(loss, {"xent", "moe_aux"})``.  The router's
-    z-loss is computed and not added, as in the reference."""
-    h, aux = forward_aux(params, cfg, tokens, prefix_embeds)
+    z-loss is computed and not added, as in the reference.  ``tp``:
+    ``forward_aux``'s, the head's vocab split over the group; the loss is
+    the same on every rank."""
+    h, aux = forward_aux(params, cfg, tokens, prefix_embeds, tp)
     if prefix_embeds is not None:
         h = h[:, prefix_embeds.shape[1]:]
     xent = layers.chunked_softmax_xent(
         h, lm_head_weight(params, cfg), labels, chunk=cfg.xent_chunk,
-        logit_softcap=cfg.final_softcap, valid_vocab=cfg.vocab,
+        logit_softcap=cfg.final_softcap, valid_vocab=cfg.vocab, tp=tp,
     )
     return xent + AUX_WEIGHT * aux, {"xent": xent, "moe_aux": aux}
 

@@ -1493,3 +1493,129 @@ def test_two_gloo_ranks_on_one_card_match_the_kernel_path(dev, tmp_path):
             assert int(p[f"{variant}/sizes"].max()) <= 3 * 4096 + 77
     for p in parts:  # each rank launched the UpComs, quantizer, updates
         assert all(int(v) > 0 for v in p["launches"])
+
+
+# --------------------------------------------------------------------------
+# the coordinate-table forms (model-sharded blocks)
+# --------------------------------------------------------------------------
+
+
+def _at_group(dev, n=5, seed=3):
+    """A kind group of three blocks: rank 1's of a (6, 100) leaf split on
+    dim 0, rank 0's of a (5, 64) leaf split on dim 1 and a whole (29,)
+    leaf, each block's chunks straddling the split; its leaves
+    ``(index, offset, size)``, global sizes, coordinates, a workspace
+    with +inf, -inf and NaN, and positive scales over the global chunks."""
+    from repro_torch.dist import sharding, wire
+
+    blocks = [((6, 100), (True, False), 1), ((5, 64), (False, True), 0),
+              ((29,), (False,), 0)]
+    leaves, gdims, ks, o = [], [], [], 3
+    for i, (shape, spec, m) in enumerate(blocks):
+        k = sharding.shard_coords(shape, spec, 2, m)
+        k = (np.arange(int(np.prod(shape))) if k is None
+             else k.numpy())
+        leaves.append((i + 2, o, k.size))
+        gdims.append(int(np.prod(shape)))
+        ks.append(k)
+        o += k.size + 5
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, o)).astype(np.float32)
+    x[0, 10] = np.inf
+    x[2, 200] = -np.inf
+    x[3, 333] = np.nan
+    nc = sum(wire.n_chunks(G) for G in gdims)
+    scales = rng.uniform(0.001, 0.05, size=(n, nc)).astype(np.float32)
+    coords = torch.from_numpy(np.concatenate(ks).astype(np.int64)).to(dev)
+    return (leaves, gdims, coords, torch.from_numpy(x).to(dev),
+            torch.from_numpy(scales).to(dev))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_wire_quantize_at_kernel_matches_plain(dev, kind):
+    """The UpCom and the DownCom of the coordinate-table form bitwise
+    against ``ref.wire_pack``/``ref.wire_down`` with the same coordinates
+    and scales; the UpCom's scales come back poisoned where a row's chunk
+    holds a nonfinite value, the input scales untouched."""
+    from repro_torch.kernels import wire_pack
+
+    leaves, gdims, coords, x, scales = _at_group(dev)
+    kw = dict(coords=coords, scales=scales, gdims=gdims)
+    before = _build.launch_counts["wire_quantize_at"]
+    keep = scales.clone()
+    codes, sc = wire_pack.pack_int(x, leaves, kind, 0x5EED, row0=3, **kw)
+    codes_p, sc_p = ref.wire_pack(x, leaves, kind, 0x5EED, 3, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, codes_p)
+    assert torch.equal(sc.isnan(), sc_p.isnan()) and int(sc.isnan().sum())
+    assert torch.equal(torch.nan_to_num(sc), torch.nan_to_num(sc_p))
+    assert torch.equal(scales, keep)
+    row = x[1].clone()
+    row[17] = float("nan")
+    got, want = row.clone(), row.clone()
+    dkw = dict(kw, scales=scales[:1].contiguous())
+    wire_pack.quantize_down(got, leaves, kind, 0x5EED, **dkw)
+    ref.wire_down(want, leaves, kind, 0x5EED, **dkw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    assert _build.launch_counts["wire_quantize_at"] == before + 2
+
+
+@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("d", [4096 + 512, 4096 + 77])
+def test_masked_sum_dequant_at_kernel_matches_plain(dev, counts, d):
+    """The scale-column form bitwise against the plain version with the
+    same table, on the 16-byte path (d % 4 == 0) and off it; an idle
+    row's NaN scales never leak."""
+    rng = np.random.default_rng(d)
+    n, nc = 5, 40
+    codes = torch.from_numpy(rng.integers(-127, 128, size=(n, d)).astype(
+        np.int8)).to(dev)
+    scales = torch.from_numpy(rng.uniform(0.001, 0.05, size=(n, nc)).astype(
+        np.float32)).to(dev)
+    scales[1] = float("nan")
+    col = torch.from_numpy(np.sort(rng.integers(0, nc, size=d)).astype(
+        np.int32)).to(dev)
+    band = torch.from_numpy(rng.integers(0, M, size=d).astype(np.int32)).to(
+        dev)
+    slot = torch.tensor([2, -1, 0, 3, 1], dtype=torch.int32, device=dev)
+    lo = (0, d // 3, d)
+    name = "masked_sum_dequant" + ("_counts" if counts else "") + "_at"
+    before = _build.launch_counts[name]
+    got = uplink.masked_sum_dequant(codes, scales, lo, slot, band, M, S,
+                                    counts=counts, chunk_col=col)
+    want = ref.masked_sum_dequant(codes, scales, torch.tensor(lo, device=dev),
+                                  slot, band, M, S, counts=counts,
+                                  chunk_col=col)
+    torch.cuda.synchronize()
+    for a, b in zip(got if counts else (got,), want if counts else (want,)):
+        assert torch.equal(a, b)
+    assert _build.launch_counts[name] == before + 1
+
+
+def test_the_old_wire_forms_launch_as_before(dev):
+    """Without the tables the quantizer and the dequantizing UpCom launch
+    their old kernels, counted under their old names, bitwise as their
+    plain versions; the table forms' counts stay put."""
+    from repro_torch.kernels import wire_pack
+
+    x, _, band, slot = _inputs(dev, 4)
+    x = x.nan_to_num()
+    leaves = [(0, 0, 1000), (1, 1000, D - 1000)]
+    names = ("wire_quantize", "wire_quantize_at", "masked_sum_dequant",
+             "masked_sum_dequant_at")
+    before = {k: _build.launch_counts[k] for k in names}
+    codes, scales = wire_pack.pack_int(x, leaves, "int8", 7)
+    codes_p, scales_p = ref.wire_pack(x, leaves, "int8", 7)
+    lo = (0, 1000, D)
+    bar = uplink.masked_sum_dequant(codes, scales, lo, slot, band, M, S)
+    bar_p = ref.masked_sum_dequant(codes, scales,
+                                   torch.tensor(lo, device=dev), slot, band,
+                                   M, S)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, codes_p) and torch.equal(scales, scales_p)
+    assert torch.equal(bar, bar_p)
+    after = {k: _build.launch_counts[k] - before[k] for k in names}
+    assert after == {"wire_quantize": 1, "wire_quantize_at": 0,
+                     "masked_sum_dequant": 1, "masked_sum_dequant_at": 0}

@@ -1,6 +1,6 @@
 """The data-parallel round (ROADMAP A9a) on gloo ranks on the CPU against
 the port's one-process round, the ``--data-parallel`` CLI, and the paths
-that are not ported over ranks (A9b), which raise.
+that are not ported over ranks (A9c, A9d), which raise.
 
 * ``rounds.run_rounds(group=)`` on 2 ranks (``sharding.spawn``, one
   intra-op thread each): 3 rounds of the reduced gemma2-2b at n = 4, c =
@@ -20,11 +20,12 @@ that are not ported over ranks (A9b), which raise.
   the state's on the card at full width).
 * ``python -m repro_torch.launch.train --data-parallel 2`` against
   ``--data-parallel 1``: the same logged rows and final loss.
-* No fallback: ``--model-parallel 2``, ``--dist-backend nccl`` on the CPU,
-  ``--reputation`` and ``--checkpoint-dir`` over ranks exit with an
-  error; nccl with more ranks than cards raises; the plain comm impls,
-  the reputation, checkpoints and the pipelined driver with a group
-  raise naming A9b; a rank that fails fails the spawn.
+* No fallback: ``--model-parallel 2`` on the MoE family (A9c),
+  ``--dist-backend nccl`` on the CPU, ``--reputation`` and
+  ``--checkpoint-dir`` over ranks exit with an error; nccl with more
+  ranks than cards raises; the plain comm impls, the reputation,
+  checkpoints and the pipelined driver with a group raise naming A9d; a
+  rank that fails fails the spawn.
 """
 
 import csv
@@ -226,15 +227,15 @@ def test_cli_data_parallel_matches_one_process(tmp_path):
 
 
 @pytest.mark.parametrize("args,needle", [
-    (["--model-parallel", "2"], "A9b"),
+    (["--model-parallel", "2", "--arch", "qwen2-moe-a2.7b"], "A9c"),
     (["--data-parallel", "2", "--dist-backend", "nccl"], "nccl"),
     (["--data-parallel", "2", "--adversary", "sign_flip", "--f-byz",
-      "0.25", "--reputation"], "A9b"),
-    (["--data-parallel", "2", "--checkpoint-dir", "ckpt"], "A9b"),
-    (["--data-parallel", "2", "--comm-impl", "ws"], "A9b"),
-    (["--data-parallel", "2", "--pipeline"], "A9b"),
+      "0.25", "--reputation"], "A9d"),
+    (["--data-parallel", "2", "--checkpoint-dir", "ckpt"], "A9d"),
+    (["--data-parallel", "2", "--comm-impl", "ws"], "A9d"),
+    (["--data-parallel", "2", "--pipeline"], "A9d"),
     (["--data-parallel", "2", "--adversary", "inlier", "--f-byz", "0.25"],
-     "A9b"),
+     "A9d"),
 ])
 def test_cli_refuses_what_is_not_ported(args, needle, capsys):
     from repro_torch.launch import train
@@ -269,7 +270,7 @@ def test_rank_rows_follow_the_reference_convention():
 
 def test_not_ported_over_ranks_raises():
     """With a group: the plain comm impls, the reputation, checkpoints and
-    the pipelined driver raise naming A9b (a one-rank group, no process
+    the pipelined driver raise naming A9d (a one-rank group, no process
     group needed to reach the checks)."""
     n = 4
     cfg = registry.get_reduced_config("gemma2-2b")
@@ -277,7 +278,7 @@ def test_not_ported_over_ranks_raises():
     for impl in ("ws", "dense"):
         tcfg = tamuna_dp.DistTamunaConfig(gamma=0.05, c=3, s=2, p=0.34,
                                           comm_impl=impl)
-        with pytest.raises(ValueError, match="A9b"):
+        with pytest.raises(ValueError, match="A9d"):
             tamuna_dp.make_comm_step(cfg, tcfg, n, device="cpu", group=g)
     tcfg = tamuna_dp.DistTamunaConfig(gamma=0.05, c=3, s=2, p=0.34)
     state = tamuna_dp.init_state(cfg, tcfg, n, seed=0, device="cpu",
@@ -288,18 +289,18 @@ def test_not_ported_over_ranks_raises():
     common = dict(cfg=cfg, tcfg=tcfg, pipe=pipe, rounds=1,
                   rng=np.random.default_rng(0),
                   generator=torch.Generator().manual_seed(1), group=g)
-    with pytest.raises(ValueError, match="A9b"):
+    with pytest.raises(ValueError, match="A9d"):
         rounds.run_rounds(state, reputation=True,
                           plan=cohort.CohortPlan(0, n, 3),
                           faults=faults.FaultPlan(seed=0, n=n,
                                                   adversary="sign_flip",
                                                   f_byz=0.25), **common)
-    with pytest.raises(ValueError, match="A9b"):
+    with pytest.raises(ValueError, match="A9d"):
         rounds.run_rounds(state, checkpoint_dir="ckpt", checkpoint_every=1,
                           **common)
     engine = rounds.make_pipelined_round_fn(cfg, tcfg, n, pipe=pipe,
                                             device="cpu", group=g)
-    with pytest.raises(ValueError, match="A9b"):
+    with pytest.raises(ValueError, match="A9d"):
         rounds.run_rounds_pipelined(state, round_fn=engine, rounds=1,
                                     rng=np.random.default_rng(0),
                                     generator=torch.Generator(), p=0.34)
