@@ -32,9 +32,12 @@ It imports nothing of jax or of the JAX package ``repro``, and in order:
    its bound, and in int8 and int4 on rows 2-3 alone with ``row0`` = 2 (a
    rank's rows: the whole pack's rows, bitwise); the coordinate-table
    forms at ``[comm_tp]``'s shapes (model rank 0's blocks of the ``auto``
-   wire's int8 group, ``(4, 372,768,768)``): ``wire_quantize_at`` (UpCom
-   with nonfinite entries, DownCom) with ``comm_ws._group_scales``' scales
-   and ``masked_sum_dequant`` in both forms with the scale-column table;
+   wire's int8 group, ``(4, 372,768,768)``, whole 256-runs):
+   ``chunk_max_at`` (the scales' chunk maxima, on 4 rows and on one) and
+   ``wire_quantize_at`` (UpCom with nonfinite entries, DownCom) with the
+   scales of those maxima, again on a block of runs of 300 (rank 0's
+   columns of a (262144, 600) leaf: the kernels' general form), and
+   ``masked_sum_dequant`` in both forms with the scale-column table;
    every UpCom (``masked_sum`` in both forms and every lane,
    ``robust_sum``, ``masked_sum_dequant``) with its share of the byte bound
    and of the sector floor (the owning rows' entries in whole 32-byte
@@ -459,6 +462,10 @@ COMM_TP = (
     ("trimmed", 4, 3, dict(robust_agg="trimmed", trim_k=1), [0, 1, 2, 3],
      [3, 0, 2, 1], None),
 )
+# the table forms' general case on the card: model rank 0's columns of a
+# (262144, 600) leaf, 78,643,200 columns in runs of 300 (no whole 256-runs;
+# [comm_tp]'s int8 blocks are all whole runs)
+WIRE_AT_GENERAL = ((262144, 600), (False, True))
 # [train_tp]'s first member step: the loss and each gradient leaf no
 # farther from the one process's than this many times the one process's
 # own distance to float64 (the reduced model at bf16 on the CPU: at most
@@ -4764,16 +4771,129 @@ def from_blocks(blocks, cfg, tcfg, mp: int) -> torch.Tensor:
     return out
 
 
+def at_bytes(leaves, runs) -> int:
+    """The coordinate table's least bytes for a kind group's blocks: one
+    8-byte coordinate per 256-run of a whole-run block, one per column of
+    any other."""
+    from repro_torch.dist import wire
+
+    return sum(8 * (D // wire.CHUNK if r else D)
+               for (_, _, D), r in zip(leaves, runs))
+
+
+def check_wire_at_group(tag, x, leaves, coords, gdims, runs, dev):
+    """The table forms' two kernels on one kind group's blocks ``x`` (rows
+    with +inf, -inf and NaN) against their plain versions: the chunk
+    maxima (``chunk_max_at``) on every row and on the last alone, then the
+    quantizer (``wire_quantize_at``) on every row with the scales of those
+    maxima (UpCom) and on the last row with a NaN more, in place
+    (DownCom); each bitwise, the poisoned scales included.  Prints and
+    returns their times, plain times and byte bounds."""
+    from repro_torch.dist import wire
+    from repro_torch.kernels import ref, wire_pack
+
+    n = x.shape[0]
+    dg = sum(D for _, _, D in leaves)
+    L = len(leaves)
+    nc = sum(wire.n_chunks(G) for G in gdims)
+    cb = at_bytes(leaves, runs) + 8 * (8 * L + 1)  # coordinates, tables
+    kw = dict(coords=coords, gdims=gdims, runs=runs)
+    res = {}
+
+    def maxima(rows):
+        return wire_pack.chunk_max_at(rows, leaves, **kw)
+
+    def plain_maxima(rows):
+        return ref.chunk_max_group(
+            rows, leaves, coords, gdims, runs,
+            torch.zeros(rows.shape[0], nc, dtype=torch.float32, device=dev))
+
+    row = x[-1].clone()
+    row[leaves[0][1] + 3::1000] = float("nan")
+    errs = []
+    for name, rows in (("up", x), ("down", row[None])):
+        got, want = maxima(rows), plain_maxima(rows)
+        torch.cuda.synchronize()
+        errs.append(max_abs_err(got, want))
+        del got, want
+    mx = maxima(x)
+    scales = wire.scales_of_max(mx, "int8")
+    del mx
+    codes, sc = wire_pack.pack_int(x, leaves, "int8", 0x5EED, scales=scales,
+                                   **kw)
+    codes_p, sc_p = ref.wire_pack(x, leaves, "int8", 0x5EED, coords=coords,
+                                  scales=scales, gdims=gdims)
+    torch.cuda.synchronize()
+    errs += [max_abs_err(codes, codes_p), max_abs_err(sc, sc_p)]
+    n_bad = int(sc.isnan().sum())
+    del codes, sc, codes_p, sc_p
+    dscales = wire.scales_of_max(maxima(row[None]), "int8")
+    got, want = row.clone(), row.clone()
+    dkw = dict(kw, scales=dscales)
+    wire_pack.quantize_down(got, leaves, "int8", 0x5EED, **dkw)
+    ref.wire_down(want, leaves, "int8", 0x5EED, coords=coords,
+                  scales=dscales, gdims=gdims)
+    torch.cuda.synchronize()
+    errs.append(max_abs_err(got, want))
+    res["max_abs_err"] = max(errs)
+    if res["max_abs_err"] != 0.0 or n_bad == 0:
+        raise AssertionError(f"[check] the table forms on {tag}: max abs "
+                             f"errs {errs} (maxima up, down; codes, "
+                             f"scales; DownCom), {n_bad} poisoned scales")
+    res["max_ms"] = cuda_ms(lambda: maxima(x), 5)
+    res["max_plain_ms"] = cuda_ms(lambda: plain_maxima(x), 2)
+    # x read once, the coordinates, each (row, chunk) maximum read and
+    # written
+    res["max_bound_ms"] = bound_ms(4 * n * dg + cb + 8 * n * nc)
+    res["max_down_ms"] = cuda_ms(lambda: maxima(row[None]), 5)
+    res["max_down_bound_ms"] = bound_ms(4 * dg + cb + 8 * nc)
+    kwu = dict(kw, scales=scales)
+    res["up_ms"] = cuda_ms(lambda: wire_pack.pack_int(
+        x, leaves, "int8", 0x5EED, **kwu), 5)
+    res["up_plain_ms"] = cuda_ms(lambda: ref.wire_pack(
+        x, leaves, "int8", 0x5EED, coords=coords, scales=scales,
+        gdims=gdims), 2)
+    # x read, the coordinates, the scales read and their copy written,
+    # codes written
+    res["up_bound_ms"] = bound_ms(5 * n * dg + cb + 12 * n * nc)
+    res["down_ms"] = cuda_ms(lambda: wire_pack.quantize_down(
+        got, leaves, "int8", 0x5EED, **dkw), 5)
+    res["down_plain_ms"] = cuda_ms(lambda: ref.wire_down(
+        want, leaves, "int8", 0x5EED, coords=coords, scales=dscales,
+        gdims=gdims), 2)
+    res["down_bound_ms"] = bound_ms(8 * dg + cb + 4 * nc)
+    for k in ("max", "max_down", "up", "down"):
+        res[f"{k}_share"] = res[f"{k}_bound_ms"] / res[f"{k}_ms"]
+    print(f"[check] {tag}: both kernels bitwise their plain versions "
+          f"({n_bad} poisoned chunk scales of {n * nc}); chunk maxima "
+          f"({n} rows) {res['max_ms']:.3f} ms ({res['max_share']:.1%} of its "
+          f"bound {res['max_bound_ms']:.3f} ms; plain "
+          f"{res['max_plain_ms']:.3f}), one row {res['max_down_ms']:.3f} ms "
+          f"({res['max_down_share']:.1%} of {res['max_down_bound_ms']:.3f});"
+          f" quantizer UpCom {res['up_ms']:.3f} ms ({res['up_share']:.1%} of "
+          f"{res['up_bound_ms']:.3f}; plain {res['up_plain_ms']:.3f}), DownCom"
+          f" {res['down_ms']:.3f} ms ({res['down_share']:.1%} of "
+          f"{res['down_bound_ms']:.3f}; plain {res['down_plain_ms']:.3f})",
+          flush=True)
+    del scales, dscales, got, want, row
+    return res
+
+
 def check_wire_at_kernels(cfg, dev):
     """The coordinate-table forms of the int wire's kernels against their
     plain versions at ``[comm_tp]``'s shapes: model rank 0's blocks (of
     ``TP_MP``) of the ``auto`` wire's int8 group of 2-layer gemma2-2b, on
-    ``(N, d_g)``: ``wire_quantize`` (UpCom, rows with +inf, -inf and NaN,
-    and the DownCom) with the scales of ``comm_ws._group_scales``, and
+    ``(N, d_g)`` (whole 256-runs, one coordinate per run):
+    ``chunk_max_at`` (the scales' chunk maxima, on N rows and on one) and
+    ``wire_quantize_at`` (UpCom, rows with +inf, -inf and NaN, and the
+    DownCom) with the scales of those maxima
+    (``check_wire_at_group``); the same on a synthetic block that is no
+    whole runs (``WIRE_AT_GENERAL``: rank 0's columns of a (262144, 600)
+    leaf, runs of 300), the kernels' general form; and
     ``masked_sum_dequant`` in both forms with the scale-column table.
     Each bitwise; returns their records."""
-    from repro_torch.dist import comm_ws, tamuna_dp
-    from repro_torch.kernels import ref, uplink, wire_pack
+    from repro_torch.dist import comm_ws, sharding, tamuna_dp, wire
+    from repro_torch.kernels import ref, uplink
 
     tcfg = tamuna_dp.DistTamunaConfig(gamma=GAMMA, c=C, s=S, p=P)
     mesh = tp_mesh_like(TP_MP, 0)
@@ -4786,7 +4906,7 @@ def check_wire_at_kernels(cfg, dev):
                              gdims=gspec.dims, coords=coords)
     grp = next(g for g in plan if g.kind == "int8")
     d, dg = spec.d_total, grp.leaf_lo[-1]
-    nc = grp.scale_lo[-1]
+    nc = sum(wire.n_chunks(G) for G in grp.gdims)
     L = len(grp.leaves)
     print(f"[check] the coordinate-table forms at [comm_tp]'s int8 group: "
           f"model rank 0 of {TP_MP}, {L} blocks, {dg} of {d} columns, {nc} "
@@ -4794,60 +4914,50 @@ def check_wire_at_kernels(cfg, dev):
     g = torch.Generator(device=dev).manual_seed(7)
     recs = []
 
-    # -- wire_quantize_at: UpCom on (N, d), then the DownCom -------------
+    # -- chunk_max_at and wire_quantize_at: [comm_tp]'s group, then the
+    # general form on a block of runs of 300 ---------------------------
     x = torch.randn(N, d, generator=g, device=dev)
     x[0, ::1000] = float("inf")
     x[2, 500::1000] = float("-inf")
     x[3, 7::999_983] = float("nan")
-    scales = comm_ws._group_scales(x, grp)
-    kw = dict(coords=grp.coords, scales=scales, gdims=grp.gdims)
-    codes, sc = wire_pack.pack_int(x, grp.leaves, "int8", 0x5EED, **kw)
-    codes_p, sc_p = ref.wire_pack(x, grp.leaves, "int8", 0x5EED, **kw)
-    torch.cuda.synchronize()
-    err = max(max_abs_err(codes, codes_p), max_abs_err(sc, sc_p))
-    n_bad = int(sc.isnan().sum())
-    if err != 0.0 or n_bad == 0:
-        raise AssertionError(f"wire_quantize_at: max abs err {err}, {n_bad} "
-                             "poisoned chunks")
-    del codes_p, sc_p
-    up_ms = cuda_ms(lambda: wire_pack.pack_int(x, grp.leaves, "int8",
-                                               0x5EED, **kw), 5)
-    up_plain_ms = cuda_ms(lambda: ref.wire_pack(x, grp.leaves, "int8",
-                                                0x5EED, **kw), 2)
-    # x read, coordinates read once, the scales read and their copy
-    # written, codes written, the leaf tables read
-    up_bound = bound_ms(5 * N * dg + 8 * dg + 12 * N * nc + 48 * L)
-    row = x[1].clone()
-    row[3::1000] = float("nan")
-    dscales = comm_ws._group_scales(row[None], grp)
-    dkw = dict(coords=grp.coords, scales=dscales, gdims=grp.gdims)
-    got, want = row.clone(), row.clone()
-    wire_pack.quantize_down(got, grp.leaves, "int8", 0x5EED, **dkw)
-    ref.wire_down(want, grp.leaves, "int8", 0x5EED, **dkw)
-    torch.cuda.synchronize()
-    err_down = max_abs_err(got, want)
-    if err_down != 0.0:
-        raise AssertionError(f"wire_quantize_at DownCom: max abs err "
-                             f"{err_down}")
-    down_ms = cuda_ms(lambda: wire_pack.quantize_down(
-        got, grp.leaves, "int8", 0x5EED, **dkw), 5)
-    down_plain_ms = cuda_ms(lambda: ref.wire_down(
-        want, grp.leaves, "int8", 0x5EED, **dkw), 2)
-    down_bound = bound_ms(8 * dg + 8 * dg + 4 * nc + 48 * L)
-    scale_ms = cuda_ms(lambda: comm_ws._group_scales(x, grp), 3)
-    print(f"[check] wire_quantize_at: {n_bad} poisoned chunk scales of "
-          f"{N * nc}; UpCom {up_ms:.3f} ms ({up_bound / up_ms:.1%} of its "
-          f"bound {up_bound:.3f} ms), DownCom {down_ms:.3f} ms "
-          f"({down_bound / down_ms:.1%} of {down_bound:.3f} ms); the "
-          f"scales' chunk maxima (plain torch) {scale_ms:.3f} ms")
+    tp = check_wire_at_group("[comm_tp]'s int8 group", x, grp.leaves,
+                             grp.coords, grp.gdims, grp.runs, dev)
+    del x
+    torch.cuda.empty_cache()
+    shape, split = WIRE_AT_GENERAL
+    kg = sharding.shard_coords(shape, split, 2, 0).to(dev)
+    G = shape[0] * shape[1]
+    x = torch.randn(N, kg.numel(), generator=g, device=dev)
+    x[0, ::1000] = float("inf")
+    x[2, 500::1000] = float("-inf")
+    x[3, 7::999_983] = float("nan")
+    leaves_g = ((0, 0, kg.numel()),)
+    runs_g = (comm_ws.whole_chunks(kg),)
+    assert runs_g == (False,)
+    gen = check_wire_at_group(
+        f"a block of runs of {shape[1] // 2} (rank 0's columns of a "
+        f"{shape} leaf)", x, leaves_g, kg, (G,), runs_g, dev)
+    del x, kg
+    torch.cuda.empty_cache()
+    err = max(tp["max_abs_err"], gen["max_abs_err"])
+    up = ("up_ms", "up_plain_ms", "up_bound_ms", "up_share", "down_ms",
+          "down_plain_ms", "down_bound_ms", "down_share")
+    mx = ("max_ms", "max_plain_ms", "max_bound_ms", "max_share",
+          "max_down_ms", "max_down_bound_ms", "max_down_share")
     recs.append({
-        "name": "wire_quantize_at", "shape": [N, dg], "max_abs_err":
-        max(err, err_down), "tolerance": 0.0, "ms": up_ms,
-        "plain_ms": up_plain_ms, "down_ms": down_ms,
-        "down_plain_ms": down_plain_ms, "bound_ms": up_bound,
-        "down_bound_ms": down_bound, "scales_ms": scale_ms,
+        "name": "wire_quantize_at", "shape": [N, dg], "max_abs_err": err,
+        "tolerance": 0.0, "ms": tp["up_ms"], "plain_ms": tp["up_plain_ms"],
+        "bound_ms": tp["up_bound_ms"],
+        **{k: tp[k] for k in up[4:]},
+        **{f"general_{k}": gen[k] for k in up},
     })
-    del x, codes, sc, scales, row, got, want, dscales
+    recs.append({
+        "name": "chunk_max_at", "shape": [N, dg], "max_abs_err": err,
+        "tolerance": 0.0, "ms": tp["max_ms"], "plain_ms": tp["max_plain_ms"],
+        "bound_ms": tp["max_bound_ms"],
+        **{k: tp[k] for k in mx[4:]},
+        **{f"general_{k}": gen[k] for k in mx},
+    })
 
     # -- masked_sum_dequant with the scale-column table, both forms -------
     band_g = grp.band
@@ -5572,6 +5682,10 @@ def main(argv=None) -> int:
         # the coordinate-table forms: model-sharded blocks
         "wire_quantize_at": ("src/repro/dist/wire.py:245 quantize_to_int, "
                              "src/repro/dist/wire.py:221 quantize", "comm_tp"),
+        # the chunk maxima of those scales (the reference's jnp
+        # scatter-max; no Pallas kernel)
+        "chunk_max_at": ("src/repro/dist/wire.py:180 leaf_scales_at",
+                         "comm_tp"),
         "masked_sum_dequant_at": ("src/repro/kernels/uplink.py:80",
                                   "comm_tp"),
         "masked_sum_dequant_counts_at": ("src/repro/kernels/uplink.py:94",

@@ -44,6 +44,8 @@ PHASES = {
     # the kernels past the staged limits, timed on this file's inputs
     # (time_domain below): any tree's wrappers, parent or change
     "domain": "time_domain(dev)",
+    # the model-sharded int wire's scales and quantizer (time_wire_at)
+    "wire_at": "time_wire_at(dev)",
 }
 
 # h_update past 4096 rows at a population's size: 8192 clients, a cohort
@@ -142,6 +144,82 @@ def time_domain(smoke: dict, dev) -> None:
         del a
         torch.cuda.empty_cache()
 
+def time_wire_at(smoke: dict, dev) -> None:
+    """The coordinate-table form of the int wire through the wrappers of
+    the tree whose ``chip_smoke.py`` gave ``smoke``, on
+    ``chip_smoke.check_wire_at_kernels``' shapes: ``[comm_tp]``'s int8
+    group (model rank 0's blocks of 2-layer gemma2-2b, ``N`` rows) and a
+    block of runs of 300 (``WIRE_AT_GENERAL``, this file's copy, so a
+    parent tree needs none), each with nonfinite entries: the scales
+    (``comm_ws._group_scales``, the chunk maxima then
+    ``wire.scales_of_max``), the UpCom quantizer (``pack_int``) and the
+    DownCom (``quantize_down``).  A tree whose ``pack_int`` takes
+    ``runs`` gets the plan's whole-run flags.  ms per call (CUDA events,
+    5 calls after a warm-up)."""
+    import inspect
+
+    import torch
+    from repro_torch.dist import comm_ws, sharding, tamuna_dp
+    from repro_torch.kernels import wire_pack
+
+    cuda_ms, N = smoke["cuda_ms"], smoke["N"]
+    cfg = smoke["TWO_LAYERS"]
+    tcfg = tamuna_dp.DistTamunaConfig(gamma=smoke["GAMMA"], c=smoke["C"],
+                                      s=smoke["S"], p=smoke["P"])
+    mp = smoke["TP_MP"]
+    mesh = smoke["tp_mesh_like"](mp, 0)
+    spec = tamuna_dp.state_spec(cfg, tcfg, mesh)
+    gspec = tamuna_dp.state_spec(cfg, tcfg)
+    coords = tamuna_dp.block_coords(cfg, spec, mesh, dev)
+    band = comm_ws.band_of_blocks(spec.dims, gspec.dims, coords, "cyclic",
+                                  smoke["C"], smoke["S"], dev)
+    plan = comm_ws.wire_plan(spec.dims, "auto", smoke["C"], smoke["S"],
+                             band, ids=spec.ids, gdims=gspec.dims,
+                             coords=coords)
+    grp = next(g for g in plan if g.kind == "int8")
+    del plan, band, coords
+    shape, split = WIRE_AT_GENERAL
+    kg = sharding.shard_coords(shape, split, mp, 0).to(dev)
+    flags = "runs" in inspect.signature(wire_pack.pack_int).parameters
+    g = torch.Generator(device=dev).manual_seed(7)
+    for tag, d, make in (
+            ("comm_tp", spec.d_total, lambda: grp),
+            ("runs_300", kg.numel(), lambda: comm_ws.WireGroup(
+                kind="int8", leaves=((0, 0, kg.numel()),),
+                leaf_lo=(0, kg.numel()), band=torch.empty(0), whole=False,
+                gdims=(shape[0] * shape[1],), coords=kg, runs=(False,)))):
+        grp_ = make()
+        x = torch.randn(N, d, generator=g, device=dev)
+        x[0, ::1000] = float("inf")
+        x[2, 500::1000] = float("-inf")
+        x[3, 7::999_983] = float("nan")
+        row = x[-1].clone()
+        scales = comm_ws._group_scales(x, grp_)
+        dscales = comm_ws._group_scales(row[None], grp_)
+        kw = dict(coords=grp_.coords, gdims=grp_.gdims)
+        if flags:
+            kw["runs"] = grp_.runs
+        dg = grp_.leaf_lo[-1]
+        for name, fn in (
+                ("scales", lambda: comm_ws._group_scales(x, grp_)),
+                ("scales_down", lambda: comm_ws._group_scales(row[None],
+                                                              grp_)),
+                ("quantize_up", lambda: wire_pack.pack_int(
+                    x, grp_.leaves, "int8", 0x5EED, scales=scales, **kw)),
+                ("quantize_down", lambda: wire_pack.quantize_down(
+                    row, grp_.leaves, "int8", 0x5EED, scales=dscales,
+                    **kw))):
+            ms = cuda_ms(fn, 5)
+            rows = 1 if name.endswith("down") else N
+            print(f"[domain] wire_at {tag} {name} ({rows}, {dg}): {ms:.4f} "
+                  f"ms", flush=True)
+        del x, row, scales, dscales, grp_
+        torch.cuda.empty_cache()
+
+
+# the table forms' general case (chip_smoke.WIRE_AT_GENERAL)
+WIRE_AT_GENERAL = ((262144, 600), (False, True))
+
 CHILD = r"""
 import os, runpy, sys
 import torch
@@ -157,6 +235,7 @@ from repro_torch.kernels import _build
 
 phases = runpy.run_path(sys.argv[1], run_name="phases")
 smoke["time_domain"] = lambda dev: phases["time_domain"](smoke, dev)
+smoke["time_wire_at"] = lambda dev: phases["time_wire_at"](smoke, dev)
 path, secs, _ = _build.build()
 print(f"[build] {os.path.relpath(path, tree)} in {secs:.1f} s", flush=True)
 _build.load()

@@ -49,12 +49,13 @@ columns (``sharding.shard_coords``): its band comes from those
 (``cyclic_band_at``, ``block_band_at``; ``band_of_blocks`` assembles a
 row's), so every coordinate keeps the owners it has in the unsharded
 leaf, and its int wire draws at them with the scales of the whole leaf's
-chunks (``wire.leaf_scales_at``: a scatter-max over the block, then one
-``MAX`` over the model group per kind group), so the codes are the
-unsharded ones.  The kernels run on the block as on any row; only the
-quantizer and the dequantizing UpCom take the blocks' coordinate and
-scale-column tables (``wire_plan(coords=)``).  No sum runs over the model
-group: each coordinate's owners are the rows of one block column.
+chunks (``wire.leaf_scales_at``: the chunk maxima of the blocks, one
+kernel launch per kind group, then one ``MAX`` over the model group), so
+the codes are the unsharded ones.  The kernels run on the block as on any
+row; only the chunk maxima, the quantizer and the dequantizing UpCom take
+the blocks' coordinate and scale-column tables (``wire_plan(coords=)``).
+No sum runs over the model group: each coordinate's owners are the rows
+of one block column.
 
 ``cyclic_comm_leaves`` and ``blocked_comm_leaves`` are the reference's
 two plain implementations of each template, ``impl="ws"`` (the sparse
@@ -239,8 +240,9 @@ def band_of_blocks(dims: Sequence[int], gdims: Sequence[int],
 
 def whole_chunks(k: torch.Tensor) -> bool:
     """Whether a block's coordinates ``k`` are whole wire chunks in order,
-    each a run of 256 columns (``wire.chunk_max_at``'s fast form); reads
-    two flags back where ``k`` lies on the card (once, at plan time)."""
+    each a run of 256 columns (the table form kernels' whole-run flag, one
+    coordinate per run); reads two flags back where ``k`` lies on the card
+    (once, at plan time)."""
     C = wire_mod.CHUNK
     return (k.numel() % C == 0 and bool((k[::C] % C == 0).all())
             and bool((k[C - 1::C] - k[::C] == C - 1).all()))
@@ -281,15 +283,6 @@ class WireGroup:
     chunk_col: Optional[torch.Tensor] = None
     runs: Optional[Tuple[bool, ...]] = None
     model: object = None
-
-    @property
-    def scale_lo(self) -> Tuple[int, ...]:
-        """The coordinate form's ``L + 1`` starts of each leaf's global
-        chunks in the group's scales."""
-        lo = [0]
-        for G in self.gdims:
-            lo.append(lo[-1] + wire_mod.n_chunks(G))
-        return tuple(lo)
 
 
 def wire_plan(dims: Sequence[int], policy: Optional[str], c: int, s: int,
@@ -362,19 +355,13 @@ def wire_plan(dims: Sequence[int], policy: Optional[str], c: int, s: int,
 
 
 def _group_scales(x2: torch.Tensor, grp: WireGroup) -> torch.Tensor:
-    """The coordinate form's scales of a kind group: each leaf's chunk
-    maxima of its block of the ``(rows, d_total)`` rows ``x2`` maxed into
-    one ``(rows, nc_g)`` buffer, one ``MAX`` over the model group, then
+    """The coordinate form's scales of a kind group: the chunk maxima of
+    its leaves' blocks of the ``(rows, d_total)`` rows ``x2`` in one
+    ``(rows, nc_g)`` buffer (``wire_pack.chunk_max_at``, one launch for
+    the group), one ``MAX`` over the model group, then
     ``wire.scales_of_max``."""
-    slo = grp.scale_lo
-    mx = torch.zeros(x2.shape[0], slo[-1], dtype=torch.float32,
-                     device=x2.device)
-    for j, (_, o, D) in enumerate(grp.leaves):
-        g0 = grp.leaf_lo[j]
-        wire_mod.chunk_max_at(x2[:, o:o + D], grp.coords[g0:g0 + D],
-                              slo[j + 1] - slo[j],
-                              out=mx[:, slo[j]:slo[j + 1]],
-                              whole_chunks=grp.runs[j])
+    mx = wire_pack.chunk_max_at(x2, grp.leaves, coords=grp.coords,
+                                gdims=grp.gdims, runs=grp.runs)
     if grp.model is not None:
         grp.model.all_reduce(mx, "max")
     return wire_mod.scales_of_max(mx, grp.kind)
@@ -428,7 +415,7 @@ def _wire_upcom(xw: torch.Tensor, slot: torch.Tensor, c: int, s: int,
         # chunks, then codes at the global coordinates
         codes, scales = wire_pack.pack_int(
             xw, grp.leaves, grp.kind, seed, row0, coords=grp.coords,
-            scales=_group_scales(xw, grp), gdims=grp.gdims)
+            scales=_group_scales(xw, grp), gdims=grp.gdims, runs=grp.runs)
 
         def f32_cols(a, b):
             return compress.wire_dequant(
@@ -486,7 +473,8 @@ def _wire_downcom(x_bar: torch.Tensor, groups: Tuple[WireGroup, ...],
         if grp.coords is not None:
             wire_pack.quantize_down(
                 x_bar, grp.leaves, grp.kind, seed, coords=grp.coords,
-                scales=_group_scales(x_bar[None], grp), gdims=grp.gdims)
+                scales=_group_scales(x_bar[None], grp), gdims=grp.gdims,
+                runs=grp.runs)
             continue
         if grp.kind in wire_mod.LEVELS:
             wire_pack.quantize_down(x_bar, grp.leaves, grp.kind, seed)

@@ -187,27 +187,17 @@ def chunk_max_at(x2: torch.Tensor, coords: torch.Tensor, nc: int,
                  whole_chunks: bool = False) -> torch.Tensor:
     """The per-chunk max of the finite ``|x|`` of a block of a leaf whose
     columns are the leaf coordinates ``coords`` (``(d_local,)`` int64):
-    ``(rows, nc)``, or maxed into ``out`` (a ``(rows, nc)`` view, in
-    place).  Nonfinite entries count as 0.  ``whole_chunks`` (known on
-    the host): the block is whole 256-coordinate chunks in order, each a
-    run of 256 columns, so a reshape takes the max and the scatter writes
-    one value per chunk; otherwise a scatter-max per element.  Column
-    chunks bound the temporaries."""
-    from repro_torch.kernels.ref import column_chunks
+    ``(rows, nc)``, or maxed into ``out`` (a ``(rows, nc)`` view of
+    non-negative maxima, in place).  Nonfinite entries count as 0.
+    ``whole_chunks`` (known on the host): the block is whole
+    256-coordinate chunks in order, each a run of 256 columns.  The block
+    as a one-leaf group of ``kernels.wire_pack.chunk_max_at``: the kernel
+    on the card, ``kernels.ref.chunk_max_at`` on the CPU."""
+    from repro_torch.kernels import wire_pack
 
-    rows, d = x2.shape
-    if out is None:
-        out = torch.zeros(rows, nc, dtype=torch.float32, device=x2.device)
-    for cols in column_chunks(d):
-        xc = x2[:, cols]
-        a = torch.where(xc.isfinite(), xc.abs(), 0.0)
-        kk = coords[cols]
-        if whole_chunks:
-            a = a.reshape(rows, -1, CHUNK).amax(dim=2)
-            kk = kk[::CHUNK]
-        out.scatter_reduce_(1, (kk // CHUNK)[None].expand(rows, -1), a,
-                            "amax")
-    return out
+    return wire_pack.chunk_max_at(
+        x2, ((0, 0, x2.shape[1]),), coords=coords, gdims=(nc * CHUNK,),
+        runs=(whole_chunks,), out=out)
 
 
 def scales_of_max(mx: torch.Tensor, kind: str) -> torch.Tensor:

@@ -36,9 +36,10 @@ NVCC_FLAGS = (
 
 # one count per kernel instantiation: the UpComs per lane type, robust_sum
 # for s <= 16 and above, h_update in both forms up to 4096 rows and above,
-# the int wire's coordinate-table forms (``_at``, model-sharded blocks),
-# compress per float type and rank, decode attention per query and cache
-# type (bf16 queries on a bf16 cache, f32 queries on an f32 or a bf16 cache)
+# the int wire's coordinate-table forms (``_at``, model-sharded blocks) and
+# the chunk maxima of their scales (``chunk_max_at``), compress per float
+# type and rank, decode attention per query and cache type (bf16 queries on
+# a bf16 cache, f32 queries on an f32 or a bf16 cache)
 KERNELS = ("masked_sum", "masked_sum_f16", "masked_sum_bf16",
            "masked_sum_counts", "masked_sum_counts_f16",
            "masked_sum_counts_bf16", "masked_sum_dequant",
@@ -46,7 +47,7 @@ KERNELS = ("masked_sum", "masked_sum_f16", "masked_sum_bf16",
            "masked_sum_dequant_counts_at", "robust_sum", "robust_sum_large_s",
            "h_update", "h_update_covered", "h_update_large_n",
            "h_update_covered_large_n", "fused_local_step", "wire_quantize",
-           "wire_quantize_at",
+           "wire_quantize_at", "chunk_max_at",
            "compress_f64", "compress_f32", "compress_1d_f64",
            "compress_1d_f32", "decode_attention", "decode_attention_f32",
            "decode_attention_f32_bf16kv")
@@ -116,7 +117,9 @@ def load() -> ctypes.CDLL:
                                               p]
     lib.tamuna_wire_quantize.argtypes = [p, i64, i64, p, p, i32, i64,
                                          ctypes.c_uint32, f32, p, i64, p, i64,
-                                         p, i32, i64, p, p, i64, p, p]
+                                         p, i32, i64, p, p, p, p]
+    lib.tamuna_chunk_max_at.argtypes = [p, i64, i64, p, p, i32, i64, p, p,
+                                        p, i64, i64, p]
     pi = ctypes.POINTER(ctypes.c_int)
     lib.tamuna_robust_sum.argtypes = [p, p, p, p, p, i64, i64, i64, i32,
                                       i32, i32, i32, p, i64, p, pi]
@@ -135,6 +138,7 @@ def load() -> ctypes.CDLL:
                                             i32, i64, f32, f32, p]
     for fn in (lib.tamuna_masked_sum, lib.tamuna_masked_sum_counts,
                lib.tamuna_masked_sum_dequant, lib.tamuna_wire_quantize,
+               lib.tamuna_chunk_max_at,
                lib.tamuna_robust_sum, lib.tamuna_h_update,
                lib.tamuna_h_update_covered, lib.tamuna_local_step,
                lib.tamuna_compress, lib.tamuna_decode_attention):

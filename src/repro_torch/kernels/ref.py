@@ -31,7 +31,10 @@ in f32) or int8 wire codes with their per-chunk scales
 ``wire_pack`` (the UpCom codes and scales, ``wire.leaf_scales`` then
 ``wire.quantize_to_int``) and ``wire_down`` (the DownCom, ``wire.quantize``
 on one row with row id ``wire.DOWN_ROW``); a kind group's leaves are given
-as ``(leaf index, workspace offset, size)`` triples.
+as ``(leaf index, workspace offset, size)`` triples.  The chunk maxima of
+the scales of model-sharded blocks (``wire.leaf_scales_at`` before the
+model group's ``MAX``) are ``chunk_max_at``'s, a kind group's
+``chunk_max_group``'s.
 """
 
 from __future__ import annotations
@@ -241,6 +244,49 @@ def _at_leaves(leaves, gdims):
         yield li, o, D, g0, c0, G
         g0 += D
         c0 += wire.n_chunks(G)
+
+
+def chunk_max_at(x2: torch.Tensor, coords: torch.Tensor, nc: int,
+                 out: Optional[torch.Tensor] = None,
+                 whole_chunks: bool = False) -> torch.Tensor:
+    """The per-chunk max of the finite ``|x|`` of a block of a leaf whose
+    columns are the leaf coordinates ``coords`` (``(d_local,)`` int64):
+    ``(rows, nc)``, or maxed into ``out`` (a ``(rows, nc)`` view, in
+    place).  Nonfinite entries count as 0.  ``whole_chunks`` (known on
+    the host): the block is whole 256-coordinate chunks in order, each a
+    run of 256 columns, so a reshape takes the max and the scatter writes
+    one value per chunk; otherwise a scatter-max per element.  Column
+    chunks bound the temporaries."""
+    rows, d = x2.shape
+    if out is None:
+        out = torch.zeros(rows, nc, dtype=torch.float32, device=x2.device)
+    for cols in column_chunks(d):
+        xc = x2[:, cols]
+        a = torch.where(xc.isfinite(), xc.abs(), 0.0)
+        kk = coords[cols]
+        if whole_chunks:
+            a = a.reshape(rows, -1, wire.CHUNK).amax(dim=2)
+            kk = kk[::wire.CHUNK]
+        out.scatter_reduce_(1, (kk // wire.CHUNK)[None].expand(rows, -1), a,
+                            "amax")
+    return out
+
+
+def chunk_max_group(x: torch.Tensor, leaves: Sequence[Tuple[int, int, int]],
+                    coords: torch.Tensor, gdims: Sequence[int],
+                    runs: Sequence[bool], out: torch.Tensor) -> torch.Tensor:
+    """``chunk_max_at`` of each leaf ``(leaf index, offset, size)`` of the
+    rows ``x``, at its block's coordinates (``coords``, the leaves'
+    concatenated), maxed into its global chunks' columns of ``out``
+    (``(rows, nc_g)``, leaf ``j``'s ``n_chunks(gdims[j])`` columns after
+    the previous leaves'); ``runs[j]``: leaf ``j``'s ``whole_chunks``."""
+    g0 = c0 = 0
+    for (_, o, D), G, r in zip(leaves, gdims, runs):
+        c1 = c0 + wire.n_chunks(G)
+        chunk_max_at(x[:, o:o + D], coords[g0:g0 + D], c1 - c0,
+                     out=out[:, c0:c1], whole_chunks=bool(r))
+        g0, c0 = g0 + D, c1
+    return out
 
 
 def wire_pack(x: torch.Tensor, leaves: Sequence[Tuple[int, int, int]],

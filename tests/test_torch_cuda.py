@@ -1562,6 +1562,120 @@ def test_wire_quantize_at_kernel_matches_plain(dev, kind):
     assert _build.launch_counts["wire_quantize_at"] == before + 2
 
 
+def _runs_group(dev, n, first, gap, seed=5):
+    """A kind group mixing both forms of the table kernels: whole-run
+    blocks (rank 1's rows of an (8, 512) leaf, rank 0's columns of a (4,
+    1024) one) and others (runs of 300 of a (6, 100) leaf split on rows
+    and of a (4, 600) leaf split on columns), the first at column
+    ``first``, ``gap`` columns apart; a workspace of n rows with +inf,
+    -inf, NaN and -0 in every block.  Returns ``(leaves, gdims, coords,
+    runs, x)``."""
+    from repro_torch.dist import comm_ws, sharding
+
+    blocks = [((8, 512), (True, False), 1), ((6, 100), (True, False), 1),
+              ((4, 1024), (False, True), 0), ((4, 600), (False, True), 0)]
+    leaves, gdims, ks, runs, o = [], [], [], [], first
+    for i, (shape, spec, m) in enumerate(blocks):
+        k = sharding.shard_coords(shape, spec, 2, m)
+        leaves.append((i + 1, o, k.numel()))
+        gdims.append(int(np.prod(shape)))
+        ks.append(k)
+        runs.append(comm_ws.whole_chunks(k))
+        o += k.numel() + gap
+    assert runs == [True, False, True, False]
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, o)).astype(np.float32)
+    for _, a, D in leaves:
+        x[0, a + 5] = np.inf
+        x[-1, a + D - 2] = -np.inf
+        x[n // 2, a + D // 2] = np.nan
+        x[:, a + 9] = -0.0
+    return (leaves, gdims, torch.cat(ks).to(dev), runs,
+            torch.from_numpy(x).to(dev))
+
+
+@pytest.mark.parametrize("n,first,gap", [(4, 0, 8), (5, 3, 5), (1, 4, 4)])
+def test_chunk_max_at_kernel_matches_plain(dev, n, first, gap):
+    """The chunk maxima kernel bitwise against its plain version over a
+    group of whole-run and other blocks, on and off the 16-byte grid;
+    with ``out`` it maxes into the given maxima; one launch per call."""
+    from repro_torch.dist import wire
+    from repro_torch.kernels import wire_pack
+
+    leaves, gdims, coords, runs, x = _runs_group(dev, n, first, gap)
+    kw = dict(coords=coords, gdims=gdims, runs=runs)
+    before = _build.launch_counts["chunk_max_at"]
+    got = wire_pack.chunk_max_at(x, leaves, **kw)
+    want = wire_pack.chunk_max_at(x.cpu(), leaves, coords=coords.cpu(),
+                                  gdims=gdims, runs=runs)
+    base = torch.rand(want.shape, generator=torch.Generator().manual_seed(n))
+    into = base.to(dev)
+    wire_pack.chunk_max_at(x, leaves, out=into, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(into.cpu(), torch.maximum(base, want))
+    # the whole-run form and the general one read the same maxima
+    plain = wire_pack.chunk_max_at(x, leaves, coords=coords, gdims=gdims)
+    torch.cuda.synchronize()
+    assert torch.equal(plain, got)
+    assert int((want > 0).sum()) > 0 and bool(want.isfinite().all())
+    assert _build.launch_counts["chunk_max_at"] == before + 3
+    row = x[-1].clone()
+    one = wire.leaf_scales_at(row[None, leaves[0][1]:leaves[0][1] +
+                                     leaves[0][2]],
+                              coords[:leaves[0][2]], wire.n_chunks(gdims[0]),
+                              "int8")
+    torch.cuda.synchronize()
+    assert torch.equal(one.cpu(), wire.scales_of_max(
+        want[-1:, :wire.n_chunks(gdims[0])], "int8"))
+    assert _build.launch_counts["chunk_max_at"] == before + 4
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("n,first,gap", [(4, 0, 8), (5, 3, 5)])
+def test_wire_quantize_at_whole_runs_match_plain(dev, kind, n, first, gap):
+    """The quantizer's whole-run and general forms in one group, UpCom
+    (with ``row0``) and DownCom (in place), bitwise against the plain
+    versions with the scales of the chunk maxima (the wire_div path) and
+    with given random scales (__fdiv_rn), the poisoned scales included;
+    the flags change nothing; one launch per call."""
+    from repro_torch.dist import wire
+    from repro_torch.kernels import wire_pack
+
+    leaves, gdims, coords, runs, x = _runs_group(dev, n, first, gap, n)
+    rng = np.random.default_rng(n)
+    before = _build.launch_counts["wire_quantize_at"]
+    mx = wire_pack.chunk_max_at(x, leaves, coords=coords, gdims=gdims,
+                                runs=runs)
+    for sc in (wire.scales_of_max(mx, kind),
+               torch.from_numpy(rng.uniform(0.001, 0.05, size=mx.shape)
+                                .astype(np.float32)).to(dev)):
+        kw = dict(coords=coords, scales=sc, gdims=gdims)
+        codes, out = wire_pack.pack_int(x, leaves, kind, 0xBEEF, 2,
+                                        runs=runs, **kw)
+        codes_g, out_g = wire_pack.pack_int(x, leaves, kind, 0xBEEF, 2,
+                                            **kw)
+        codes_p, out_p = ref.wire_pack(x, leaves, kind, 0xBEEF, 2, **kw)
+        torch.cuda.synchronize()
+        for c, o in ((codes, out), (codes_g, out_g)):
+            assert torch.equal(c, codes_p)
+            assert torch.equal(o.isnan(), out_p.isnan())
+            assert torch.equal(o.nan_to_num(), out_p.nan_to_num())
+        assert int(out.isnan().sum()) >= 3
+        row = x[-1].clone()
+        row[leaves[0][1] + 300] = float("nan")
+        got, want = row.clone(), row.clone()
+        dsc = sc[-1:].contiguous()
+        wire_pack.quantize_down(got, leaves, kind, 0xBEEF, runs=runs,
+                                coords=coords, scales=dsc, gdims=gdims)
+        ref.wire_down(want, leaves, kind, 0xBEEF, coords=coords, scales=dsc,
+                      gdims=gdims)
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert _build.launch_counts["wire_quantize_at"] == before + 6
+
+
 @pytest.mark.parametrize("counts", [False, True])
 @pytest.mark.parametrize("d", [4096 + 512, 4096 + 77])
 def test_masked_sum_dequant_at_kernel_matches_plain(dev, counts, d):
